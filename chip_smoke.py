@@ -16,20 +16,42 @@ Phases:
            tfold_conv1 at B in {1, 3, 128, 256}, T=8, 64x64, C=3, O=16;
            float32 within atol 1e-4, bfloat16 within |err| <= 1e-2*|ref|
            + 1e-5 against the plain version in float32 on the same
-           bf16-rounded inputs
+           bf16-rounded inputs;
+           tfold_conv1's autograd gradient (x and weight, f32 and bf16, B=4)
+           against autograd through the plain version: f32 within 1e-5 of
+           the largest |ref|, bf16 within 2e-2 of it;
+           pairwise_l1 forward and backward at B in {1, 2, 33, 256}, N in
+           {1, 7, 256}, masks all zero / single / random / all one: avg
+           within rtol 1e-5 (atol 1e-7), n_pairs exact, gradient within
+           atol 1e-6, and a second call bit-identical
   model    the family-D checkpoint scores 128 clips on the card (float32,
            TF32 off) and on the CPU: scores and adjacency within atol 1e-4
-  serve    (main path) HTTP server on an ephemeral port, buckets 1,8,32,128,
-           warmed up; npz float32 requests of N=1, 5, 32, a uint8 one of
-           N=8, two of them concurrent; every score within 1e-5 of the
-           direct scorer; /healthz and /stats answer
-  bulk     (main path) the bf16 bulk scorer on 2,048 clips in chunks of
+  serve    (main path 1) HTTP server on an ephemeral port, buckets
+           1,8,32,128, warmed up; npz float32 requests of N=1, 5, 32, a uint8
+           one of N=8, two of them concurrent; every score within 1e-5 of
+           the direct scorer; /healthz and /stats answer
+  bulk     (main path 1) the bf16 bulk scorer on 2,048 clips in chunks of
            256, within 2e-2 of the float32 scorer
-  times    kernel, plain-version and library times at B=256 (CUDA events),
-           the bound, per-bucket request latency, bulk clips/s
-Kernel launch counts are set to 0 just before the main path (serve, bulk)
-and read just after it.  The last lines are the kernels summary, the card's
-nvidia-smi name and power limit, and {"ok": true, "device": {...}}.
+  train_parity  the fixture checkpoint, 3 float32 train steps at B=16 with
+           dropout 0 and injected pseudo-labels on the card and on the CPU:
+           every step's loss and components within rtol 1e-4, parameters
+           within 5e-5; each step launches K1 and K2 forward and backward
+           once
+  train    (main path 2) `Trainer.fit` on the card, float32, B=256, 1,024
+           synthetic train clips and 256 eval clips, uint8 transfer, 3
+           epochs, eval every epoch, checkpoints every epoch; a
+           second trainer runs 2 epochs, a third restores it and runs epoch
+           3: parameters, optimizer state and history bit-identical to the
+           uninterrupted run; the `best` checkpoint scores 128 clips through
+           make_family_d_score_fn within 1e-5 of the eval step
+  times    kernel, plain-version and library times (CUDA events), the
+           bounds, per-bucket request latency, bulk clips/s, the train
+           step at B=256 in f32 and bf16 (median of 20) and its device time
+           by kernel (torch.profiler)
+Kernel launch counts are set to 0 just before each main path (serve + bulk,
+then train) and read just after it.  The last lines are the kernels
+summary, the card's nvidia-smi name and power limit, and
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -39,6 +61,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -52,6 +75,9 @@ CKPT = ROOT / "runs" / "dyn_parity_d" / "ours" / "best_improved_model.pth"
 BUCKETS = (1, 8, 32, 128)
 CLIP = (8, 64, 64, 3)              # (T, H, W, C) of one clip
 BULK_CLIPS, BULK_BATCH = 2048, 256
+TRAIN_BATCH, TRAIN_CLIPS, EVAL_CLIPS, TRAIN_EPOCHS = 256, 1024, 256, 3
+PARITY_BATCH, PARITY_STEPS = 16, 3
+PAIR_MASK_RATE = 0.05  # share of rows out of the mask: anomalous pseudo-labels
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and FLOP/s by type
 HBM_BYTES_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
@@ -162,11 +188,108 @@ def phase_kernels(rng: np.random.Generator) -> dict:
         check(within, f"tfold_conv1 bf16 B={b} beyond rtol 1e-2 "
                       f"(max abs err {e16})")
         err32, err16 = max(err32, e32), max(err16, e16)
+    grad = check_tfold_grad(rng)
+    pair = check_pairwise(rng)
     emit({"phase": "kernels", "kernels": [
         {"name": "tfold_conv1", "comparison_launches": tfold_conv1.launches,
          "max_abs_err_f32": err32, "max_abs_err_bf16": err16,
-         "cases": cases}]})
-    return {"f32": err32, "bf16": err16}
+         "cases": cases, "grad": grad},
+        {"name": "pairwise_l1", **pair}]})
+    return {"f32": err32, "bf16": err16, "pair_fwd": pair["max_abs_err_avg"],
+            "pair_bwd": pair["max_abs_err_grad"]}
+
+
+def check_tfold_grad(rng: np.random.Generator) -> dict:
+    """K1's autograd gradient on the card (the forward launches the kernel,
+    the backward runs the plain version) against autograd through
+    `tfold_conv1_reference`, for x and the weight."""
+    from cvad_tpu_torch.ops.pallas_conv import (tfold_conv1,
+                                                tfold_conv1_reference)
+
+    out = {}
+    x0 = torch.from_numpy(rng.uniform(0, 1, (4, 3) + CLIP[:3])
+                          .astype(np.float32)).cuda()
+    w0 = torch.from_numpy(rng.normal(0, 0.2, (16, 3, 3, 3, 3))
+                          .astype(np.float32)).cuda()
+    g0 = torch.from_numpy(rng.normal(0, 1, (4, 16, 8, 32, 32))
+                          .astype(np.float32)).cuda()
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+        grads = []
+        for fn in (tfold_conv1, tfold_conv1_reference):
+            x = x0.to(dtype).requires_grad_(True)
+            w = w0.to(dtype).requires_grad_(True)
+            with no_tf32():
+                before = tfold_conv1.launches
+                grads.append(torch.autograd.grad(fn(x, w), (x, w),
+                                                 g0.to(dtype)))
+            if fn is tfold_conv1:
+                check(tfold_conv1.launches == before + 1,
+                      "tfold_conv1 forward with a gradient did not launch")
+        torch.cuda.synchronize()
+        errs = {}
+        for name, got, ref in zip(("x", "weight"), *grads):
+            scale = ref.float().abs().max().item()
+            errs[name] = (got.float() - ref.float()).abs().max().item()
+            check(got.dtype == dtype, f"K1 grad dtype {got.dtype}")
+            check(errs[name] <= tol * scale,
+                  f"K1 {dtype} grad {name}: max err {errs[name]} beyond "
+                  f"{tol} x {scale}")
+        out[str(dtype).replace("torch.", "")] = errs
+    return out
+
+
+def pair_inputs(rng: np.random.Generator, b: int, n: int, mask: str):
+    """flat (B, N) in [0, 1) with tied columns (as the adjacency's zero
+    diagonal) and a mask of the named kind, on the card."""
+    flat = rng.uniform(0, 1, (b, n)).astype(np.float32)
+    flat[:, :: max(n // 3, 1)] = 0.0
+    m = {"zero": np.zeros(b), "one": np.ones(b),
+         "single": np.eye(1, b, b // 2)[0],
+         "random": rng.uniform(size=b) >= PAIR_MASK_RATE}[mask]
+    return (torch.from_numpy(flat).cuda(),
+            torch.from_numpy(m.astype(np.float32)).cuda())
+
+
+def check_pairwise(rng: np.random.Generator) -> dict:
+    """K2 forward and backward against the plain versions, and a second
+    call bit-identical to the first."""
+    from cvad_tpu_torch.ops.pallas_kernels import (
+        pairwise_l1_backward_reference, pairwise_l1_mean,
+        pairwise_l1_reference)
+
+    err_avg = err_grad = 0.0
+    n_cases = 0
+    for b in (1, 2, 33, 256):
+        for n in (1, 7, 256):
+            for mask in ("zero", "single", "random", "one"):
+                flat, m = pair_inputs(rng, b, n, mask)
+                f = flat.clone().requires_grad_(True)
+                avg, n_pairs = pairwise_l1_mean(f, m)
+                (g,) = torch.autograd.grad(avg, f)
+                avg2, _ = pairwise_l1_mean(f, m)
+                (g2,) = torch.autograd.grad(avg2, f)
+                ref, ref_n = pairwise_l1_reference(flat, m)
+                ref_g = pairwise_l1_backward_reference(
+                    flat, m, ref_n, torch.ones((), device="cuda"))
+                torch.cuda.synchronize()
+                case = f"B={b} N={n} mask={mask}"
+                ea = abs(avg.item() - ref.item())
+                eg = (g - ref_g).abs().max().item()
+                check(n_pairs.item() == ref_n.item(),
+                      f"pairwise n_pairs {n_pairs.item()} vs "
+                      f"{ref_n.item()} at {case}")
+                check(ea <= 1e-5 * abs(ref.item()) + 1e-7,
+                      f"pairwise avg err {ea} at {case}")
+                check(eg <= 1e-6, f"pairwise grad err {eg} at {case}")
+                check(torch.equal(avg, avg2) and torch.equal(g, g2),
+                      f"pairwise not bit-identical across calls at {case}")
+                err_avg, err_grad = max(err_avg, ea), max(err_grad, eg)
+                n_cases += 1
+    return {"cases": n_cases, "max_abs_err_avg": err_avg,
+            "max_abs_err_grad": err_grad,
+            "comparison_launches": pairwise_l1_mean.launches,
+            "comparison_backward_launches":
+                pairwise_l1_mean.backward_launches}
 
 
 def phase_model(state: dict, clips: np.ndarray) -> None:
@@ -260,6 +383,169 @@ def phase_bulk(state: dict, clips: np.ndarray, ref: np.ndarray):
     return bulk
 
 
+def counts() -> dict:
+    from cvad_tpu_torch.ops.pallas_conv import tfold_conv1
+    from cvad_tpu_torch.ops.pallas_kernels import pairwise_l1_mean
+
+    return {"tfold_conv1": tfold_conv1.launches,
+            "pairwise_l1_forward": pairwise_l1_mean.launches,
+            "pairwise_l1_backward": pairwise_l1_mean.backward_launches}
+
+
+def reset_counts() -> None:
+    from cvad_tpu_torch.ops.pallas_conv import tfold_conv1
+    from cvad_tpu_torch.ops.pallas_kernels import pairwise_l1_mean
+
+    tfold_conv1.launches = 0
+    pairwise_l1_mean.launches = pairwise_l1_mean.backward_launches = 0
+
+
+def train_config(batch: int, **train):
+    from cvad_tpu_torch.config import preset
+
+    cfg = preset("family_d")
+    return cfg.replace(
+        data=cfg.data.replace(batch_size=batch, transfer_dtype="uint8"),
+        train=cfg.train.replace(log_every=10**9, **train))
+
+
+def phase_train_parity(state: dict, rng: np.random.Generator) -> None:
+    """The same 3 float32 steps from the fixture on the card and on the
+    CPU.  Tolerances: metrics rtol 1e-4 (cuDNN and CPU convolutions sum in
+    other orders); parameters 5e-5, a tenth of lr, since Adam's first steps
+    are close to lr * sign(g) and amplify rounding where g is near 0."""
+    from cvad_tpu_torch.train.state import float_metrics
+    from cvad_tpu_torch.train.tasks import build_task
+
+    cfg = train_config(PARITY_BATCH)
+    cfg = cfg.replace(model=cfg.model.replace(dropout=0.0))
+    task = build_task(cfg)
+    clips = rng.integers(0, 256, (PARITY_STEPS, PARITY_BATCH) + CLIP,
+                         dtype=np.uint8)
+    targets = (rng.uniform(size=(PARITY_STEPS, PARITY_BATCH)) < 0.25
+               ).astype(np.float32)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        st = task.init_state(0, dev)  # fresh optimizer state: zero moments
+        st.model.load_state_dict(state, strict=True)
+        before, metrics = counts(), []
+        for i in range(PARITY_STEPS):
+            st, m = task.train_step(st, {
+                "clips": torch.from_numpy(clips[i]).to(dev),
+                "pseudo_targets": torch.from_numpy(targets[i]).to(dev)}, 1)
+            metrics.append(float_metrics(m))
+        rose = {k: v - before[k] for k, v in counts().items()}
+        runs[dev] = (metrics, {k: v.cpu() for k, v in
+                               st.model.state_dict().items()}, rose)
+    (mg, pg, rose), (mc, pc, cpu_rose) = runs["cuda"], runs["cpu"]
+    check(all(v == PARITY_STEPS for v in rose.values()),
+          f"card launches over {PARITY_STEPS} steps: {rose}")
+    check(not any(cpu_rose.values()), f"CPU steps launched {cpu_rose}")
+    err_m = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-6)
+                for a, b in zip(mg, mc) for k in a)
+    err_p = max((pg[k] - pc[k]).abs().max().item() for k in pg)
+    emit({"phase": "train_parity", "batch": PARITY_BATCH,
+          "steps": PARITY_STEPS, "card_launches": rose,
+          "loss_card": [m["loss"] for m in mg],
+          "loss_cpu": [m["loss"] for m in mc],
+          "metrics_max_rel_err": err_m, "params_max_abs_err": err_p})
+    check(err_m <= 1e-4, f"card vs CPU train metrics differ by {err_m}")
+    check(err_p <= 5e-5, f"card vs CPU parameters differ by {err_p}")
+
+
+def same_run(a, b) -> bool:
+    sa, sb = a.state, b.state
+    return (all(torch.equal(x, y) for x, y in
+                zip(sa.model.state_dict().values(),
+                    sb.model.state_dict().values()))
+            and all(torch.equal(getattr(sa.opt_state, k),
+                                getattr(sb.opt_state, k))
+                    for k in ("mu", "nu", "count", "lr"))
+            and sa.step == sb.step
+            and a.history.as_dict() == b.history.as_dict())
+
+
+def phase_train(workdir: Path) -> dict:
+    """Main path 2: `Trainer.fit` on the card, an interrupted run resumed
+    from its epoch-2 checkpoint, and the `best` checkpoint scored."""
+    from cvad_tpu_torch.data.batcher import BatchLoader
+    from cvad_tpu_torch.data.datasets import build_dataset
+    from cvad_tpu_torch.evaluation.scoring import make_family_d_score_fn
+    from cvad_tpu_torch.runtime.checkpoint import load_torch_state_dict
+    from cvad_tpu_torch.train.engine import Trainer
+    from cvad_tpu_torch.train.state import param_count
+
+    cfg = train_config(TRAIN_BATCH, num_epochs=TRAIN_EPOCHS, eval_every=1,
+                       save_interval=1)
+    t0 = time.perf_counter()
+    # make_loaders' loaders, with the eval split cut to EVAL_CLIPS
+    train_loader = BatchLoader(build_dataset(cfg.data, "Train", TRAIN_CLIPS),
+                               TRAIN_BATCH, shuffle=True, seed=cfg.data.seed,
+                               transfer_dtype="uint8")
+    eval_loader = BatchLoader(build_dataset(cfg.data, "Test", EVAL_CLIPS),
+                              TRAIN_BATCH, transfer_dtype="uint8")
+    data_s = time.perf_counter() - t0
+    score_clips = np.stack([eval_loader.dataset.get_uint8(i)[0] for i in
+                            range(min(128, len(eval_loader.dataset)))])
+
+    reset_counts()
+    t0 = time.perf_counter()
+    full = Trainer(cfg, out_dir=str(workdir / "full"))
+    hist = full.fit(train_loader, eval_loader)
+    fit_s = time.perf_counter() - t0
+    first = Trainer(cfg.replace(train=cfg.train.replace(
+        num_epochs=TRAIN_EPOCHS - 1)), out_dir=str(workdir / "resumed"))
+    first.fit(train_loader, eval_loader)
+    resumed = Trainer(cfg, out_dir=str(workdir / "resumed"))
+    restored = resumed.restore()
+    resumed.fit(train_loader, eval_loader)
+    best = full.ckpt.path("best")
+    scores, adj = make_family_d_score_fn(load_torch_state_dict(str(best)))(
+        score_clips)
+    ref = Trainer(cfg, out_dir=str(workdir / "ref"))
+    ref.init_state()
+    ref.state.load_state_dict(full.ckpt.restore("best"))
+    want = ref.task.eval_step(ref.state, ref.put_batch(
+        {"clips": score_clips}))
+    torch.cuda.synchronize()
+    launches = counts()
+
+    steps = (2 * TRAIN_EPOCHS) * (TRAIN_CLIPS // TRAIN_BATCH)
+    err_s = float(np.abs(scores - want["predictions"].cpu().numpy()).max())
+    err_a = float(np.abs(adj - want["causal_graphs"].cpu().numpy()).max())
+    bit_identical = same_run(full, resumed)
+    n_params = param_count(full.state.model)
+    emit({"phase": "train", "params": n_params, "batch": TRAIN_BATCH,
+          "train_clips": TRAIN_CLIPS,
+          "eval_clips": len(eval_loader.dataset), "epochs": TRAIN_EPOCHS,
+          "train_steps": steps, "launches": launches,
+          "synthetic_data_s": data_s, "fit_s": fit_s,
+          "train_losses": hist["train_losses"],
+          "eval_score_range": [e["score_range"]
+                               for e in hist["evaluation_metrics"]],
+          "resumed_from_epoch": restored,
+          "resume_bit_identical": bit_identical,
+          "best_checkpoint_score_err": err_s, "best_checkpoint_adj_err": err_a,
+          "best_score_mean": float(scores.mean())})
+    check(n_params == 188849, f"{n_params} parameters, not the shipped "
+                              "model's 188,849")
+    check(len(hist["epochs"]) == TRAIN_EPOCHS
+          and all(np.isfinite(hist["train_losses"])), "train history")
+    check(restored == TRAIN_EPOCHS - 1, f"restored epoch {restored}")
+    check(bit_identical, "the resumed run differs from the uninterrupted one")
+    check(scores.shape == (len(score_clips),)
+          and bool(np.isfinite(scores).all()),
+          "best checkpoint scores")
+    check(err_s <= 1e-5 and err_a <= 1e-5,
+          f"best checkpoint scorer vs eval step: {err_s}, {err_a}")
+    check(launches["pairwise_l1_forward"] == steps
+          and launches["pairwise_l1_backward"] == steps,
+          f"K2 launches {launches} for {steps} train steps")
+    check(launches["tfold_conv1"] >= steps,
+          f"K1 launches {launches} for {steps} train steps")
+    return launches
+
+
 def kernel_times(rng: np.random.Generator, dtype: torch.dtype) -> dict:
     """tfold_conv1 at the bulk shape (B=256): kernel, plain version and the
     library conv, with the bound from this call's bytes and operations."""
@@ -291,19 +577,137 @@ def kernel_times(rng: np.random.Generator, dtype: torch.dtype) -> dict:
             "share_of_bound": bound / ms, "bytes": nbytes, "flops": flops}
 
 
-def forward_breakdown(score, clips: np.ndarray) -> dict:
-    """Device time by kernel over one scorer call (host copy in, forward,
-    copy out), from torch.profiler; busy share = summed device time over the
-    call's wall time."""
+def bound(nbytes: float, ops: float, peak: float) -> dict:
+    """The least time for `nbytes` moved and `ops` done at `peak`
+    operations/s, and which of the two bounds it."""
+    bytes_ms = nbytes / HBM_BYTES_S * 1e3
+    ops_ms = ops / peak * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": nbytes, "ops": ops}
+
+
+def pairwise_times(rng: np.random.Generator) -> dict:
+    """K2 forward and backward at B = N = 256 with a mask at the main
+    path's rate: kernels, plain versions, and torch.cdist(p=1) (the library
+    call for the pairwise L1 matrix, which the port never calls) with its
+    backward.  Simple operations (sub, abs or sign, add) count one each at
+    the float32 rate."""
+    from cvad_tpu_torch.ops.pallas_kernels import (
+        _launch_backward, _launch_forward, pairwise_l1_backward_reference,
+        pairwise_l1_reference)
+
+    b = n = 256
+    flat, m = pair_inputs(rng, b, n, "random")
+    ct = torch.ones((), device="cuda")
+    avg, n_pairs = _launch_forward(flat, m)
+    s = float(m.sum())
+    pairs = float(n_pairs)
+    fwd = {"ms": cuda_ms(lambda: _launch_forward(flat, m), iters=200),
+           "plain_ms": cuda_ms(lambda: pairwise_l1_reference(flat, m),
+                               iters=20),
+           "library_ms": cuda_ms(lambda: torch.cdist(flat, flat, p=1),
+                                 iters=200),
+           **bound((b * n + b + 2) * 4, 3 * pairs * n,
+                   PEAK_FLOPS[torch.float32])}
+    fr = flat.clone().requires_grad_(True)
+    w = torch.triu(m[:, None] * m[None, :], 1)
+    lib_loss = (torch.cdist(fr, fr, p=1) * w).sum()
+    bwd = {"ms": cuda_ms(lambda: _launch_backward(flat, m, n_pairs, ct),
+                         iters=200),
+           "plain_ms": cuda_ms(lambda: pairwise_l1_backward_reference(
+               flat, m, n_pairs, ct), iters=20),
+           "library_ms": cuda_ms(lambda: torch.autograd.grad(
+               lib_loss, fr, retain_graph=True), iters=50),
+           **bound((2 * b * n + b + 2) * 4, 3 * s * s * n,
+                   PEAK_FLOPS[torch.float32])}
+    for t in (fwd, bwd):
+        t["share_of_bound"] = t["bound_ms"] / t["ms"]
+    return {"B": b, "N": n, "mask_rows": s, "n_pairs": pairs,
+            "forward": fwd, "backward": bwd}
+
+
+def tfold_backward_times(rng: np.random.Generator) -> dict:
+    """K1's backward through the plain version (the folded conv's backward)
+    at B=256, under the train step's cuDNN settings: the weight gradient
+    alone, as on the main path, where the clips need none, and with the
+    input gradient.  The library call is the unfolded Conv3d's backward
+    (`aten.convolution_backward`, what F.conv3d's autograd runs)."""
+    from cvad_tpu_torch.ops.pallas_conv import tfold_conv1_backward_reference
+    from cvad_tpu_torch.train.tasks import card_numerics
+
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.from_numpy(rng.uniform(0, 1, (BULK_BATCH, 3) + CLIP[:3])
+                             .astype(np.float32)).cuda().to(dtype)
+        w = torch.from_numpy(rng.normal(0, 0.2, (16, 3, 3, 3, 3))
+                             .astype(np.float32)).cuda().to(dtype)
+        g = torch.randn((BULK_BATCH, 16, 8, 32, 32), device="cuda").to(dtype)
+
+        def library(needs):
+            return torch.ops.aten.convolution_backward(
+                g, x, w, None, [1, 2, 2], [1, 1, 1], [1, 1, 1], False,
+                [0, 0, 0], 1, [needs[0], needs[1], False])
+
+        with card_numerics():
+            out[str(dtype).replace("torch.", "")] = {
+                "weight_grad_ms": cuda_ms(
+                    lambda: tfold_conv1_backward_reference(
+                        g, x, w, (False, True)), iters=20),
+                "x_and_weight_grad_ms": cuda_ms(
+                    lambda: tfold_conv1_backward_reference(g, x, w),
+                    iters=20),
+                "library_weight_grad_ms": cuda_ms(
+                    lambda: library((False, True)), iters=5),
+                "library_x_and_weight_grad_ms": cuda_ms(
+                    lambda: library((True, True)), iters=5)}
+    return out
+
+
+def train_step_times(rng: np.random.Generator, dtype: str) -> dict:
+    """The family-D train step at B=256 from uint8 clips already on the
+    card: CUDA events around each of 20 steps after 3 warm-up steps."""
+    from cvad_tpu_torch.train.tasks import build_task
+
+    task = build_task(train_config(TRAIN_BATCH, dtype=dtype))
+    state = task.init_state(0, "cuda")
+    batch = {"clips": torch.from_numpy(rng.integers(
+        0, 256, (TRAIN_BATCH,) + CLIP, dtype=np.uint8)).cuda()}
+
+    def step():
+        nonlocal state
+        state, _ = task.train_step(state, batch, 1)
+
+    for _ in range(3):
+        step()
+    ms = []
+    for _ in range(20):
+        start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        step()
+        stop.record()
+        stop.synchronize()
+        ms.append(start.elapsed_time(stop))
+    med = statistics.median(ms)
+    return {"dtype": dtype, "B": TRAIN_BATCH, "steps": len(ms),
+            "median_ms": med, "min_ms": min(ms), "max_ms": max(ms),
+            "clips_per_s": TRAIN_BATCH / med * 1e3,
+            "breakdown": device_breakdown(step)}
+
+
+def device_breakdown(fn) -> dict:
+    """Device time by kernel over one call of `fn` (warm), from
+    torch.profiler; busy share = summed device time over the call's wall
+    time (the call ends in a synchronize)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    score(clips)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        score(clips)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     rows = [(e.key, e.device_time_total, e.count)
@@ -311,10 +715,16 @@ def forward_breakdown(score, clips: np.ndarray) -> dict:
             if e.device_type == DeviceType.CUDA]
     rows.sort(key=lambda r: -r[1])
     busy_us = sum(r[1] for r in rows)
-    return {"clips": len(clips), "wall_ms": wall_us / 1e3,
-            "device_ms": busy_us / 1e3, "device_busy_share": busy_us / wall_us,
+    return {"wall_ms": wall_us / 1e3, "device_ms": busy_us / 1e3,
+            "device_busy_share": busy_us / wall_us,
             "top": [{"name": k[:80], "ms": t / 1e3, "calls": c}
-                    for k, t, c in rows[:8]]}
+                    for k, t, c in rows[:12]]}
+
+
+def forward_breakdown(score, clips: np.ndarray) -> dict:
+    """Device time by kernel over one scorer call (host copy in, forward,
+    copy out)."""
+    return {"clips": len(clips), **device_breakdown(lambda: score(clips))}
 
 
 def request_latency(base: str, rng: np.random.Generator, n: int = 30
@@ -349,7 +759,6 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "runs the port on a CUDA card", file=sys.stderr)
         return 1
-    from cvad_tpu_torch.ops.pallas_conv import tfold_conv1
     from cvad_tpu_torch.evaluation.scoring import make_family_d_score_fn
     from cvad_tpu_torch.runtime.checkpoint import load_torch_state_dict
 
@@ -362,7 +771,7 @@ def main() -> int:
     state = load_torch_state_dict(str(CKPT))
     phase_model(state, rng.uniform(0, 1, (128,) + CLIP).astype(np.float32))
 
-    # inputs of the main path, and the direct float32 scorer's answers to
+    # inputs of main path 1, and the direct float32 scorer's answers to
     # them, made before the launch counts are reset
     requests = [rng.uniform(0, 1, (n,) + CLIP).astype(np.float32)
                 for n in (1, 5, 32)]
@@ -373,13 +782,15 @@ def main() -> int:
     bulk_ref = np.concatenate([direct(bulk_clips[i:i + BULK_BATCH])[0]
                                for i in range(0, BULK_CLIPS, BULK_BATCH)])
 
-    tfold_conv1.launches = 0
+    reset_counts()
     srv, base = phase_serve(requests, direct_scores)
     try:
         bulk = phase_bulk(state, bulk_clips, bulk_ref)
-        launches = tfold_conv1.launches
-        emit({"phase": "main_path", "launches": {"tfold_conv1": launches}})
-        check(launches > 0, "the main path never launched tfold_conv1")
+        serve_launches = counts()
+        emit({"phase": "main_path", "path": "serve", "launches":
+              serve_launches})
+        check(serve_launches["tfold_conv1"] > 0,
+              "the serving path never launched tfold_conv1")
 
         times32 = kernel_times(rng, torch.float32)
         times16 = kernel_times(rng, torch.bfloat16)
@@ -394,12 +805,24 @@ def main() -> int:
     breakdown = {
         "f32_bucket128": forward_breakdown(direct, requests[2].repeat(4, 0)),
         "bf16_bulk_chunk": forward_breakdown(bulk, bulk_clips[:BULK_BATCH])}
+
+    phase_train_parity(state, rng)
+    with tempfile.TemporaryDirectory(prefix="cvad_chip_smoke_") as tmp:
+        train_launches = phase_train(Path(tmp))  # resets the counts first
+    emit({"phase": "main_path", "path": "train", "launches": train_launches})
+
+    train_times = [train_step_times(rng, "float32"),
+                   train_step_times(rng, "bfloat16")]
+    pair_t = pairwise_times(rng)
+    k1_bwd = tfold_backward_times(rng)
     emit({"phase": "times", "card": dev["card"], "kernel": [times32, times16],
           "request_latency": latency, "forward_breakdown": breakdown,
           "bulk": {"clips": BULK_CLIPS, "batch": BULK_BATCH,
                    "dtype": "bfloat16", "input": "uint8",
                    "seconds": bulk_s,
                    "clips_per_s": BULK_CLIPS / statistics.median(bulk_s)},
+          "train_step": train_times, "pairwise_l1": pair_t,
+          "tfold_conv1_backward_plain": k1_bwd,
           "total_s": time.perf_counter() - t_start})
 
     def row(t: dict, err: float) -> dict:
@@ -410,10 +833,31 @@ def main() -> int:
         {"name": "tfold_conv1", "route": "cuda",
          "source": "cvad_tpu_torch/csrc/tfold_conv1.cu",
          "replaces": "cvad_tpu/ops/pallas_conv.py:178",
-         "launches": launches, "dtype": "float32", "B": BULK_BATCH,
+         "launches": serve_launches["tfold_conv1"]
+         + train_launches["tfold_conv1"],
+         "launches_by_path": {"serve": serve_launches["tfold_conv1"],
+                              "train": train_launches["tfold_conv1"]},
+         "dtype": "float32", "B": BULK_BATCH,
          **row(times32, errs["f32"]),
          "bfloat16": row(times16, errs["bf16"]),
-         "card": dev["card"]}]})
+         "backward_plain_ms": k1_bwd, "card": dev["card"]},
+        {"name": "pairwise_l1_forward", "route": "cuda",
+         "source": "cvad_tpu_torch/csrc/pairwise_l1.cu",
+         "replaces": "cvad_tpu/ops/pallas_kernels.py:214",
+         "launches": train_launches["pairwise_l1_forward"],
+         "launches_by_path": {"serve": serve_launches["pairwise_l1_forward"],
+                              "train": train_launches["pairwise_l1_forward"]},
+         "dtype": "float32", "B": pair_t["B"], "N": pair_t["N"],
+         **row(pair_t["forward"], errs["pair_fwd"]), "card": dev["card"]},
+        {"name": "pairwise_l1_backward", "route": "cuda",
+         "source": "cvad_tpu_torch/csrc/pairwise_l1.cu",
+         "replaces": "cvad_tpu/ops/pallas_kernels.py:243",
+         "launches": train_launches["pairwise_l1_backward"],
+         "launches_by_path": {
+             "serve": serve_launches["pairwise_l1_backward"],
+             "train": train_launches["pairwise_l1_backward"]},
+         "dtype": "float32", "B": pair_t["B"], "N": pair_t["N"],
+         **row(pair_t["backward"], errs["pair_bwd"]), "card": dev["card"]}]})
     print(dev["card"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],
                                  "count": dev["count"]}})

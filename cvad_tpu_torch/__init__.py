@@ -13,12 +13,19 @@ take and that the tests hold the kernel against.
 Layout is torch's own (N, C, T, H, W) inside the models; the public scoring
 functions take (N, T, H, W, C) clips as `cvad_tpu`'s do.
 
-Ported so far (slice 1, family-D serving):
-  runtime     -> device selection, `.pth` loading and JAX-params conversion
-  ops         -> T-folded conv1 kernel (K1) and its build
-  models      -> `CausalAnomalyDetector` (family D)
-  evaluation  -> scorers, bucketed batching service, HTTP front-end
-  cli         -> `serve`
+Ported so far (slice 1, family-D serving; slice 2, family-D training):
+  runtime     -> device selection, `.pth` loading, JAX-params and optax-state
+                 conversion, training checkpoints, history, metric log
+  ops         -> T-folded conv1 kernel (K1, differentiable), masked pairwise
+                 L1 kernel (K2, forward and backward), their build, the
+                 family-D loss
+  models      -> `CausalAnomalyDetector` (family D), dropout from a generator
+  data        -> synthetic clips, `SyntheticClipDataset`, `BatchLoader`
+  train       -> optimizer and schedulers, train state, the family-D steps,
+                 `Trainer`
+  evaluation  -> scorers, bucketed batching service, HTTP front-end, eval
+                 metrics
+  cli         -> `train`, `serve`
 """
 
 __version__ = "0.1.0"

@@ -1,27 +1,72 @@
-"""Configuration for the port's family-D slice.
+"""Configuration for the port's family-D slices (serving and training).
 
-An own copy of the fields of `cvad_tpu.config.DataConfig` and
-`cvad_tpu.config.FamilyDConfig` that the serving path reads; the port imports
-nothing of `cvad_tpu`.  The TPU lowering knobs of `FamilyDConfig`
-(`conv1_mode`, `conv_stack`, `conv_group_impl`) are left out: they select
-exact relowerings of the same convolution that exist to fill TPU tiles.
+An own copy of the fields of `cvad_tpu.config` that the family-D serving and
+training paths read; the port imports nothing of `cvad_tpu`.  The TPU
+lowering knobs of `FamilyDConfig` (`conv1_mode`, `conv_stack`,
+`conv_group_impl`) are left out: they select exact relowerings of the same
+convolution that exist to fill TPU tiles.  Knobs of `TrainConfig` that have
+no port yet are carried and refused where they are read (`Trainer`), so that
+setting one never silently runs something else:
+
+- ``steps_per_call > 1`` (K steps per call): ROADMAP Queue 1 item 5;
+- ``device_cache='on'`` (the device clip cache): ROADMAP Queue 1 item 15;
+  ``'auto'`` resolves to off.
+
+`ParallelConfig` (the device mesh, ROADMAP Queue 1 item 14) is not carried.
+Configs are frozen dataclasses that write JSON as `cvad_tpu`'s do.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Tuple
+import dataclasses
+import json
+from dataclasses import dataclass, field
+from typing import Any, Tuple
+
+
+def _asdict(cfg: Any) -> Any:
+    if dataclasses.is_dataclass(cfg) and not isinstance(cfg, type):
+        return {f.name: _asdict(getattr(cfg, f.name))
+                for f in dataclasses.fields(cfg)}
+    if isinstance(cfg, (list, tuple)):
+        return [_asdict(v) for v in cfg]
+    return cfg
+
+
+class _Base:
+    """JSON output and `replace` for all configs."""
+
+    def to_dict(self) -> dict:
+        return _asdict(self)
+
+    def to_json(self, **kw) -> str:
+        return json.dumps(self.to_dict(), indent=2, **kw)
+
+    def replace(self, **kw):
+        return dataclasses.replace(self, **kw)
 
 
 @dataclass(frozen=True)
-class DataConfig:
-    """Clip windowing: 8-frame RGB clips at 64x64, as the checkpoint-producing
-    Avenue pipeline uses them."""
+class DataConfig(_Base):
+    """Clip windowing and batching: 8-frame RGB clips at 64x64, as the
+    checkpoint-producing Avenue pipeline uses them.  Only the synthetic
+    dataset is ported (`data/datasets.py::build_dataset`)."""
 
+    dataset: str = "synthetic"
     clip_len: int = 8
     frame_size: Tuple[int, int] = (64, 64)  # (H, W)
     channels: int = 3
     stride: int = 4
+    normalize_clamp: Tuple[float, float] = (0.0, 1.0)
+    batch_size: int = 32
+    prefetch: int = 2
+    num_decode_threads: int = 4
+    # host->device transfer dtype: uint8 sends 4x fewer bytes and the train
+    # step normalises on the device
+    transfer_dtype: str = "float32"  # float32 | uint8
+    # 'easy': separable fixture recipe; 'hard': motion coherence only
+    synthetic_profile: str = "easy"
+    seed: int = 0
 
     @property
     def clip_shape(self) -> Tuple[int, int, int, int]:
@@ -30,11 +75,12 @@ class DataConfig:
 
 
 @dataclass(frozen=True)
-class FamilyDConfig:
+class FamilyDConfig(_Base):
     """Flagship causal model: 3D CNN 3->16->32->64, adaptive pool (4,4,4),
     16 causal variables, 16x16 adjacency, 128-hidden graph encoder -> 64,
     predictor 80->32->1 sigmoid."""
 
+    name: str = "family_d"
     in_channels: int = 3
     causal_dim: int = 16
     hidden_dim: int = 128
@@ -46,3 +92,94 @@ class FamilyDConfig:
     # computation dtype of the conv stack and fc ('float32' | 'bfloat16');
     # parameters stay float32 and the heads run in float32
     dtype: str = "float32"
+
+
+@dataclass(frozen=True)
+class LossConfig(_Base):
+    """Family-D loss weights: focal anomaly 1.0, acyclicity 0.01, sparsity
+    0.001, consistency 0.01, structure 0.01; focal alpha/gamma 0.25/2.0;
+    pseudo-label anomaly rate 5%; sparsity target 0.3 at edge threshold 0.1;
+    structure band [10, 40] edges."""
+
+    anomaly_weight: float = 1.0
+    causal_weight: float = 0.01
+    sparsity_weight: float = 0.001
+    consistency_weight: float = 0.01
+    structure_weight: float = 0.01
+    focal_alpha: float = 0.25
+    focal_gamma: float = 2.0
+    pseudo_anomaly_rate: float = 0.05
+    edge_threshold: float = 0.1
+    target_sparsity: float = 0.3
+    consistency_target: float = 0.1
+    min_edges: int = 10
+    max_edges: int = 40
+
+
+@dataclass(frozen=True)
+class OptimConfig(_Base):
+    """Optimizer and schedule; defaults are the family-D AdamW recipe."""
+
+    optimizer: str = "adamw"  # adamw | adam
+    lr: float = 5e-4
+    weight_decay: float = 1e-3
+    b1: float = 0.9
+    b2: float = 0.999
+    grad_clip: float = 0.5
+    # >0: clip to grad_clip only when the global norm exceeds this trigger
+    clip_trigger: float = 0.0
+    schedule: str = "plateau"  # plateau | cosine | step | constant
+    plateau_factor: float = 0.5
+    plateau_patience: int = 5
+    cosine_steps: int = 0
+    step_size: int = 15
+    step_gamma: float = 0.7
+
+
+@dataclass(frozen=True)
+class TrainConfig(_Base):
+    num_epochs: int = 80
+    eval_every: int = 5
+    save_interval: int = 10
+    log_every: int = 20
+    seed: int = 0
+    dtype: str = "float32"  # float32 | bfloat16 compute
+    best_metric: str = "score_range"
+    best_mode: str = "max"
+    early_stop_patience: int = 0  # 0 = off
+    reload_best: bool = False
+    out_dir: str = "results"
+    history_name: str = "improved_training_history.json"
+    # K train steps per call: only 1 is ported (ROADMAP Queue 1 item 5)
+    steps_per_call: int = 1
+    # >0: rolling 'mid' checkpoint every N steps; restore resumes the
+    # interrupted epoch at the exact batch
+    save_every_steps: int = 0
+    # device clip cache: 'auto' resolves to off, 'on' is not ported (ROADMAP
+    # Queue 1 item 15)
+    device_cache: str = "auto"
+
+
+@dataclass(frozen=True)
+class ExperimentConfig(_Base):
+    """One config per entry point."""
+
+    model: FamilyDConfig = field(default_factory=FamilyDConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+    loss: LossConfig = field(default_factory=LossConfig)
+    optim: OptimConfig = field(default_factory=OptimConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+
+
+FAMILY_D_PRESETS = ("avenue_improved", "family_d", "avenue_training_script2")
+
+
+def preset(name: str) -> ExperimentConfig:
+    """Named presets.  The port holds family D only; the other families'
+    presets wait for their slices (ROADMAP Queue 1 items 8-11)."""
+    if name in FAMILY_D_PRESETS:
+        return ExperimentConfig()
+    raise NotImplementedError(
+        f"preset {name!r} is not ported; the port trains family D "
+        f"({', '.join(FAMILY_D_PRESETS)}); other families are ROADMAP "
+        f"Queue 1 items 8-11")

@@ -10,12 +10,19 @@ reference's state-dict keys, so a reference ``best_improved_model.pth``
 loads with ``load_state_dict(strict=True)``.  With ``cfg.dtype='bfloat16'``
 the conv stack and ``fc`` run in bf16 by explicit casts (parameters stay
 float32), and the heads run in float32, as in `cvad_tpu`.
+
+Dropout (``cfg.dropout``, after ``fc`` and inside the graph encoder) applies
+in ``train()`` mode, the counterpart of flax's ``deterministic=False``, and
+draws its masks from the `torch.Generator` the caller passes to `forward`
+(the counterpart of flax's dropout rng; torch's default generator when
+none is given).  It keeps each value with probability 1 - p and scales it
+by 1 / (1 - p), as flax does.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -23,6 +30,16 @@ from torch import nn
 
 from cvad_tpu_torch.config import FamilyDConfig
 from cvad_tpu_torch.models.layers import TFoldConv1
+
+
+def dropout(x: torch.Tensor, p: float, training: bool,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Inverted dropout drawn from `generator` (`nn.Dropout` cannot take
+    one); the identity outside training or at p = 0."""
+    if not training or p == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
 
 
 def _conv(conv: nn.Conv3d, x: torch.Tensor) -> torch.Tensor:
@@ -45,9 +62,10 @@ class CompactFeatureExtractor(nn.Module):
         self.conv3d_2 = nn.Conv3d(c1, c2, 3, stride=2, padding=1)
         self.conv3d_3 = nn.Conv3d(c2, c3, 3, stride=2, padding=1)
         self.fc = nn.Linear(c3 * math.prod(self.pool_out), cfg.causal_dim)
-        self.dropout = nn.Dropout(cfg.dropout)
+        self.p = cfg.dropout
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         x = x.to(self.dtype)
         x = F.relu(self.conv3d_1(x))
         x = F.relu(_conv(self.conv3d_2, x))
@@ -57,7 +75,7 @@ class CompactFeatureExtractor(nn.Module):
         # NCTHW flattens channel-major, the order the reference fc expects
         x = x.reshape(x.shape[0], -1)
         x = F.linear(x, self.fc.weight.to(x.dtype), self.fc.bias.to(x.dtype))
-        return self.dropout(x).float()
+        return dropout(x, self.p, self.training, generator).float()
 
 
 class DifferentiableCausalDiscovery(nn.Module):
@@ -95,6 +113,8 @@ class CausalAnomalyDetector(nn.Module):
         d = cfg.causal_dim
         self.feature_extractor = CompactFeatureExtractor(cfg)
         self.causal_discovery = DifferentiableCausalDiscovery(cfg)
+        # the reference's layout, so the state-dict keys are graph_encoder.0
+        # and .3; forward applies the layers one by one, with `dropout`
         self.graph_encoder = nn.Sequential(
             nn.Linear(d * d, cfg.hidden_dim), nn.ReLU(),
             nn.Dropout(cfg.dropout),
@@ -103,10 +123,14 @@ class CausalAnomalyDetector(nn.Module):
             nn.Linear(d + cfg.graph_embed_dim, 32), nn.ReLU(),
             nn.Linear(32, 1), nn.Sigmoid())
 
-    def forward(self, clips: torch.Tensor
+    def forward(self, clips: torch.Tensor,
+                generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        features = self.feature_extractor(clips)
+        """`generator` feeds dropout's masks in ``train()`` mode."""
+        features = self.feature_extractor(clips, generator)
         adj = self.causal_discovery(features)
-        g = self.graph_encoder(adj.reshape(adj.shape[0], -1))
+        ge = self.graph_encoder
+        g = F.relu(ge[0](adj.reshape(adj.shape[0], -1)))
+        g = ge[3](dropout(g, self.cfg.dropout, self.training, generator))
         scores = self.anomaly_predictor(torch.cat([features, g], dim=-1))
         return scores, adj, features

@@ -1,0 +1,108 @@
+"""Family D's loss, in PyTorch.
+
+Port of `cvad_tpu/ops/losses.py:21-116`: binary cross-entropy, the focal
+loss as the reference composes it, the masked mean, pseudo-labels and the
+five-term ``improved_loss``.  The consistency term calls the port's
+`pairwise_l1_mean`, which launches K2 for CUDA tensors.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from cvad_tpu_torch.config import LossConfig
+from cvad_tpu_torch.ops.pallas_kernels import pairwise_l1_mean
+
+_EPS = 1e-7
+
+
+def binary_cross_entropy(p: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Elementwise BCE on probabilities, p clipped to [1e-7, 1 - 1e-7]."""
+    p = torch.clamp(p, _EPS, 1.0 - _EPS)
+    return -(t * torch.log(p) + (1.0 - t) * torch.log(1.0 - p))
+
+
+def _masked_mean(x: torch.Tensor, valid: Optional[torch.Tensor]
+                 ) -> torch.Tensor:
+    """Mean over the rows (axis 0) that `valid` keeps; plain mean without
+    a mask."""
+    if valid is None:
+        return x.mean()
+    w = valid.reshape(valid.shape[0], *([1] * (x.dim() - 1)))
+    return (x * w).sum() / torch.clamp(
+        valid.sum() * (x.numel() / x.shape[0]), min=1.0)
+
+
+def focal_bce(p: torch.Tensor, t: torch.Tensor, alpha: float = 0.25,
+              gamma: float = 2.0, valid: Optional[torch.Tensor] = None
+              ) -> torch.Tensor:
+    """ce -> pt = exp(-ce) -> alpha (1 - pt)^gamma ce, mean over `valid`."""
+    ce = binary_cross_entropy(p, t)
+    pt = torch.exp(-ce)
+    focal = alpha * (1.0 - pt) ** gamma * ce
+    return _masked_mean(focal, valid)
+
+
+def pseudo_labels(generator: torch.Generator, batch: int, rate: float,
+                  device=None) -> torch.Tensor:
+    """Random pseudo-labels: a `rate` fraction anomalous (uniform >
+    1 - rate), drawn from `generator`."""
+    u = torch.rand(batch, generator=generator, device=device)
+    return (u > (1.0 - rate)).float()
+
+
+def improved_loss(anomaly_scores: torch.Tensor, causal_adj: torch.Tensor,
+                  pseudo_targets: torch.Tensor, cfg: LossConfig = LossConfig(),
+                  valid: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Family-D five-term loss: focal anomaly, acyclicity
+    tr((mean adj)^2), sparsity |edge share - target|, consistency
+    |avg pairwise normal-adjacency L1 - target|, and the band penalty on the
+    batch edge count.  `valid` (B,) excludes padded rows from every term.
+    Scores (B, 1) or (B,), adjacency (B, N, N), targets (B,)."""
+    b = causal_adj.shape[0]
+    v = (torch.ones(b, dtype=torch.float32, device=causal_adj.device)
+         if valid is None else valid.float())
+    n_valid = torch.clamp(v.sum(), min=1.0)
+    scores = anomaly_scores.reshape(-1)
+    anomaly = focal_bce(scores, pseudo_targets, cfg.focal_alpha,
+                        cfg.focal_gamma, valid=valid)
+
+    mean_adj = (causal_adj * v[:, None, None]).sum(0) / n_valid
+    acyclicity = torch.trace(mean_adj @ mean_adj)
+
+    edges = (causal_adj > cfg.edge_threshold).float()
+    per_cell = causal_adj.shape[1] * causal_adj.shape[2]
+    edge_count = (edges * v[:, None, None]).sum()
+    current_sparsity = edge_count / (n_valid * per_cell)
+    sparsity = torch.abs(current_sparsity - cfg.target_sparsity)
+
+    normal = (pseudo_targets == 0).float() * v
+    flat = causal_adj.reshape(b, -1).contiguous()
+    avg_dist, n_pairs = pairwise_l1_mean(flat, normal)
+    zero = torch.zeros_like(avg_dist)
+    consistency = torch.where(
+        n_pairs > 0, torch.abs(avg_dist - cfg.consistency_target), zero)
+
+    structure = torch.where(
+        edge_count < cfg.min_edges, (cfg.min_edges - edge_count) * 0.01,
+        torch.where(edge_count > cfg.max_edges,
+                    (edge_count - cfg.max_edges) * 0.01, zero))
+
+    total = (cfg.anomaly_weight * anomaly
+             + cfg.causal_weight * acyclicity
+             + cfg.sparsity_weight * sparsity
+             + cfg.consistency_weight * consistency
+             + cfg.structure_weight * structure)
+    components = {
+        "anomaly_loss": anomaly,
+        "acyclicity_loss": acyclicity,
+        "sparsity_loss": sparsity,
+        "consistency_loss": consistency,
+        "structure_loss": structure,
+        "edge_count": edge_count,
+        "sparsity_ratio": current_sparsity,
+    }
+    return total, components

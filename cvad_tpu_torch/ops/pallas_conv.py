@@ -8,9 +8,17 @@ every T output at once.  Here:
 - `fold_input` / `fold_kernel` build that folded form in torch's layout;
 - `tfold_conv1_reference`, the plain version, is the folded `F.conv2d`
   unfolded back to (B, O, T, Ho, Wo), accumulated in float32;
-- `tfold_conv1` runs the hand-written Hopper kernel
-  (`csrc/tfold_conv1.cu`) for CUDA tensors and the plain version for CPU
-  tensors, and for nothing else.
+- `tfold_conv1` is a `torch.autograd.Function`.  Its forward runs the
+  hand-written Hopper kernel (`csrc/tfold_conv1.cu`) for CUDA tensors and
+  the plain version for CPU tensors, and for nothing else.  Its backward
+  runs through the plain version, as `cvad_tpu` takes `jax.vjp` of its
+  reference conv (`cvad_tpu/ops/pallas_conv.py:207-210`); there is no
+  backward kernel there either.  The plain backward
+  (`tfold_conv1_backward_reference`) is the folded conv's backward,
+  written out so that the forward is not run again.  The unfolded Conv3d's
+  backward computes the same function with 3/10 of the MACs, but cuDNN
+  runs its float32 weight gradient ~16x slower on the H100 (3 input
+  channels; PERF.md).
 
 Bias and ReLU stay with the caller, as in `cvad_tpu`.
 """
@@ -77,10 +85,6 @@ def _check(x: torch.Tensor, weight: torch.Tensor) -> None:
                          f"3, 3), got {tuple(weight.shape)}")
     if not (x.is_contiguous() and weight.is_contiguous()):
         raise ValueError("tfold_conv1 takes contiguous x and weight")
-    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad):
-        raise NotImplementedError(
-            "the CUDA tfold_conv1 is forward-only; its backward arrives with "
-            "the family-D training slice")
 
 
 def _launch(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
@@ -109,17 +113,59 @@ def _launch(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def tfold_conv1_backward_reference(grad_y: torch.Tensor, x: torch.Tensor,
+                                   weight: torch.Tensor, needs=(True, True)):
+    """Plain backward, as `cvad_tpu` takes it (``jax.vjp`` of the folded
+    conv): the folded stride-2 conv's backward in x's dtype, folded back.
+    grad_y (B, O, T, Ho, Wo) -> (grad_x (B, C, T, H, W), grad_weight
+    (O, C, 3, 3, 3)), `None` where `needs` says no.  The banded blocks of
+    the folded weight gradient are summed in float32."""
+    b, c, t, h, w = x.shape
+    o = weight.shape[0]
+    ho, wo = grad_y.shape[-2:]
+    gyf = grad_y.transpose(1, 2).reshape(b, t * o, ho, wo)
+    gxf, gwf, _ = torch.ops.aten.convolution_backward(
+        gyf, fold_input(x), fold_kernel(weight, t), None, [2, 2], [0, 0],
+        [1, 1], False, [0, 0], 1, [needs[0], needs[1], False])
+    gx = gw = None
+    if needs[0]:
+        gx = (gxf.view(b, t + 2, c, h + 2, w + 2).transpose(1, 2)
+              [:, :, 1:-1, 1:-1, 1:-1].contiguous())
+    if needs[1]:
+        # output block ti holds the kernel at folded inputs [ti*C, (ti+3)*C)
+        acc = torch.promote_types(gwf.dtype, torch.float32)
+        blocks = gwf.to(acc).view(t, o, t + 2, c, 3, 3)
+        kf = sum(blocks[ti, :, ti:ti + 3] for ti in range(t))  # (O,kT,C,..)
+        gw = kf.transpose(1, 2).contiguous().to(weight.dtype)
+    return gx, gw
+
+
+class _TFoldConv1(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, weight):
+        ctx.save_for_backward(x, weight)
+        if x.device.type == "cuda":
+            return _launch(x, weight)
+        if x.device.type == "cpu":
+            return tfold_conv1_reference(x, weight)
+        raise RuntimeError(f"tfold_conv1 runs on cuda or cpu, not "
+                           f"{x.device}")
+
+    @staticmethod
+    def backward(ctx, grad_y):
+        x, weight = ctx.saved_tensors
+        return tfold_conv1_backward_reference(
+            grad_y, x, weight, ctx.needs_input_grad[:2])
+
+
 def tfold_conv1(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     """Conv3d(C=3 -> O=16, k=3, stride=(1,2,2), padding=1) without bias:
     x (B, C, T, H, W), weight (O, C, 3, 3, 3) -> (B, O, T, Ho, Wo) in x's
     dtype.  CUDA tensors launch the Hopper kernel (or raise); CPU tensors
-    take `tfold_conv1_reference`.  ``tfold_conv1.launches`` counts kernel
-    launches."""
-    if x.device.type == "cuda":
-        return _launch(x, weight)
-    if x.device.type == "cpu":
-        return tfold_conv1_reference(x, weight)
-    raise RuntimeError(f"tfold_conv1 runs on cuda or cpu, not {x.device}")
+    take `tfold_conv1_reference`.  Differentiable w.r.t. x and weight, the
+    backward through the plain version.  ``tfold_conv1.launches`` counts
+    kernel launches."""
+    return _TFoldConv1.apply(x, weight)
 
 
 tfold_conv1.launches = 0

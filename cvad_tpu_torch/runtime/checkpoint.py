@@ -1,18 +1,104 @@
 """Family-D checkpoints for the port.
 
 The port's state dict IS the reference's: `CausalAnomalyDetector`'s module
-names give the keys of ``best_improved_model.pth``.  This module loads the
-three ``.pth`` formats the reference writes, and converts between the port's
-state dict and `cvad_tpu`'s flax parameters (numpy in, numpy out) for the
-parity tests.
+names give the keys of ``best_improved_model.pth``.  This module
+
+- loads the three ``.pth`` formats the reference writes;
+- keeps training checkpoints (`CheckpointManager`, the torch-native
+  counterpart of `cvad_tpu/runtime/checkpoint.py:26-110`);
+- converts between the port's state dict and `cvad_tpu`'s flax parameters,
+  and from optax's Adam state to the port's (`from_jax_opt_state`), numpy in
+  and out, for the parity tests.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+import shutil
+from pathlib import Path
+from typing import Any, Dict, Mapping, Optional, Union
 
 import numpy as np
 import torch
+
+from cvad_tpu_torch.utils.json_utils import safe_json_load, safe_json_save
+
+Step = Union[int, str]
+
+
+class CheckpointManager:
+    """One directory per ``step_%08d``, plus ``best`` and ``mid``, each
+    holding ``model.pth`` and, when given, ``history.json``.
+
+    ``model.pth`` is ``{"model_state_dict": ..., "optimizer": ...,
+    "step": ...}``: `load_torch_state_dict` (and so ``cli serve``) reads its
+    weights directly.  Every save is written whole into a sibling
+    ``_tmp.<name>`` directory first and then swapped in with two renames, so
+    a crash mid-save leaves the previous checkpoint of that name (or, between
+    the renames, its ``_old.<name>`` copy and the epoch checkpoints) intact.
+    The step directories beyond the newest `max_to_keep` are removed.
+    Saves are synchronous.
+    """
+
+    FILE = "model.pth"
+
+    def __init__(self, directory: str, max_to_keep: int = 5):
+        self.directory = Path(directory).absolute()
+        self.directory.mkdir(parents=True, exist_ok=True)
+        self.max_to_keep = max_to_keep
+
+    def _step_dir(self, step: Step) -> Path:
+        return self.directory / (step if isinstance(step, str)
+                                 else f"step_{step:08d}")
+
+    def path(self, step: Step) -> Path:
+        """The ``model.pth`` of a checkpoint."""
+        return self._step_dir(step) / self.FILE
+
+    def save(self, step: Step, state: Any,
+             history: Optional[Mapping] = None) -> Path:
+        """Save `state` (a `TrainState`, or its ``state_dict()``)."""
+        payload = state.state_dict() if hasattr(state, "state_dict") else state
+        path = self._step_dir(step)
+        # "_tmp."/"_old." prefixes: a suffix would match the step_* glob
+        tmp = path.with_name("_tmp." + path.name)
+        old = path.with_name("_old." + path.name)
+        for p in (tmp, old):
+            if p.exists():
+                shutil.rmtree(p)
+        tmp.mkdir()
+        torch.save(payload, tmp / self.FILE)
+        if history is not None:
+            safe_json_save(dict(history), tmp / "history.json",
+                           verbose=False)
+        if path.exists():
+            path.rename(old)
+        tmp.rename(path)
+        shutil.rmtree(old, ignore_errors=True)
+        self._gc()
+        return path
+
+    def restore(self, step: Step) -> dict:
+        """The saved ``state_dict`` (tensors on the CPU)."""
+        return torch.load(self.path(step), map_location="cpu",
+                          weights_only=True)
+
+    def restore_history(self, step: Step) -> Optional[dict]:
+        return safe_json_load(self._step_dir(step) / "history.json")
+
+    def latest_step(self) -> Optional[int]:
+        steps = sorted(int(p.name.split("_")[1])
+                       for p in self.directory.glob("step_*"))
+        return steps[-1] if steps else None
+
+    def remove(self, step: Step) -> None:
+        """Delete a checkpoint (e.g. the rolling 'mid' snapshot once its
+        run completed)."""
+        shutil.rmtree(self._step_dir(step), ignore_errors=True)
+
+    def _gc(self) -> None:
+        steps = sorted(self.directory.glob("step_*"))
+        for p in steps[: max(0, len(steps) - self.max_to_keep)]:
+            shutil.rmtree(p, ignore_errors=True)
 
 # state-dict key prefix -> (flax module path, kind); own copy of
 # cvad_tpu/runtime/checkpoint.py::_FAMILY_D_MAP
@@ -76,3 +162,40 @@ def to_jax_family_d(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
         node["kernel"] = np.ascontiguousarray(np.transpose(w, _TO_FLAX[kind]))
         node["bias"] = state[f"{prefix}.bias"].detach().cpu().numpy().copy()
     return {"params": params}
+
+
+def _find(node: Any, pred) -> Any:
+    """First node of an optax state tree (tuples and NamedTuples) for which
+    `pred` holds, depth first."""
+    if pred(node):
+        return node
+    if isinstance(node, tuple):
+        for child in node:
+            found = _find(child, pred)
+            if found is not None:
+                return found
+    return None
+
+
+def from_jax_opt_state(opt_state: Any, model: torch.nn.Module):
+    """`cvad_tpu`'s optax state (``build_optimizer``'s: a clip, then
+    ``inject_hyperparams`` around adam or adamw; numpy leaves) -> the
+    port's `OptState` over `model`'s flat parameter vector: both Adam
+    moments, Adam's count and the injected learning rate."""
+    from cvad_tpu_torch.train.optim import OptState, flatten
+
+    inject = _find(opt_state, lambda s: "learning_rate" in (
+        getattr(s, "hyperparams", None) or {}))
+    adam = _find(inject.inner_state,
+                 lambda s: hasattr(s, "mu") and hasattr(s, "nu"))
+    moments = []
+    for tree in (adam.mu, adam.nu):
+        by_key = from_jax_family_d({"params": tree})
+        moments.append(flatten(by_key[name]
+                               for name, _ in model.named_parameters()))
+    dev = next(model.parameters()).device
+    return OptState(
+        mu=moments[0], nu=moments[1],
+        count=torch.tensor(int(np.asarray(adam.count)), dtype=torch.int32),
+        lr=torch.tensor(float(np.asarray(inject.hyperparams["learning_rate"])),
+                        dtype=torch.float32)).to(dev)

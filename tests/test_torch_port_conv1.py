@@ -1,6 +1,7 @@
 """K1, the T-folded conv1: the port's fold and plain version against
-`cvad_tpu`'s Pallas kernel (interpret mode) and against F.conv3d; the CUDA
-kernel against the plain version on a card.
+`cvad_tpu`'s Pallas kernel (interpret mode) and against F.conv3d, forward
+and gradient; the CUDA kernel against the plain version on a card, forward
+and gradient.
 
 JAX and `cvad_tpu` are imported inside the tests that use them, so that the
 card test runs on a machine without JAX (``--noconftest -m cuda``).
@@ -88,6 +89,91 @@ def test_cpu_path_launches_nothing():
     before = tfold_conv1.launches
     tfold_conv1(xt, wt)
     assert tfold_conv1.launches == before
+
+
+def _port_grads(xt, wt, g):
+    x = xt.clone().requires_grad_(True)
+    wgt = wt.clone().requires_grad_(True)
+    gx, gw = torch.autograd.grad(tfold_conv1(x, wgt), (x, wgt), g)
+    return gx, gw
+
+
+@pytest.mark.parametrize("b,t,h,w", SHAPES)
+def test_grad_matches_pallas_interpret(b, t, h, w):
+    """The Function's gradient (x and weight) against `jax.grad` through
+    `tfold_conv1_matmul(..., interpret=True)` (whose backward is `jax.vjp`
+    of the folded reference conv).  atol 1e-4: sums of up to B*T*Ho*Wo
+    products of N(0,1) values (the weight gradient) in another order."""
+    import jax
+    import jax.numpy as jnp
+
+    from cvad_tpu.ops import pallas_conv as jpc
+
+    x, k, xt, wt = _inputs(b, t, h, w)
+    ct = np.random.default_rng(2).normal(
+        size=(b, 16, t, h // 2, w // 2)).astype(np.float32)
+
+    def loss(xj, kj):
+        y = jpc.tfold_conv1_matmul(jpc.fold_input(xj), jpc.fold_kernel(kj, t),
+                                   interpret=True)
+        y = y.reshape(b, h // 2, w // 2, t, 16).transpose(0, 4, 3, 1, 2)
+        return jnp.sum(y * ct)
+
+    with jax.default_matmul_precision("highest"):
+        jgx, jgk = jax.grad(loss, argnums=(0, 1))(jnp.asarray(x),
+                                                  jnp.asarray(k))
+    gx, gw = _port_grads(xt, wt, torch.from_numpy(ct))
+    # JAX layouts -> torch's: x (B,T,H,W,C), kernel (kT,kH,kW,I,O)
+    np.testing.assert_allclose(gx.permute(0, 2, 3, 4, 1).numpy(),
+                               np.asarray(jgx), rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(gw.permute(2, 3, 4, 1, 0).numpy(),
+                               np.asarray(jgk), rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("b,t,h,w", SHAPES + [(3, 5, 9, 7)])
+def test_grad_matches_conv3d_autograd(b, t, h, w):
+    _, _, xt, wt = _inputs(b, t, h, w)
+    g = torch.from_numpy(np.random.default_rng(3).normal(
+        size=(b, 16, t, (h - 1) // 2 + 1, (w - 1) // 2 + 1)
+    ).astype(np.float32))
+    x = xt.clone().requires_grad_(True)
+    wgt = wt.clone().requires_grad_(True)
+    ref = torch.autograd.grad(F.conv3d(x, wgt, stride=(1, 2, 2), padding=1),
+                              (x, wgt), g)
+    got = _port_grads(xt, wt, g)
+    for a, r in zip(got, ref):
+        torch.testing.assert_close(a, r, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grad_on_card_matches_plain(dtype):
+    """On the card the forward launches K1 and the gradient (x and weight)
+    equals autograd through `tfold_conv1_reference`, within a share of the
+    largest |ref| entry: 1e-5 in float32 (TF32 off; the weight gradient
+    sums 32,768 products of N(0,1) values, in another order by each cuDNN
+    algorithm), 2e-2 in bf16 (one bf16 rounding of f32 sums)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    _, _, xt, wt = _inputs(4, 8, 64, 64)
+    x, wgt = xt.cuda().to(dtype), wt.cuda().to(dtype)
+    g = torch.randn((4, 16, 8, 32, 32), generator=torch.Generator(
+        "cuda").manual_seed(0), device="cuda").to(dtype)
+    c = torch.backends.cudnn
+    with c.flags(enabled=c.enabled, benchmark=False, deterministic=True,
+                 allow_tf32=False):
+        before = tfold_conv1.launches
+        got = _port_grads(x, wgt, g)
+        assert tfold_conv1.launches == before + 1
+        xr = x.clone().requires_grad_(True)
+        wr = wgt.clone().requires_grad_(True)
+        ref = torch.autograd.grad(tfold_conv1_reference(xr, wr), (xr, wr), g)
+    torch.cuda.synchronize()
+    share = 1e-5 if dtype == torch.float32 else 2e-2
+    for a, r in zip(got, ref):
+        assert a.dtype == dtype
+        torch.testing.assert_close(a.float(), r.float(), rtol=0,
+                                   atol=share * r.float().abs().max().item())
 
 
 @pytest.mark.cuda

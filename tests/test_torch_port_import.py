@@ -32,9 +32,22 @@ def test_imports_without_jax_or_cvad_tpu():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
-    for mod in ("cvad_tpu_torch.cli", "cvad_tpu_torch.ops.pallas_conv",
+    for mod in ("cvad_tpu_torch.cli", "cvad_tpu_torch.config",
+                "cvad_tpu_torch.ops.pallas_conv",
+                "cvad_tpu_torch.ops.pallas_kernels",
+                "cvad_tpu_torch.ops.losses", "cvad_tpu_torch.ops.adjacency",
+                "cvad_tpu_torch.models.family_d",
                 "cvad_tpu_torch.evaluation.http_service",
-                "cvad_tpu_torch.runtime.checkpoint"):
+                "cvad_tpu_torch.evaluation.metrics",
+                "cvad_tpu_torch.runtime.checkpoint",
+                "cvad_tpu_torch.runtime.history",
+                "cvad_tpu_torch.runtime.metrics",
+                "cvad_tpu_torch.utils.json_utils",
+                "cvad_tpu_torch.data.synthetic",
+                "cvad_tpu_torch.data.datasets",
+                "cvad_tpu_torch.data.batcher",
+                "cvad_tpu_torch.train.optim", "cvad_tpu_torch.train.state",
+                "cvad_tpu_torch.train.tasks", "cvad_tpu_torch.train.engine"):
         assert mod in res["imported"]
     bad = [m for m in res["loaded"]
            if m.split(".")[0] in ("cvad_tpu", "jax", "jaxlib", "flax",
@@ -55,7 +68,7 @@ def test_resolve_device():
             resolve_device("cuda")
 
 
-def test_entry_points_default_to_cuda():
+def test_entry_points_default_to_cuda(tmp_path):
     """Without a card, every entry point raises unless asked for the CPU."""
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA card; the default is satisfiable")
@@ -72,3 +85,15 @@ def test_entry_points_default_to_cuda():
     ckpt = os.path.join(ROOT, "runs/dyn_parity_d/ours/best_improved_model.pth")
     with pytest.raises(RuntimeError):
         main(["serve", ckpt, "--port", "0"])
+    from cvad_tpu_torch.config import preset
+    from cvad_tpu_torch.train.engine import Trainer
+
+    from cvad_tpu_torch.train.tasks import build_task
+
+    with pytest.raises(RuntimeError):
+        Trainer(preset("family_d"), out_dir=str(tmp_path))
+    with pytest.raises(RuntimeError):
+        build_task(preset("family_d")).init_state(0)
+    with pytest.raises(RuntimeError):
+        main(["train", "--epochs", "1", "--n-synthetic", "8",
+              "--out", str(tmp_path / "cli")])
