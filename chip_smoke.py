@@ -44,14 +44,35 @@ Phases:
            3: parameters, optimizer state and history bit-identical to the
            uninterrupted run; the `best` checkpoint scores 128 clips through
            make_family_d_score_fn within 1e-5 of the eval step
+  family_b_model  a family-B model (random init from seed 0, bank filled
+           with 300 rows) scores 128 clips on the card and on the CPU, TF32
+           off: scores, reconstructions, features and memory scores within
+           1e-4
+  family_b_parity  3 float32 family-B train steps at B=16 from the same
+           init on the card and on the CPU: losses within rtol 1e-4,
+           parameters, BatchNorm statistics and the bank within 5e-5
+  family_b_train  (main path 3) `Trainer.fit` with preset("memory_ae"),
+           float32, B=256, 1,024 synthetic 8x64x64x1 train clips and 256
+           eval clips, uint8 transfer, 3 epochs, eval and checkpoints every
+           epoch (the 500-slot bank wraps in epoch 1); 2 epochs + restore +
+           epoch 3 bit-identical to the uninterrupted run (parameters,
+           BatchNorm statistics, Adam state, bank rows, ptr and fill,
+           history); the `best` checkpoint's scorer within 1e-5 of the eval
+           step
+  family_b_serve  (main path 4) the `best` checkpoint of family_b_train
+           served over HTTP by service_from_path(path, family="b"), buckets
+           1,8,32,128, warmed up; float32 requests of N=1, 5, 32 and a
+           uint8 one of N=8, two of them concurrent; every score within
+           1e-5 of the direct scorer; /healthz and /stats answer
   times    kernel, plain-version and library times (CUDA events), the
-           bounds, per-bucket request latency, bulk clips/s, the train
-           step at B=256 in f32 and bf16 (median of 20) and its device time
-           by kernel (torch.profiler)
+           bounds, per-bucket request latency of both families, bulk
+           clips/s, the train step of both families at B=256 in f32 and
+           bf16 (median of 20) and its device time by kernel
+           (torch.profiler)
 Kernel launch counts are set to 0 just before each main path (serve + bulk,
-then train) and read just after it.  The last lines are the kernels
-summary, the card's nvidia-smi name and power limit, and
-{"ok": true, "device": {...}}.
+train, family_b_train, family_b_serve) and read just after it.  The last
+lines are the kernels summary, the card's nvidia-smi name and power limit,
+and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -78,6 +99,10 @@ BULK_CLIPS, BULK_BATCH = 2048, 256
 TRAIN_BATCH, TRAIN_CLIPS, EVAL_CLIPS, TRAIN_EPOCHS = 256, 1024, 256, 3
 PARITY_BATCH, PARITY_STEPS = 16, 3
 PAIR_MASK_RATE = 0.05  # share of rows out of the mask: anomalous pseudo-labels
+CLIP_B = (8, 64, 64, 1)            # family B's clip
+B_FILL = 300                       # bank rows filled in family_b_model
+B_ANOMALY_RATE = 0.2               # the synthetic train split's rate
+MEM_SHAPES = ((256, 500, 64), (1024, 4096, 128))  # K3 timing (B, M, D)
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and FLOP/s by type
 HBM_BYTES_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
@@ -190,13 +215,66 @@ def phase_kernels(rng: np.random.Generator) -> dict:
         err32, err16 = max(err32, e32), max(err16, e16)
     grad = check_tfold_grad(rng)
     pair = check_pairwise(rng)
+    mem = check_memory(rng)
     emit({"phase": "kernels", "kernels": [
         {"name": "tfold_conv1", "comparison_launches": tfold_conv1.launches,
          "max_abs_err_f32": err32, "max_abs_err_bf16": err16,
          "cases": cases, "grad": grad},
-        {"name": "pairwise_l1", **pair}]})
+        {"name": "pairwise_l1", **pair},
+        {"name": "memory_min_cosine", **mem}]})
     return {"f32": err32, "bf16": err16, "pair_fwd": pair["max_abs_err_avg"],
-            "pair_bwd": pair["max_abs_err_grad"]}
+            "pair_bwd": pair["max_abs_err_grad"],
+            "memory": mem["max_abs_err"]}
+
+
+def memory_inputs(rng: np.random.Generator, b: int, m: int, d: int):
+    """query (B, D) and memory (M, D), standard normal, on the card."""
+    return (torch.from_numpy(rng.normal(size=(b, d)).astype(np.float32))
+            .cuda(),
+            torch.from_numpy(rng.normal(size=(m, d)).astype(np.float32))
+            .cuda())
+
+
+def check_memory(rng: np.random.Generator) -> dict:
+    """K3 against its plain version at every fill of {0, 1, M/2, M}, a
+    second call bit-identical to the first, and a NaN query row giving NaN
+    (and no other row)."""
+    from cvad_tpu_torch.ops.pallas_kernels import (
+        memory_min_cosine_distance, memory_min_cosine_distance_reference)
+
+    err, n_cases = 0.0, 0
+    for b in (1, 7, 128, 256, 1024):
+        for m in (1, 10, 500, 4096):
+            for d in (64, 128):
+                q, mem = memory_inputs(rng, b, m, d)
+                for fill in sorted({0, 1, m // 2, m}):
+                    f = torch.tensor(fill, dtype=torch.int32, device="cuda")
+                    got = memory_min_cosine_distance(q, mem, f)
+                    again = memory_min_cosine_distance(q, mem, f)
+                    ref = memory_min_cosine_distance_reference(q, mem, f)
+                    torch.cuda.synchronize()
+                    case = f"B={b} M={m} D={d} fill={fill}"
+                    check(got.shape == (b,) and got.dtype == torch.float32
+                          and bool(torch.isfinite(got).all()),
+                          f"memory_min_cosine output at {case}")
+                    e = (got - ref).abs().max().item()
+                    check(e <= 1e-6, f"memory_min_cosine err {e} at {case}")
+                    check(torch.equal(got, again),
+                          f"memory_min_cosine not bit-identical at {case}")
+                    err = max(err, e)
+                    n_cases += 1
+    q, mem = memory_inputs(rng, 9, 500, 64)
+    q[4, 7] = float("nan")
+    got = memory_min_cosine_distance(q, mem, 500)
+    ref = memory_min_cosine_distance_reference(
+        q, mem, torch.tensor(500, device="cuda"))
+    torch.cuda.synchronize()
+    rest = [i for i in range(9) if i != 4]
+    check(bool(torch.isnan(got[4])) and bool(torch.isnan(ref[4]))
+          and bool(torch.isfinite(got[rest]).all()),
+          f"memory_min_cosine NaN row: {got.tolist()}")
+    return {"cases": n_cases, "max_abs_err": err, "nan_row_gives_nan": True,
+            "comparison_launches": memory_min_cosine_distance.launches}
 
 
 def check_tfold_grad(rng: np.random.Generator) -> dict:
@@ -315,11 +393,12 @@ def phase_model(state: dict, clips: np.ndarray) -> None:
           f"card vs CPU: scores {es}, adjacency {ea} beyond 1e-4")
 
 
-def phase_serve(requests: list, direct: list) -> tuple:
+def phase_serve(requests: list, direct: list, path: Path = CKPT,
+                family: str = "d", phase: str = "serve") -> tuple:
     from cvad_tpu_torch.evaluation.http_service import (ScoringHTTPServer,
                                                         service_from_path)
 
-    svc = service_from_path(str(CKPT), buckets=BUCKETS)
+    svc = service_from_path(str(path), family=family, buckets=BUCKETS)
     srv = ScoringHTTPServer(svc, port=0)
     host, port = srv.start()
     base = f"http://{host}:{port}"
@@ -357,7 +436,7 @@ def phase_serve(requests: list, direct: list) -> tuple:
         stats = get(base + "/stats")
         check(stats["batches_total"] >= 1 and stats["errors_total"] == 0,
               f"stats {stats}")
-        emit({"phase": "serve", "warmup_s": warm_s,
+        emit({"phase": phase, "family": family, "warmup_s": warm_s,
               "requests": [{"n": len(c), "dtype": str(c.dtype),
                             "max_abs_err_vs_direct": e}
                            for c, e in zip(requests, errs)],
@@ -385,19 +464,23 @@ def phase_bulk(state: dict, clips: np.ndarray, ref: np.ndarray):
 
 def counts() -> dict:
     from cvad_tpu_torch.ops.pallas_conv import tfold_conv1
-    from cvad_tpu_torch.ops.pallas_kernels import pairwise_l1_mean
+    from cvad_tpu_torch.ops.pallas_kernels import (memory_min_cosine_distance,
+                                                   pairwise_l1_mean)
 
     return {"tfold_conv1": tfold_conv1.launches,
             "pairwise_l1_forward": pairwise_l1_mean.launches,
-            "pairwise_l1_backward": pairwise_l1_mean.backward_launches}
+            "pairwise_l1_backward": pairwise_l1_mean.backward_launches,
+            "memory_min_cosine": memory_min_cosine_distance.launches}
 
 
 def reset_counts() -> None:
     from cvad_tpu_torch.ops.pallas_conv import tfold_conv1
-    from cvad_tpu_torch.ops.pallas_kernels import pairwise_l1_mean
+    from cvad_tpu_torch.ops.pallas_kernels import (memory_min_cosine_distance,
+                                                   pairwise_l1_mean)
 
     tfold_conv1.launches = 0
     pairwise_l1_mean.launches = pairwise_l1_mean.backward_launches = 0
+    memory_min_cosine_distance.launches = 0
 
 
 def train_config(batch: int, **train):
@@ -438,7 +521,8 @@ def phase_train_parity(state: dict, rng: np.random.Generator) -> None:
         runs[dev] = (metrics, {k: v.cpu() for k, v in
                                st.model.state_dict().items()}, rose)
     (mg, pg, rose), (mc, pc, cpu_rose) = runs["cuda"], runs["cpu"]
-    check(all(v == PARITY_STEPS for v in rose.values()),
+    check(all(v == (0 if k == "memory_min_cosine" else PARITY_STEPS)
+              for k, v in rose.items()),
           f"card launches over {PARITY_STEPS} steps: {rose}")
     check(not any(cpu_rose.values()), f"CPU steps launched {cpu_rose}")
     err_m = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-6)
@@ -544,6 +628,240 @@ def phase_train(workdir: Path) -> dict:
     check(launches["tfold_conv1"] >= steps,
           f"K1 launches {launches} for {steps} train steps")
     return launches
+
+
+def b_train_config(batch: int, **train):
+    from cvad_tpu_torch.config import preset
+
+    cfg = preset("memory_ae")
+    return cfg.replace(
+        data=cfg.data.replace(batch_size=batch, transfer_dtype="uint8"),
+        train=cfg.train.replace(log_every=10**9, **train))
+
+
+def b_checkpoint_state(rng: np.random.Generator) -> dict:
+    """A family-B state dict: random init from seed 0 and B_FILL bank rows
+    drawn from `rng`."""
+    from cvad_tpu_torch.models import MemoryVideoAutoEncoder
+    from cvad_tpu_torch.models.family_b import MemoryBankState
+
+    model = MemoryVideoAutoEncoder(seed=0)
+    memory = torch.zeros(500, 64)
+    memory[:B_FILL] = torch.from_numpy(
+        rng.normal(size=(B_FILL, 64)).astype(np.float32))
+    fill = torch.tensor(B_FILL, dtype=torch.int32)
+    model.set_memory_bank(MemoryBankState(memory, fill, fill))
+    return model.state_dict()
+
+
+def phase_family_b_model(rng: np.random.Generator) -> None:
+    """The family-B scorer and forward on the card against the CPU."""
+    from cvad_tpu_torch.evaluation.scoring import make_family_b_score_fn
+    from cvad_tpu_torch.models import MemoryVideoAutoEncoder
+    from cvad_tpu_torch.ops.pallas_kernels import memory_min_cosine_distance
+
+    state = b_checkpoint_state(rng)
+    clips = rng.uniform(0, 1, (128,) + CLIP_B).astype(np.float32)
+    before = memory_min_cosine_distance.launches
+    s_gpu = make_family_b_score_fn(state)(clips)
+    rose = memory_min_cosine_distance.launches - before
+    s_cpu = make_family_b_score_fn(state, device="cpu")(clips)
+    x = torch.from_numpy(clips).permute(0, 1, 4, 2, 3).contiguous()
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        model = MemoryVideoAutoEncoder()
+        model.load_state_dict(state, strict=True)
+        model = model.to(dev).eval()
+        with torch.no_grad(), no_tf32():
+            outs[dev] = {k: v.cpu() for k, v in model(x.to(dev)).items()}
+    errs = {k: (outs["cuda"][k] - outs["cpu"][k]).abs().max().item()
+            for k in outs["cpu"]}
+    es = float(np.abs(s_gpu - s_cpu).max())
+    emit({"phase": "family_b_model", "clips": len(clips), "bank_fill": B_FILL,
+          "k3_launches": rose, "score_max_abs_err": es,
+          "output_max_abs_err": errs, "score_mean": float(s_gpu.mean()),
+          "memory_score_mean": float(outs["cuda"]["anomaly_score"].mean())})
+    check(s_gpu.shape == (len(clips),) and bool(np.isfinite(s_gpu).all()),
+          "family-B scores")
+    check(rose > 0, "the family-B scorer did not launch memory_min_cosine")
+    check(es <= 1e-4 and max(errs.values()) <= 1e-4,
+          f"family B card vs CPU: scores {es}, outputs {errs}")
+
+
+def phase_family_b_parity(rng: np.random.Generator) -> None:
+    """The same 3 float32 family-B steps from seed 0 on the card and on the
+    CPU, with the train split's share of normal clips.  Tolerances as
+    train_parity's; the state compared is the whole state dict (parameters,
+    BatchNorm statistics, bank)."""
+    from cvad_tpu_torch.train.state import float_metrics
+    from cvad_tpu_torch.train.tasks import build_task
+
+    task = build_task(b_train_config(PARITY_BATCH))
+    clips = rng.integers(0, 256, (PARITY_STEPS, PARITY_BATCH) + CLIP_B,
+                         dtype=np.uint8)
+    labels = (rng.uniform(size=(PARITY_STEPS, PARITY_BATCH))
+              < B_ANOMALY_RATE).astype(np.float32)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        st = task.init_state(0, dev)
+        before, metrics = counts(), []
+        for i in range(PARITY_STEPS):
+            st, m = task.train_step(st, {
+                "clips": torch.from_numpy(clips[i]).to(dev),
+                "labels": torch.from_numpy(labels[i]).to(dev)}, 1)
+            metrics.append(float_metrics(m))
+        rose = {k: v - before[k] for k, v in counts().items()}
+        runs[dev] = (metrics, {k: v.cpu() for k, v in
+                               st.model.state_dict().items()}, rose)
+    (mg, pg, rose), (mc, pc, cpu_rose) = runs["cuda"], runs["cpu"]
+    check(not any(rose.values()) and not any(cpu_rose.values()),
+          f"family-B train steps launched {rose}, {cpu_rose}: the step "
+          f"computes no memory score")
+    err_m = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-6)
+                for a, b in zip(mg, mc) for k in a)
+    err_p = max((pg[k].double() - pc[k].double()).abs().max().item()
+                for k in pg)
+    emit({"phase": "family_b_parity", "batch": PARITY_BATCH,
+          "steps": PARITY_STEPS, "loss_card": [m["loss"] for m in mg],
+          "loss_cpu": [m["loss"] for m in mc],
+          "n_normal": [m["n_normal"] for m in mg],
+          "metrics_max_rel_err": err_m, "state_max_abs_err": err_p})
+    check(err_m <= 1e-4, f"family B card vs CPU metrics differ by {err_m}")
+    check(err_p <= 5e-5, f"family B card vs CPU state differs by {err_p}")
+
+
+def phase_family_b_train(workdir: Path) -> tuple:
+    """Main path 3: `Trainer.fit` with the memory_ae preset on the card, an
+    interrupted run resumed from its epoch-2 checkpoint, and the `best`
+    checkpoint scored.  Returns the launch counts and the best path."""
+    from cvad_tpu_torch.data.batcher import BatchLoader
+    from cvad_tpu_torch.data.datasets import build_dataset
+    from cvad_tpu_torch.evaluation.scoring import make_family_b_score_fn
+    from cvad_tpu_torch.runtime.checkpoint import load_torch_state_dict
+    from cvad_tpu_torch.train.engine import Trainer
+    from cvad_tpu_torch.train.state import param_count
+
+    cfg = b_train_config(TRAIN_BATCH, num_epochs=TRAIN_EPOCHS, eval_every=1,
+                         save_interval=1)
+    t0 = time.perf_counter()
+    train_loader = BatchLoader(build_dataset(cfg.data, "Train", TRAIN_CLIPS),
+                               TRAIN_BATCH, shuffle=True, seed=cfg.data.seed,
+                               transfer_dtype="uint8")
+    eval_loader = BatchLoader(build_dataset(cfg.data, "Test", EVAL_CLIPS),
+                              TRAIN_BATCH, transfer_dtype="uint8")
+    data_s = time.perf_counter() - t0
+    # float clips inside the preset's clamp, so that the scorer (which does
+    # not clamp) and the eval step (which does) see the same inputs
+    score_clips = np.stack([eval_loader.dataset[i][0] for i in
+                            range(min(128, len(eval_loader.dataset)))])
+    n_normal = int((train_loader.dataset.labels == 0).sum())
+
+    reset_counts()
+    t0 = time.perf_counter()
+    full = Trainer(cfg, out_dir=str(workdir / "b_full"))
+    hist = full.fit(train_loader, eval_loader)
+    fit_s = time.perf_counter() - t0
+    first = Trainer(cfg.replace(train=cfg.train.replace(
+        num_epochs=TRAIN_EPOCHS - 1)), out_dir=str(workdir / "b_resumed"))
+    first.fit(train_loader, eval_loader)
+    resumed = Trainer(cfg, out_dir=str(workdir / "b_resumed"))
+    restored = resumed.restore()
+    resumed.fit(train_loader, eval_loader)
+    best = full.ckpt.path("best")
+    scores = make_family_b_score_fn(load_torch_state_dict(str(best)))(
+        score_clips)
+    ref = Trainer(cfg, out_dir=str(workdir / "b_ref"))
+    ref.init_state()
+    ref.state.load_state_dict(full.ckpt.restore("best"))
+    want = ref.task.eval_step(ref.state, ref.put_batch(
+        {"clips": score_clips,
+         "labels": np.zeros(len(score_clips), np.float32)}))
+    torch.cuda.synchronize()
+    launches = counts()
+
+    steps = (2 * TRAIN_EPOCHS) * (TRAIN_CLIPS // TRAIN_BATCH)
+    err = float(np.abs(scores - want["predictions"].cpu().numpy()).max())
+    a, b = full.ckpt.restore(TRAIN_EPOCHS), resumed.ckpt.restore(TRAIN_EPOCHS)
+    ckpt_same = all(torch.equal(v, b[part][k]) for part in
+                    ("model_state_dict", "optimizer")
+                    for k, v in a[part].items())
+    bit_identical = same_run(full, resumed) and ckpt_same
+    bank = a["model_state_dict"]
+    n_params = param_count(full.state.model)
+    evals = hist["evaluation_metrics"]
+    emit({"phase": "family_b_train", "params": n_params, "batch": TRAIN_BATCH,
+          "train_clips": TRAIN_CLIPS, "normal_train_clips": n_normal,
+          "eval_clips": len(eval_loader.dataset), "epochs": TRAIN_EPOCHS,
+          "train_steps": steps, "launches": launches,
+          "synthetic_data_s": data_s, "fit_s": fit_s,
+          "train_losses": hist["train_losses"],
+          "val_loss": [e["val_loss"] for e in evals],
+          "auc": [e["auc"] for e in evals], "best_val_loss": full._best,
+          "bank_after_epoch_3": {"ptr": int(bank["memory_ptr"]),
+                                 "fill": int(bank["memory_fill"])},
+          "resumed_from_epoch": restored,
+          "resume_bit_identical": bit_identical,
+          "best_checkpoint_score_err": err,
+          "best_score_mean": float(scores.mean())})
+    check(n_params == 1152001, f"{n_params} family-B parameters, not the "
+                               "published width's 1,152,001")
+    check(len(hist["epochs"]) == TRAIN_EPOCHS
+          and all(np.isfinite(hist["train_losses"]))
+          and all(np.isfinite(e["val_loss"]) for e in evals),
+          "family-B train history")
+    check(full._best == min(e["val_loss"] for e in evals),
+          "best checkpoint is not the least val_loss")
+    written = TRAIN_EPOCHS * n_normal  # the bank wraps past 500
+    check(int(bank["memory_fill"]) == min(written, 500)
+          and int(bank["memory_ptr"]) == written % 500,
+          f"bank after {TRAIN_EPOCHS} epochs: {bank['memory_ptr']}, "
+          f"{bank['memory_fill']}")
+    check(restored == TRAIN_EPOCHS - 1, f"restored epoch {restored}")
+    check(bit_identical,
+          "the resumed family-B run differs from the uninterrupted one")
+    check(scores.shape == (len(score_clips),)
+          and bool(np.isfinite(scores).all()), "best checkpoint scores")
+    check(err <= 1e-5, f"best checkpoint scorer vs eval step: {err}")
+    check(launches["memory_min_cosine"] >= 1,
+          f"main path 3 launched memory_min_cosine {launches}")
+    return launches, best
+
+
+def memory_times(rng: np.random.Generator) -> list:
+    """K3 at MEM_SHAPES with a full bank: the kernel, the plain version, and
+    the library yardstick F.normalize + torch.mm + torch.where + amin
+    (which the port never calls), with the bound from this call's bytes
+    (each input read once, the output written once) and operations
+    (2 B fill D at the float32 rate)."""
+    import torch.nn.functional as F
+
+    from cvad_tpu_torch.ops.pallas_kernels import (
+        _launch_memory, memory_min_cosine_distance_reference)
+
+    def library(q, mem, f):
+        sims = torch.mm(F.normalize(q, dim=1, eps=1e-8),
+                        F.normalize(mem, dim=1, eps=1e-8).T)
+        col = torch.arange(mem.shape[0], device=q.device)
+        dist = torch.where(col[None, :] < f, 1.0 - sims.clamp(-1.0, 1.0),
+                           3.0)
+        return dist.amin(dim=1).clamp(0.0, 2.0) / 2.0
+
+    out = []
+    for b, m, d in MEM_SHAPES:
+        q, mem = memory_inputs(rng, b, m, d)
+        f = torch.tensor(m, dtype=torch.int32, device="cuda")
+        err = (library(q, mem, f) - _launch_memory(q, mem, f)).abs().max()
+        t = {"B": b, "M": m, "D": d, "fill": m,
+             "ms": cuda_ms(lambda: _launch_memory(q, mem, f), iters=200),
+             "plain_ms": cuda_ms(lambda: memory_min_cosine_distance_reference(
+                 q, mem, f), iters=50),
+             "library_ms": cuda_ms(lambda: library(q, mem, f), iters=50),
+             "library_max_abs_diff": err.item(),
+             **bound(((b + m) * d + b + 1) * 4, 2 * b * m * d,
+                     PEAK_FLOPS[torch.float32])}
+        t["share_of_bound"] = t["bound_ms"] / t["ms"]
+        out.append(t)
+    return out
 
 
 def kernel_times(rng: np.random.Generator, dtype: torch.dtype) -> dict:
@@ -664,15 +982,24 @@ def tfold_backward_times(rng: np.random.Generator) -> dict:
     return out
 
 
-def train_step_times(rng: np.random.Generator, dtype: str) -> dict:
-    """The family-D train step at B=256 from uint8 clips already on the
-    card: CUDA events around each of 20 steps after 3 warm-up steps."""
+def train_step_times(rng: np.random.Generator, dtype: str,
+                     family: str = "d") -> dict:
+    """The train step of family D (or B) at B=256 from uint8 clips already
+    on the card: CUDA events around each of 20 steps after 3 warm-up
+    steps.  Family B's labels are normal at the train split's rate."""
     from cvad_tpu_torch.train.tasks import build_task
 
-    task = build_task(train_config(TRAIN_BATCH, dtype=dtype))
+    if family == "b":
+        cfg, clip = b_train_config(TRAIN_BATCH, dtype=dtype), CLIP_B
+    else:
+        cfg, clip = train_config(TRAIN_BATCH, dtype=dtype), CLIP
+    task = build_task(cfg)
     state = task.init_state(0, "cuda")
     batch = {"clips": torch.from_numpy(rng.integers(
-        0, 256, (TRAIN_BATCH,) + CLIP, dtype=np.uint8)).cuda()}
+        0, 256, (TRAIN_BATCH,) + clip, dtype=np.uint8)).cuda(),
+        "labels": torch.from_numpy((rng.uniform(size=TRAIN_BATCH)
+                                    < B_ANOMALY_RATE).astype(np.float32))
+        .cuda()}
 
     def step():
         nonlocal state
@@ -689,7 +1016,8 @@ def train_step_times(rng: np.random.Generator, dtype: str) -> dict:
         stop.synchronize()
         ms.append(start.elapsed_time(stop))
     med = statistics.median(ms)
-    return {"dtype": dtype, "B": TRAIN_BATCH, "steps": len(ms),
+    return {"family": family, "dtype": dtype, "B": TRAIN_BATCH,
+            "steps": len(ms),
             "median_ms": med, "min_ms": min(ms), "max_ms": max(ms),
             "clips_per_s": TRAIN_BATCH / med * 1e3,
             "breakdown": device_breakdown(step)}
@@ -727,15 +1055,15 @@ def forward_breakdown(score, clips: np.ndarray) -> dict:
     return {"clips": len(clips), **device_breakdown(lambda: score(clips))}
 
 
-def request_latency(base: str, rng: np.random.Generator, n: int = 30
-                    ) -> list:
+def request_latency(base: str, rng: np.random.Generator, n: int = 30,
+                    clip: tuple = CLIP) -> list:
     """Closed loop, one client: `n` float32 npz requests of each bucket's
     size, timed from send to parsed reply.  ``score_ms`` is the batching
     worker's host-clock time in the service (forward and copies, ending in
     the device-to-host copy), from /stats; the rest is HTTP, npz and JSON."""
     out = []
     for b in BUCKETS:
-        body = npz(rng.uniform(0, 1, (b,) + CLIP).astype(np.float32))
+        body = npz(rng.uniform(0, 1, (b,) + clip).astype(np.float32))
         post(base + "/score", body, "application/octet-stream")
         score_s0 = get(base + "/stats")["score_seconds_total"]
         lat = []
@@ -759,7 +1087,8 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "runs the port on a CUDA card", file=sys.stderr)
         return 1
-    from cvad_tpu_torch.evaluation.scoring import make_family_d_score_fn
+    from cvad_tpu_torch.evaluation.scoring import (make_family_b_score_fn,
+                                                   make_family_d_score_fn)
     from cvad_tpu_torch.runtime.checkpoint import load_torch_state_dict
 
     t_start = time.perf_counter()
@@ -807,36 +1136,73 @@ def main() -> int:
         "bf16_bulk_chunk": forward_breakdown(bulk, bulk_clips[:BULK_BATCH])}
 
     phase_train_parity(state, rng)
+    phase_family_b_model(rng)
+    phase_family_b_parity(rng)
+    paths = {"serve": serve_launches}
     with tempfile.TemporaryDirectory(prefix="cvad_chip_smoke_") as tmp:
-        train_launches = phase_train(Path(tmp))  # resets the counts first
-    emit({"phase": "main_path", "path": "train", "launches": train_launches})
+        paths["train"] = phase_train(Path(tmp))  # resets the counts first
+        emit({"phase": "main_path", "path": "train",
+              "launches": paths["train"]})
+        paths["family_b_train"], best_b = phase_family_b_train(Path(tmp))
+        emit({"phase": "main_path", "path": "family_b_train",
+              "launches": paths["family_b_train"]})
+
+        # inputs of main path 4 and the direct scorer's answers to them,
+        # made before the launch counts are reset
+        requests_b = [rng.uniform(0, 1, (n,) + CLIP_B).astype(np.float32)
+                      for n in (1, 5, 32)]
+        requests_b.append(rng.integers(0, 256, (8,) + CLIP_B,
+                                       dtype=np.uint8))
+        direct_b = make_family_b_score_fn(load_torch_state_dict(str(best_b)))
+        direct_b_scores = [direct_b(c) for c in requests_b]
+        reset_counts()
+        srv_b, base_b = phase_serve(requests_b, direct_b_scores, best_b,
+                                    family="b", phase="family_b_serve")
+        try:
+            paths["family_b_serve"] = counts()
+            emit({"phase": "main_path", "path": "family_b_serve",
+                  "launches": paths["family_b_serve"]})
+            check(paths["family_b_serve"]["memory_min_cosine"] >= 1,
+                  "the family-B serving path never launched "
+                  "memory_min_cosine")
+            latency_b = request_latency(base_b, rng, clip=CLIP_B)
+        finally:
+            srv_b.close()
+        breakdown["b_f32_bucket128"] = forward_breakdown(
+            direct_b, requests_b[2].repeat(4, 0))
 
     train_times = [train_step_times(rng, "float32"),
-                   train_step_times(rng, "bfloat16")]
+                   train_step_times(rng, "bfloat16"),
+                   train_step_times(rng, "float32", "b"),
+                   train_step_times(rng, "bfloat16", "b")]
     pair_t = pairwise_times(rng)
     k1_bwd = tfold_backward_times(rng)
+    mem_t = memory_times(rng)
     emit({"phase": "times", "card": dev["card"], "kernel": [times32, times16],
-          "request_latency": latency, "forward_breakdown": breakdown,
+          "request_latency": latency, "request_latency_b": latency_b,
+          "forward_breakdown": breakdown,
           "bulk": {"clips": BULK_CLIPS, "batch": BULK_BATCH,
                    "dtype": "bfloat16", "input": "uint8",
                    "seconds": bulk_s,
                    "clips_per_s": BULK_CLIPS / statistics.median(bulk_s)},
           "train_step": train_times, "pairwise_l1": pair_t,
-          "tfold_conv1_backward_plain": k1_bwd,
+          "tfold_conv1_backward_plain": k1_bwd, "memory_min_cosine": mem_t,
           "total_s": time.perf_counter() - t_start})
 
     def row(t: dict, err: float) -> dict:
         return {k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                   "library_ms")} | {"max_abs_err": err}
 
+    def launches(name: str) -> dict:
+        by_path = {p: c[name] for p, c in paths.items()}
+        return {"launches": sum(by_path.values()),
+                "launches_by_path": by_path}
+
     emit({"kernels": [
         {"name": "tfold_conv1", "route": "cuda",
          "source": "cvad_tpu_torch/csrc/tfold_conv1.cu",
          "replaces": "cvad_tpu/ops/pallas_conv.py:178",
-         "launches": serve_launches["tfold_conv1"]
-         + train_launches["tfold_conv1"],
-         "launches_by_path": {"serve": serve_launches["tfold_conv1"],
-                              "train": train_launches["tfold_conv1"]},
+         **launches("tfold_conv1"),
          "dtype": "float32", "B": BULK_BATCH,
          **row(times32, errs["f32"]),
          "bfloat16": row(times16, errs["bf16"]),
@@ -844,20 +1210,23 @@ def main() -> int:
         {"name": "pairwise_l1_forward", "route": "cuda",
          "source": "cvad_tpu_torch/csrc/pairwise_l1.cu",
          "replaces": "cvad_tpu/ops/pallas_kernels.py:214",
-         "launches": train_launches["pairwise_l1_forward"],
-         "launches_by_path": {"serve": serve_launches["pairwise_l1_forward"],
-                              "train": train_launches["pairwise_l1_forward"]},
+         **launches("pairwise_l1_forward"),
          "dtype": "float32", "B": pair_t["B"], "N": pair_t["N"],
          **row(pair_t["forward"], errs["pair_fwd"]), "card": dev["card"]},
         {"name": "pairwise_l1_backward", "route": "cuda",
          "source": "cvad_tpu_torch/csrc/pairwise_l1.cu",
          "replaces": "cvad_tpu/ops/pallas_kernels.py:243",
-         "launches": train_launches["pairwise_l1_backward"],
-         "launches_by_path": {
-             "serve": serve_launches["pairwise_l1_backward"],
-             "train": train_launches["pairwise_l1_backward"]},
+         **launches("pairwise_l1_backward"),
          "dtype": "float32", "B": pair_t["B"], "N": pair_t["N"],
-         **row(pair_t["backward"], errs["pair_bwd"]), "card": dev["card"]}]})
+         **row(pair_t["backward"], errs["pair_bwd"]), "card": dev["card"]},
+        {"name": "memory_min_cosine", "route": "cuda",
+         "source": "cvad_tpu_torch/csrc/memory_cosine.cu",
+         "replaces": "cvad_tpu/ops/pallas_kernels.py:102",
+         **launches("memory_min_cosine"),
+         "dtype": "float32", "B": mem_t[0]["B"], "M": mem_t[0]["M"],
+         "D": mem_t[0]["D"], **row(mem_t[0], errs["memory"]),
+         "large": {k: mem_t[1][k] for k in ("B", "M", "D")}
+         | row(mem_t[1], errs["memory"]), "card": dev["card"]}]})
     print(dev["card"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],
                                  "count": dev["count"]}})

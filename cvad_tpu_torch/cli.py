@@ -3,18 +3,20 @@
     python -m cvad_tpu_torch.cli train --preset avenue_improved \\
         --epochs 80 --out results [--n-synthetic 256] [--resume] \\
         [--set SEC.KEY=VAL ...] [--device cuda]
+    python -m cvad_tpu_torch.cli train --preset memory_ae --out results_b
     python -m cvad_tpu_torch.cli serve CKPT.pth --port 8700 \\
-        --buckets 1,8,32,128 --device cuda [--warmup]
+        --buckets 1,8,32,128 --device cuda [--warmup] [--family b]
 
-``train`` is `cvad_tpu/cli.py::cmd_train` for family D on synthetic clips:
+``train`` is `cvad_tpu/cli.py::cmd_train` for families D (presets
+avenue_improved, family_d) and B (memory_ae, family_b) on synthetic clips:
 it writes ``config.json``, the history, ``metrics.jsonl`` and the
 checkpoints under ``--out``; ``--resume`` continues from the newest
 checkpoint there (an intra-epoch 'mid' one included).  A trained
 ``checkpoints/best/model.pth`` is a reference-format ``.pth`` that ``serve``
 reads.  ``serve`` is `cmd_serve`: the HTTP scoring endpoint of
-`cvad_tpu_torch.evaluation.http_service` over a family-D ``.pth``
-checkpoint, with bucket-padded batching and dynamic request coalescing.
-Both run on CUDA unless ``--device cpu``.
+`cvad_tpu_torch.evaluation.http_service` over a family-D or family-B
+``.pth`` checkpoint (``--family``), with bucket-padded batching and
+dynamic request coalescing.  Both run on CUDA unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -112,9 +114,11 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="cvad_tpu_torch",
                                 description="PyTorch/CUDA port of cvad_tpu")
     sub = p.add_subparsers(dest="cmd", required=True)
-    t = sub.add_parser("train", help="train family D on synthetic clips")
+    t = sub.add_parser("train", help="train family D or B on synthetic "
+                                     "clips")
     t.add_argument("--preset", default="avenue_improved",
-                   help="avenue_improved|family_d (the port's one family)")
+                   help="avenue_improved|family_d (family D) or "
+                        "memory_ae|family_b (family B)")
     t.add_argument("--epochs", type=int, default=None)
     t.add_argument("--out", default=None)
     t.add_argument("--n-synthetic", type=int, default=256)
@@ -130,8 +134,8 @@ def build_parser() -> argparse.ArgumentParser:
     sv = sub.add_parser("serve", help="HTTP scoring endpoint")
     sv.add_argument("model", help="reference-format .pth checkpoint")
     sv.add_argument("--family", default="d",
-                    help="model family of the checkpoint (the port serves "
-                         "'d')")
+                    help="model family of the checkpoint: 'd' (default) or "
+                         "'b'")
     sv.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu'")
     sv.add_argument("--host", default="127.0.0.1")

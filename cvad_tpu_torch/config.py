@@ -1,18 +1,26 @@
-"""Configuration for the port's family-D slices (serving and training).
+"""Configuration for the port's slices: family D and family B, serving and
+training.
 
-An own copy of the fields of `cvad_tpu.config` that the family-D serving and
-training paths read; the port imports nothing of `cvad_tpu`.  The TPU
-lowering knobs of `FamilyDConfig` (`conv1_mode`, `conv_stack`,
-`conv_group_impl`) are left out: they select exact relowerings of the same
-convolution that exist to fill TPU tiles.  Knobs of `TrainConfig` that have
-no port yet are carried and refused where they are read (`Trainer`), so that
-setting one never silently runs something else:
+An own copy of the fields of `cvad_tpu.config` that the family-D and
+family-B serving and training paths read; the port imports nothing of
+`cvad_tpu`.  The TPU lowering knobs of `FamilyDConfig` (`conv1_mode`,
+`conv_stack`, `conv_group_impl`) are left out: they select exact
+relowerings of the same convolution that exist to fill TPU tiles.  So are
+`DataConfig.grayscale` and `label_policy`, which only the frame-folder
+datasets read (ROADMAP Queue 1 item 6; the synthetic clips take
+`channels`), and `TrainConfig.normal_only`, which no code of `cvad_tpu`
+reads (family B's step trains on the normal clips).  Knobs of
+`TrainConfig` that have no port yet are carried and refused where they are
+read (`Trainer`), so that setting one never silently runs something else:
 
 - ``steps_per_call > 1`` (K steps per call): ROADMAP Queue 1 item 5;
 - ``device_cache='on'`` (the device clip cache): ROADMAP Queue 1 item 15;
   ``'auto'`` resolves to off.
 
-`ParallelConfig` (the device mesh, ROADMAP Queue 1 item 14) is not carried.
+`FamilyBConfig.temporal_encoder='attention'` is carried and refused where
+the model is built: it needs the attention encoder and K6 (ROADMAP Queue 1
+item 12).  `ParallelConfig` (the device mesh, ROADMAP Queue 1 item 14) is
+not carried.
 Configs are frozen dataclasses that write JSON as `cvad_tpu`'s do.
 """
 
@@ -21,7 +29,7 @@ from __future__ import annotations
 import dataclasses
 import json
 from dataclasses import dataclass, field
-from typing import Any, Tuple
+from typing import Any, Tuple, Union
 
 
 def _asdict(cfg: Any) -> Any:
@@ -57,6 +65,7 @@ class DataConfig(_Base):
     frame_size: Tuple[int, int] = (64, 64)  # (H, W)
     channels: int = 3
     stride: int = 4
+    # family B's preset clamps to (0.001, 0.999)
     normalize_clamp: Tuple[float, float] = (0.0, 1.0)
     batch_size: int = 32
     prefetch: int = 2
@@ -95,6 +104,33 @@ class FamilyDConfig(_Base):
 
 
 @dataclass(frozen=True)
+class FamilyBConfig(_Base):
+    """Memory-bank video autoencoder
+    (``causal_anomaly_detection1.py:124-321``): a per-frame conv encoder 1->32->64->128->128 to a 64-d tanh latent, an
+    LSTM of 64 over the frame latents, a deconv decoder back to one 64x64
+    frame, and a 500-slot ring buffer of normal sequence features scored by
+    min cosine distance once 10 slots are filled."""
+
+    name: str = "family_b"
+    in_channels: int = 1
+    latent_dim: int = 64
+    conv_channels: Tuple[int, int, int, int] = (32, 64, 128, 128)
+    memory_size: int = 500
+    memory_min_fill: int = 10
+    lstm_hidden: int = 64
+    leaky_slope: float = 0.1
+    # 'lstm' (reference parity); 'attention' needs the attention encoder
+    # and K6, not ported yet (ROADMAP Queue 1 item 12)
+    temporal_encoder: str = "lstm"
+    attn_heads: int = 4
+    attn_layers: int = 2
+    # computation dtype of the convs and denses ('float32' | 'bfloat16');
+    # parameters, BatchNorm statistics, the latent, the LSTM and the memory
+    # stay float32
+    dtype: str = "float32"
+
+
+@dataclass(frozen=True)
 class LossConfig(_Base):
     """Family-D loss weights: focal anomaly 1.0, acyclicity 0.01, sparsity
     0.001, consistency 0.01, structure 0.01; focal alpha/gamma 0.25/2.0;
@@ -114,6 +150,12 @@ class LossConfig(_Base):
     consistency_target: float = 0.1
     min_edges: int = 10
     max_edges: int = 40
+    # family B: reconstruction-loss weight, and the combined inference
+    # score 0.7 recon MSE + 0.3 memory distance
+    # (causal_anomaly_detection1.py:552)
+    b_recon_weight: float = 1.0
+    b_score_recon: float = 0.7
+    b_score_memory: float = 0.3
 
 
 @dataclass(frozen=True)
@@ -146,7 +188,7 @@ class TrainConfig(_Base):
     dtype: str = "float32"  # float32 | bfloat16 compute
     best_metric: str = "score_range"
     best_mode: str = "max"
-    early_stop_patience: int = 0  # 0 = off
+    early_stop_patience: int = 0  # 0 = off; family B uses 10
     reload_best: bool = False
     out_dir: str = "results"
     history_name: str = "improved_training_history.json"
@@ -164,7 +206,8 @@ class TrainConfig(_Base):
 class ExperimentConfig(_Base):
     """One config per entry point."""
 
-    model: FamilyDConfig = field(default_factory=FamilyDConfig)
+    model: Union[FamilyDConfig, FamilyBConfig] = field(
+        default_factory=FamilyDConfig)
     data: DataConfig = field(default_factory=DataConfig)
     loss: LossConfig = field(default_factory=LossConfig)
     optim: OptimConfig = field(default_factory=OptimConfig)
@@ -172,14 +215,29 @@ class ExperimentConfig(_Base):
 
 
 FAMILY_D_PRESETS = ("avenue_improved", "family_d", "avenue_training_script2")
+FAMILY_B_PRESETS = ("memory_ae", "family_b", "causal_anomaly_detection1")
 
 
 def preset(name: str) -> ExperimentConfig:
-    """Named presets.  The port holds family D only; the other families'
-    presets wait for their slices (ROADMAP Queue 1 items 8-11)."""
+    """Named presets of the ported families, as `cvad_tpu.config.preset`
+    writes them (:356-384); the other families' presets wait for their
+    slices (ROADMAP Queue 1 items 9-11)."""
     if name in FAMILY_D_PRESETS:
         return ExperimentConfig()
+    if name in FAMILY_B_PRESETS:
+        return ExperimentConfig(
+            model=FamilyBConfig(),
+            data=DataConfig(channels=1, clip_len=8, stride=2,
+                            normalize_clamp=(0.001, 0.999), batch_size=4),
+            optim=OptimConfig(optimizer="adam", lr=1e-6, weight_decay=1e-6,
+                              schedule="plateau", grad_clip=0.1),
+            train=TrainConfig(num_epochs=50,
+                              best_metric="val_loss", best_mode="min",
+                              eval_every=1, early_stop_patience=10,
+                              reload_best=True),
+        )
     raise NotImplementedError(
-        f"preset {name!r} is not ported; the port trains family D "
-        f"({', '.join(FAMILY_D_PRESETS)}); other families are ROADMAP "
-        f"Queue 1 items 8-11")
+        f"preset {name!r} is not ported; the port trains families D "
+        f"({', '.join(FAMILY_D_PRESETS)}) and B "
+        f"({', '.join(FAMILY_B_PRESETS)}); the other families are ROADMAP "
+        f"Queue 1 items 9-11")

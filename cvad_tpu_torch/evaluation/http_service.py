@@ -22,9 +22,11 @@ batches.  Standard library only:
 
 and returns JSON ``{"scores": [...], "graphs": [[...]] | null, "n": N}``.
 
-The port serves family-D ``.pth`` checkpoints; start it with::
+Family B's service returns ``"graphs": null``: its model has no graph.
+The port serves family-D and family-B ``.pth`` checkpoints; start it with::
 
     python -m cvad_tpu_torch.cli serve best_improved_model.pth --port 8700
+    python -m cvad_tpu_torch.cli serve --family b CKPT.pth --port 8700
 """
 
 from __future__ import annotations
@@ -37,24 +39,29 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-from cvad_tpu_torch.config import DataConfig
 from cvad_tpu_torch.evaluation.serving import (BatchingServer,
                                                ClipScoringService)
+
+# (T, H, W, C) of one clip per ported family (`cvad_tpu`'s table, :47-53)
+FAMILY_CLIP_SHAPES = {"b": (8, 64, 64, 1), "d": (8, 64, 64, 3)}
 
 
 def service_from_path(path: str, family: str = "d",
                       buckets=(1, 8, 32, 128), device=None
                       ) -> ClipScoringService:
     """A scoring service over a reference-format ``.pth`` checkpoint of
-    family D, on `device` (CUDA unless the caller asks for the CPU)."""
-    if family != "d":
+    family D or B, on `device` (CUDA unless the caller asks for the CPU).
+    Family B scores against the memory bank the checkpoint holds (all
+    ``memory_fill`` rows of a port checkpoint; ``memory_ptr`` rows of a
+    reference one) and returns scores only."""
+    if family not in FAMILY_CLIP_SHAPES:
         raise NotImplementedError(
-            f"the port serves family 'd' only; serving family {family!r} "
-            f"needs its model and scorer in cvad_tpu_torch (see ROADMAP.md "
-            f"Queue 1)")
+            f"the port serves families 'd' and 'b'; serving family "
+            f"{family!r} needs its model and scorer in cvad_tpu_torch (see "
+            f"ROADMAP.md Queue 1)")
     return ClipScoringService.from_torch_checkpoint(
-        path, device=device, buckets=buckets,
-        clip_shape=DataConfig().clip_shape)
+        path, family, device=device, buckets=buckets,
+        clip_shape=FAMILY_CLIP_SHAPES[family])
 
 
 def _parse_clips(body: bytes, content_type: str,

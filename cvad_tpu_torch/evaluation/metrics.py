@@ -1,12 +1,19 @@
 """Evaluation metrics of the port.
 
-An own copy of `cvad_tpu/evaluation/metrics.py::family_d_eval_metrics`
-(:19-35), numpy only: the reference's family-D eval dict, key for key.
+An own copy of `cvad_tpu/evaluation/metrics.py` (:19-134), numpy only:
+
+- `family_d_eval_metrics`, the reference's family-D eval dict, key for key;
+- family B's: `percentile_threshold` (the 95th percentile of the normal
+  clips' scores), `binary_metrics` (AUC, accuracy, precision, recall and F1
+  at a threshold) and `score_separation`.  `cvad_tpu` computes the binary
+  metrics with scikit-learn; here they are written out in numpy with
+  scikit-learn's definitions (zero_division=0, AUC from average ranks), so
+  the port needs no scikit-learn.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 
@@ -31,3 +38,90 @@ def family_d_eval_metrics(predictions: np.ndarray, causal_graphs: np.ndarray,
         "avg_sparsity": float((edges / n_cells).mean()),
         "unique_graphs": float(unique_graph_count(g)),
     }
+
+
+def percentile_threshold(scores: np.ndarray, labels: np.ndarray,
+                         percentile: float = 95.0) -> float:
+    """The `percentile`-th percentile of the normal (label 0) scores, or of
+    all scores when there is no normal one."""
+    normal = np.asarray(scores)[np.asarray(labels) == 0]
+    if normal.size == 0:
+        return float(np.percentile(scores, percentile))
+    return float(np.percentile(normal, percentile))
+
+
+def roc_auc(scores: np.ndarray, labels: np.ndarray) -> float:
+    """Area under the ROC curve of binary `labels` (1 positive): the
+    Mann-Whitney statistic over average ranks, which is what
+    ``sklearn.metrics.roc_auc_score`` gives, ties included."""
+    scores = np.asarray(scores, np.float64).reshape(-1)
+    pos = np.asarray(labels).reshape(-1) == 1
+    order = np.argsort(scores, kind="mergesort")
+    ranks = np.empty(len(scores), np.float64)
+    sorted_s = scores[order]
+    # average rank (1-based) over each run of equal scores
+    starts = np.flatnonzero(np.r_[True, sorted_s[1:] != sorted_s[:-1]])
+    ends = np.r_[starts[1:], len(scores)]
+    for s, e in zip(starts, ends):
+        ranks[order[s:e]] = (s + 1 + e) / 2.0
+    n_pos, n_neg = int(pos.sum()), int((~pos).sum())
+    return float((ranks[pos].sum() - n_pos * (n_pos + 1) / 2.0)
+                 / (n_pos * n_neg))
+
+
+def binary_metrics(scores: np.ndarray, labels: np.ndarray,
+                   threshold: Optional[float] = None) -> Dict[str, float]:
+    """AUC, accuracy, precision, recall and F1 of ``scores > threshold``
+    (default 0.5, the reference's fixed cut); precision, recall and F1 are
+    0 where their denominator is, and AUC is NaN for a single-class eval."""
+    scores = np.asarray(scores).reshape(-1)
+    labels = np.asarray(labels).reshape(-1).astype(int)
+    thr = 0.5 if threshold is None else threshold
+    preds = (scores > thr).astype(int)
+    tp = int(((preds == 1) & (labels == 1)).sum())
+    fp = int(((preds == 1) & (labels == 0)).sum())
+    fn = int(((preds == 0) & (labels == 1)).sum())
+
+    def ratio(num: int, den: int) -> float:
+        return float(num / den) if den else 0.0
+
+    out = {
+        "accuracy": float((preds == labels).mean()),
+        "precision": ratio(tp, tp + fp),
+        "recall": ratio(tp, tp + fn),
+        "f1": ratio(2 * tp, 2 * tp + fp + fn),
+        "threshold": float(thr),
+    }
+    out["auc"] = (roc_auc(scores, labels) if len(np.unique(labels)) > 1
+                  else float("nan"))
+    return out
+
+
+def score_separation(scores: np.ndarray, labels: np.ndarray
+                     ) -> Dict[str, float]:
+    """Mean score of the normal and of the abnormal clips, and their
+    difference (NaN for a class with no clip)."""
+    scores = np.asarray(scores).reshape(-1)
+    labels = np.asarray(labels).reshape(-1)
+    normal = scores[labels == 0]
+    abnormal = scores[labels == 1]
+    out = {
+        "normal_mean": float(normal.mean()) if normal.size else float("nan"),
+        "abnormal_mean": (float(abnormal.mean()) if abnormal.size
+                          else float("nan")),
+    }
+    out["separation"] = out["abnormal_mean"] - out["normal_mean"]
+    return out
+
+
+def family_b_eval_metrics(predictions: np.ndarray, labels: np.ndarray,
+                          loss: np.ndarray) -> Dict[str, float]:
+    """Family B's eval dict (`cvad_tpu/train/engine.py:457-463`): the
+    binary metrics at the 95th percentile of the normal scores, the score
+    separation, and ``val_loss``, the mean per-sample reconstruction
+    error."""
+    thr = percentile_threshold(predictions, labels)
+    m = binary_metrics(predictions, labels, thr)
+    m.update(score_separation(predictions, labels))
+    m["val_loss"] = float(np.mean(loss))
+    return m

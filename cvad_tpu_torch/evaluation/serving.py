@@ -12,7 +12,8 @@ Port of `cvad_tpu/evaluation/serving.py` (`ScoreResult`,
   coalesces concurrent small requests up to the largest bucket, one device
   batch per dtype.
 
-The ahead-of-time scorer export of `cvad_tpu` is not ported yet.
+The ahead-of-time scorer export of `cvad_tpu` is not ported yet (ROADMAP
+Queue 1 item 16).
 """
 
 from __future__ import annotations
@@ -49,15 +50,19 @@ class ClipScoringService:
         self._lock = threading.Lock()
 
     @classmethod
-    def from_torch_checkpoint(cls, path: str, device=None,
+    def from_torch_checkpoint(cls, path: str, family: str = "d", device=None,
                               **kw) -> "ClipScoringService":
-        """Serve the family-D model from a reference ``.pth`` checkpoint
-        (e.g. the shipped ``best_improved_model.pth``)."""
-        from cvad_tpu_torch.evaluation.scoring import make_family_d_score_fn
+        """Serve the family-D model (e.g. the shipped
+        ``best_improved_model.pth``, scores and graphs) or the family-B one
+        (scores only, against the checkpoint's memory bank) from a
+        reference-format ``.pth`` checkpoint."""
+        from cvad_tpu_torch.evaluation.scoring import (make_family_b_score_fn,
+                                                       make_family_d_score_fn)
         from cvad_tpu_torch.runtime.checkpoint import load_torch_state_dict
 
-        return cls(make_family_d_score_fn(load_torch_state_dict(path),
-                                          device=device), **kw)
+        make = {"d": make_family_d_score_fn, "b": make_family_b_score_fn}
+        return cls(make[family](load_torch_state_dict(path), device=device),
+                   **kw)
 
     def _bucket(self, n: int) -> int:
         for b in self.buckets:

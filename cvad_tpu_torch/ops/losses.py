@@ -1,9 +1,12 @@
-"""Family D's loss, in PyTorch.
+"""Family D's loss and family B's reconstruction loss, in PyTorch.
 
-Port of `cvad_tpu/ops/losses.py:21-116`: binary cross-entropy, the focal
+Port of `cvad_tpu/ops/losses.py:21-150`: binary cross-entropy, the focal
 loss as the reference composes it, the masked mean, pseudo-labels and the
-five-term ``improved_loss``.  The consistency term calls the port's
-`pairwise_l1_mean`, which launches K2 for CUDA tensors.
+five-term ``improved_loss``; the consistency term calls the port's
+`pairwise_l1_mean`, which launches K2 for CUDA tensors.  Also
+`family_b_reconstruction_loss`, the reference's MSE -> L1 -> 0 chain (the
+family-B train step computes the same MSE from sufficient statistics and
+does not call it).
 """
 
 from __future__ import annotations
@@ -106,3 +109,15 @@ def improved_loss(anomaly_scores: torch.Tensor, causal_adj: torch.Tensor,
         "sparsity_ratio": current_sparsity,
     }
     return total, components
+
+
+def family_b_reconstruction_loss(pred: torch.Tensor, target: torch.Tensor
+                                 ) -> torch.Tensor:
+    """MSE of `pred` clamped to (1e-8, 1 - 1e-8) against `target`; the L1
+    where the MSE is not finite, and 0 where neither is
+    (``causal_anomaly_detection1.py:323-344``), as device-side selects."""
+    pred = torch.clamp(pred, 1e-8, 1.0 - 1e-8)
+    mse = torch.mean((pred - target) ** 2)
+    l1 = torch.mean(torch.abs(pred - target))
+    out = torch.where(torch.isfinite(mse), mse, l1)
+    return torch.where(torch.isfinite(out), out, torch.zeros_like(out))

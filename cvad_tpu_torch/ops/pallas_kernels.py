@@ -1,7 +1,26 @@
-"""Masked mean pairwise L1 (K2): the core of family D's consistency loss.
+"""The memory-bank min cosine distance (K3) and the masked mean pairwise L1
+(K2), counterparts of `cvad_tpu/ops/pallas_kernels.py` (the module name
+mirrors it).
 
-Counterpart of `cvad_tpu/ops/pallas_kernels.py::pairwise_l1_mean` (the
-module name mirrors it).  For flat (B, N) and mask (B,) in {0, 1} it returns
+K3, `memory_min_cosine_distance(query, memory, fill)`: family B's memory
+score, out[b] = clamp(min_{j < fill} (1 - clip(q^_b . m^_j, -1, 1)), 0, 2)
+/ 2 with rows normalised as x * rsqrt(sum x^2 + 1e-8); 1.0 when fill is 0.
+
+- `memory_min_cosine_distance_reference`, the plain version, is the same
+  arithmetic in torch ops;
+- `memory_distance_xla_reference` is the twin of `cvad_tpu`'s `_memory_xla`
+  (:138-144), which normalises as x / max(||x||, 1e-8).  The two agree
+  except for rows whose norm is near 1e-4 or below, where the epsilon of
+  the rsqrt form starts to count;
+- `memory_min_cosine_distance` is a `torch.autograd.Function`: CUDA tensors
+  launch the hand-written Hopper kernel (`csrc/memory_cosine.cu`) or raise,
+  CPU tensors take the plain version.  Its backward is autograd through the
+  `_memory_xla` twin, as `cvad_tpu`'s custom VJP (:116-131) does; there is
+  no backward kernel.  ``memory_min_cosine_distance.launches`` counts
+  kernel launches.  The fill stays on the device: no call reads it on the
+  host.
+
+K2, `pairwise_l1_mean`: for flat (B, N) and mask (B,) in {0, 1} it returns
 (avg, n_pairs): the mean over unordered pairs i<j with both rows in the mask
 of mean_k |f_ik - f_jk| (0 when there is no pair), and the pair count.
 
@@ -31,6 +50,140 @@ import torch
 from cvad_tpu_torch.ops import _build
 
 KERNEL_MAX_N = 8192  # row width the kernel stages in shared memory
+KERNEL_MAX_D = 1024  # K3: feature width of the 8 query rows in shared memory
+_EPS = 1e-8
+
+
+# ---------------------------------------------------------------------------
+# K3: memory-bank min cosine distance
+# ---------------------------------------------------------------------------
+
+
+def memory_min_cosine_distance_reference(query: torch.Tensor,
+                                         memory: torch.Tensor,
+                                         fill: torch.Tensor) -> torch.Tensor:
+    """Plain version of K3, with the kernel's rsqrt(sum x^2 + 1e-8)
+    normalisation: (B,) in [0, 1]."""
+    qn = query * torch.rsqrt((query * query).sum(-1, keepdim=True) + _EPS)
+    mn = memory * torch.rsqrt((memory * memory).sum(-1, keepdim=True) + _EPS)
+    return _min_distance(qn @ mn.T, fill)
+
+
+def memory_distance_xla_reference(query: torch.Tensor, memory: torch.Tensor,
+                                  fill: torch.Tensor) -> torch.Tensor:
+    """Twin of `cvad_tpu`'s `_memory_xla`: rows normalised as
+    x / max(||x||, 1e-8).  Equal to the plain version except for rows with
+    a norm near 1e-4 or below.  K3's gradient is autograd through this."""
+    qn = query / torch.clamp(torch.linalg.vector_norm(query, dim=-1,
+                                                      keepdim=True), min=_EPS)
+    mn = memory / torch.clamp(torch.linalg.vector_norm(memory, dim=-1,
+                                                       keepdim=True), min=_EPS)
+    return _min_distance(qn @ mn.T, fill)
+
+
+def _min_distance(sims: torch.Tensor, fill: torch.Tensor) -> torch.Tensor:
+    """Columns >= fill at distance 3, row-min of 1 - clip(sims, -1, 1),
+    clamped to [0, 2] and halved; torch.amin and torch.clamp keep NaN."""
+    sims = torch.clamp(sims, -1.0, 1.0)
+    col = torch.arange(sims.shape[1], device=sims.device)
+    valid = col < fill.reshape(())
+    dists = torch.where(valid[None, :], 1.0 - sims,
+                        torch.full_like(sims, 3.0))
+    return torch.clamp(torch.amin(dists, dim=1), 0.0, 2.0) / 2.0
+
+
+def _check_memory(query: torch.Tensor, memory: torch.Tensor,
+                  fill: torch.Tensor) -> None:
+    if query.dim() != 2 or memory.dim() != 2 or \
+            query.shape[1] != memory.shape[1]:
+        raise ValueError(f"query must be (B, D) and memory (M, D), got "
+                         f"{tuple(query.shape)} and {tuple(memory.shape)}")
+    if not (query.device == memory.device == fill.device):
+        raise ValueError(f"query on {query.device}, memory on "
+                         f"{memory.device}, fill on {fill.device}")
+    if fill.numel() != 1:
+        raise ValueError(f"fill must hold one count, got shape "
+                         f"{tuple(fill.shape)}")
+
+
+def _memory_library() -> ctypes.CDLL:
+    lib = _build.library("memory_cosine")
+    if not getattr(lib, "_typed", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.memory_min_cosine_forward.argtypes = [p, p, p, p, i, i, i, p]
+        lib.memory_min_cosine_forward.restype = i
+        lib.memory_min_cosine_error_string.argtypes = [i]
+        lib.memory_min_cosine_error_string.restype = ctypes.c_char_p
+        lib._typed = True
+    return lib
+
+
+def _launch_memory(query: torch.Tensor, memory: torch.Tensor,
+                   fill: torch.Tensor) -> torch.Tensor:
+    b, d = query.shape
+    m = memory.shape[0]
+    if b == 0 or m == 0 or not 0 < d <= KERNEL_MAX_D:
+        raise ValueError(f"the memory kernel takes B >= 1, M >= 1 and "
+                         f"1 <= D <= {KERNEL_MAX_D}, got B={b}, M={m}, D={d}")
+    fill32 = fill.reshape(1).to(torch.int32)
+    out = torch.empty(b, dtype=torch.float32, device=query.device)
+    lib = _memory_library()
+    with torch.cuda.device(query.device):
+        stream = torch.cuda.current_stream(query.device).cuda_stream
+        rc = lib.memory_min_cosine_forward(query.data_ptr(),
+                                           memory.data_ptr(),
+                                           fill32.data_ptr(), out.data_ptr(),
+                                           b, m, d, stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"memory_min_cosine kernel launch failed: CUDA error {rc} "
+            f"({lib.memory_min_cosine_error_string(rc).decode()})")
+    memory_min_cosine_distance.launches += 1
+    return out
+
+
+class _MemoryMinCosine(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, query, memory, fill):
+        if _route(query) == "cuda":
+            out = _launch_memory(query, memory, fill)
+        else:
+            out = memory_min_cosine_distance_reference(query, memory, fill)
+        ctx.save_for_backward(query, memory, fill)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        query, memory, fill = ctx.saved_tensors
+        with torch.enable_grad():
+            q = query.detach().requires_grad_(True)
+            m = memory.detach().requires_grad_(True)
+            out = memory_distance_xla_reference(q, m, fill)
+            dq, dm = torch.autograd.grad(out, (q, m), g)
+        return dq, dm, None
+
+
+def memory_min_cosine_distance(query: torch.Tensor, memory: torch.Tensor,
+                               fill) -> torch.Tensor:
+    """Min cosine distance of each query row to the first `fill` memory
+    rows, scaled to [0, 1]: query (B, D), memory (M, D) -> (B,) float32.
+    `fill` is an int tensor on the query's device (or a Python int).  The
+    min-fill gate stays with the caller.  Differentiable w.r.t. query and
+    memory (through the `_memory_xla` twin)."""
+    q = query.to(torch.float32).contiguous()
+    mem = memory.to(torch.float32).contiguous()
+    if not isinstance(fill, torch.Tensor):
+        fill = torch.tensor(int(fill), dtype=torch.int32, device=q.device)
+    _check_memory(q, mem, fill)
+    return _MemoryMinCosine.apply(q, mem, fill)
+
+
+memory_min_cosine_distance.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K2: masked mean pairwise L1
+# ---------------------------------------------------------------------------
 
 
 def pairwise_l1_reference(flat: torch.Tensor, mask: torch.Tensor

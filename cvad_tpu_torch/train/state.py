@@ -5,7 +5,11 @@ threaded through a donated jitted step; here `TrainState` holds the
 `nn.Module` whose parameters the train step updates in place, the
 optimizer's `OptState` over the flat parameter vector, and ``step``, a host
 int: every step advances it by one, skipped or not, so it never needs a
-device read.
+device read.  `cvad_tpu` keeps family B's BatchNorm statistics and memory
+bank in the state (``batch_stats``, ``extra``); here they are buffers of
+the model (``running_mean``/``running_var``, ``normal_memory``,
+``memory_ptr``, ``memory_fill``), so ``state_dict`` and
+``load_state_dict`` carry them with the weights.
 """
 
 from __future__ import annotations

@@ -1,10 +1,17 @@
-"""Family D's train and eval steps, in PyTorch.
+"""The train and eval steps of families D and B, in PyTorch.
 
-Port of `cvad_tpu/train/tasks.py` for family D (`prep_clips`,
-`_apply_updates`, `_family_d_task`).  Batches are dicts of tensors already
-on the model's device: ``{"clips": (B, T, H, W, C) uint8 or float32,
-"labels": (B,)}``, optionally ``"valid"`` (B,) and ``"pseudo_targets"``
-(B,).
+Port of `cvad_tpu/train/tasks.py` for families D and B (`prep_clips`,
+`_apply_updates`, `_family_d_task`, `_family_b_task`,
+`update_memory_masked`, `stop_bn_absorbed_biases`).  Batches are dicts of
+tensors already on the model's device: ``{"clips": (B, T, H, W, C) uint8 or
+float32, "labels": (B,)}``, optionally ``"valid"`` (B,) and, for family D,
+``"pseudo_targets"`` (B,).
+
+Family B trains on the batch's normal clips (labels == 0, and valid) with
+the sufficient-statistics reconstruction loss, writes their sequence
+features into the memory bank, and takes no random draw.  The train step
+computes no memory score (nothing reads it); the eval step does, through
+K3.
 
 Randomness: `cvad_tpu` derives each step's dropout and pseudo-label keys
 from ``fold_in(rng, step)``, which is stateless, so a resumed run replays
@@ -24,13 +31,17 @@ default, False.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Mapping, Sequence, Tuple
+from typing import Callable, Dict, List, Mapping, Sequence, Tuple
 
 import torch
+from torch import nn
 
-from cvad_tpu_torch.config import ExperimentConfig
+from cvad_tpu_torch.config import (ExperimentConfig, FamilyBConfig,
+                                   FamilyDConfig)
 from cvad_tpu_torch.evaluation import scoring
-from cvad_tpu_torch.models import CausalAnomalyDetector
+from cvad_tpu_torch.models import CausalAnomalyDetector, MemoryVideoAutoEncoder
+from cvad_tpu_torch.models.family_b import MemoryBankState
+from cvad_tpu_torch.models.layers import MaskedBatchNorm
 from cvad_tpu_torch.ops.losses import improved_loss, pseudo_labels
 from cvad_tpu_torch.runtime.device import resolve_device
 from cvad_tpu_torch.train.optim import (OptState, Optimizer, build_optimizer,
@@ -157,6 +168,144 @@ def _family_d_task(cfg: ExperimentConfig) -> Task:
     return Task(model_cfg, tx, init_state, train_step, eval_step)
 
 
+def prep_frames(clips: torch.Tensor, clamp=(0.0, 1.0)) -> torch.Tensor:
+    """(B, T, H, W, C) uint8 pixels or floats on the device -> float32
+    (B, T, C, H, W), family B's frame layout, with the clamp when it is not
+    (0, 1)."""
+    x = scoring.prep_frames(clips)
+    lo, hi = clamp
+    if (lo, hi) != (0.0, 1.0):
+        x = torch.clamp(x, lo, hi)
+    return x
+
+
+@torch.no_grad()
+def update_memory_masked(state: MemoryBankState, feats: torch.Tensor,
+                         mask: torch.Tensor) -> MemoryBankState:
+    """Write only the rows of `feats` where `mask` is nonzero into the ring
+    buffer, in FIFO order: those rows packed first (a stable sort), the
+    pointer advanced by their count.  A new state, no host sync; B <= M."""
+    b, m = feats.shape[0], state.memory.shape[0]
+    order = torch.sort((mask == 0).to(torch.int32), stable=True).indices
+    k = mask.sum().to(torch.int32)
+    steps = torch.arange(b, dtype=torch.int32, device=feats.device)
+    idx = ((state.ptr + steps) % m).long()
+    rows = torch.where((steps < k)[:, None],
+                       feats.detach()[order].to(state.memory.dtype),
+                       state.memory[idx])
+    return MemoryBankState(state.memory.index_copy(0, idx, rows),
+                           (state.ptr + k) % m,
+                           torch.clamp(state.fill + k, max=m))
+
+
+def bn_absorbed_biases(model: nn.Module) -> List[str]:
+    """Names of the conv and deconv biases that feed straight into a
+    `MaskedBatchNorm` (family B's encoder convs 0-3 and decoder deconvs
+    0-2; the output deconv feeds a sigmoid and stays live)."""
+    names = []
+    for seq_name, seq in model.named_children():
+        if not isinstance(seq, nn.Sequential):
+            continue
+        layers = list(seq)
+        for i, (layer, nxt) in enumerate(zip(layers, layers[1:])):
+            if isinstance(layer, (nn.Conv2d, nn.ConvTranspose2d)) \
+                    and isinstance(nxt, MaskedBatchNorm):
+                names.append(f"{seq_name}.{i}.bias")
+    return names
+
+
+def stop_bn_absorbed_biases(model: nn.Module, loss: torch.Tensor
+                            ) -> List[torch.Tensor]:
+    """Gradients of `loss` w.r.t. every parameter (`TrainState.params`
+    order), with exactly zero for the BN-absorbed biases: BatchNorm's batch
+    mean cancels them, so their true gradient is 0, and autograd's ~1e-8 of
+    rounding would become an lr-sized Adam step.  They are left out of
+    `autograd.grad`, which also skips their reduction.  Weight decay still
+    reaches them in the optimizer, as in `cvad_tpu`'s optax chain."""
+    absorbed = set(bn_absorbed_biases(model))
+    named = list(model.named_parameters())
+    live = [p for n, p in named if n not in absorbed]
+    grads = iter(torch.autograd.grad(loss, live))
+    return [torch.zeros_like(p) if n in absorbed else next(grads)
+            for n, p in named]
+
+
+def _family_b_task(cfg: ExperimentConfig) -> Task:
+    model_cfg: FamilyBConfig = cfg.model
+    if cfg.train.dtype != "float32" and model_cfg.dtype == "float32":
+        model_cfg = model_cfg.replace(dtype=cfg.train.dtype)
+    tx = build_optimizer(cfg.optim)
+    loss_cfg = cfg.loss
+    clamp = cfg.data.normalize_clamp
+
+    def init_state(seed: int, device=None) -> TrainState:
+        """The reference's initialisation from `seed` and an empty bank, on
+        CUDA unless `device` says 'cpu'."""
+        model = MemoryVideoAutoEncoder(model_cfg, seed=seed)
+        model = model.to(resolve_device(device))
+        return TrainState(model, tx.init(flatten(model.parameters())
+                                         .detach()))
+
+    def train_step(state: TrainState, batch: Mapping[str, torch.Tensor],
+                   seed: int) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        """One step on the normal clips; updates `state` in place (the
+        parameters and Adam under the NaN guard, the BatchNorm statistics
+        and the bank whatever the guard says) and returns it with the
+        step's metrics as 0-d device tensors.  `seed` is unused: the step
+        draws nothing."""
+        model = state.model
+        x = prep_frames(batch["clips"], clamp)  # (B, T, C, H, W)
+        b, t = x.shape[:2]
+        valid = batch.get("valid")
+        # data-side moments of the sufficient-statistics loss:
+        # E_t[(f - x_t)^2] = f^2 - 2 f x_bar + E_t[x^2], per pixel
+        x_mean = x.mean(1)
+        x_sqmean = (x * x).mean((1, 2, 3, 4))
+        normal = (batch["labels"] == 0).float()
+        if valid is not None:
+            normal = normal * valid
+        n_normal = normal.sum()
+        bank = model.memory_bank()
+        with card_numerics():
+            out = model.train().folded_forward(
+                x.reshape((b * t,) + x.shape[2:]), None, t=t, valid=valid)
+            frame = torch.clamp(out["recon_frame"], 1e-8, 1 - 1e-8)
+            fm = (frame * frame).mean((1, 2, 3))
+            fx = (frame * x_mean).mean((1, 2, 3))
+            err = fm - 2.0 * fx + x_sqmean
+            loss = (err * normal).sum() / torch.clamp(n_normal, min=1.0)
+            loss = loss * loss_cfg.b_recon_weight
+            grads = stop_bn_absorbed_biases(model, loss)
+        model.set_memory_bank(update_memory_masked(
+            bank, out["sequence_feature"], normal))
+        state = _apply_updates(state, tx, grads, loss.detach())
+        return state, {"loss": loss.detach(), "n_normal": n_normal}
+
+    @torch.no_grad()
+    def eval_step(state: TrainState, batch: Mapping[str, torch.Tensor]
+                  ) -> Dict[str, torch.Tensor]:
+        """Per-sample combined score 0.7 recon MSE + 0.3 memory distance
+        (K3), its parts, the labels, and the per-sample loss."""
+        x = prep_frames(batch["clips"], clamp)
+        with card_numerics():
+            out = state.model.eval()(x)
+        recon_err = ((out["reconstructed"] - x) ** 2).mean((1, 2, 3, 4))
+        mem = out["anomaly_score"]
+        combined = (loss_cfg.b_score_recon * recon_err
+                    + loss_cfg.b_score_memory * mem)
+        return {"predictions": combined, "recon_errors": recon_err,
+                "memory_scores": mem, "labels": batch["labels"],
+                "loss": recon_err}
+
+    return Task(model_cfg, tx, init_state, train_step, eval_step)
+
+
 def build_task(cfg: ExperimentConfig) -> Task:
-    """The family-D task (the only family ported)."""
-    return _family_d_task(cfg)
+    """The task of the config's model family (D or B)."""
+    if isinstance(cfg.model, FamilyBConfig):
+        return _family_b_task(cfg)
+    if isinstance(cfg.model, FamilyDConfig):
+        return _family_d_task(cfg)
+    raise NotImplementedError(
+        f"no task for {type(cfg.model).__name__}: the port trains families "
+        f"D and B; the others are ROADMAP Queue 1 items 9-11")

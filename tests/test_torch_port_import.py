@@ -37,6 +37,10 @@ def test_imports_without_jax_or_cvad_tpu():
                 "cvad_tpu_torch.ops.pallas_kernels",
                 "cvad_tpu_torch.ops.losses", "cvad_tpu_torch.ops.adjacency",
                 "cvad_tpu_torch.models.family_d",
+                "cvad_tpu_torch.models.family_b",
+                "cvad_tpu_torch.models.init", "cvad_tpu_torch.models.layers",
+                "cvad_tpu_torch.evaluation.scoring",
+                "cvad_tpu_torch.evaluation.serving",
                 "cvad_tpu_torch.evaluation.http_service",
                 "cvad_tpu_torch.evaluation.metrics",
                 "cvad_tpu_torch.runtime.checkpoint",
@@ -97,3 +101,24 @@ def test_entry_points_default_to_cuda(tmp_path):
     with pytest.raises(RuntimeError):
         main(["train", "--epochs", "1", "--n-synthetic", "8",
               "--out", str(tmp_path / "cli")])
+    # family B: the scorer, the service, the trainer, the task, the CLI
+    from cvad_tpu_torch.evaluation.scoring import (make_family_b_score_fn,
+                                                   make_score_fn)
+    from cvad_tpu_torch.models import MemoryVideoAutoEncoder
+
+    state_b = MemoryVideoAutoEncoder().state_dict()
+    with pytest.raises(RuntimeError):
+        make_family_b_score_fn(state_b)
+    with pytest.raises(RuntimeError):
+        make_score_fn("b", state_b)
+    ckpt_b = str(tmp_path / "b.pth")
+    torch.save({"model_state_dict": state_b}, ckpt_b)
+    with pytest.raises(RuntimeError):
+        main(["serve", ckpt_b, "--family", "b", "--port", "0"])
+    with pytest.raises(RuntimeError):
+        Trainer(preset("memory_ae"), out_dir=str(tmp_path))
+    with pytest.raises(RuntimeError):
+        build_task(preset("memory_ae")).init_state(0)
+    with pytest.raises(RuntimeError):
+        main(["train", "--preset", "memory_ae", "--epochs", "1",
+              "--n-synthetic", "8", "--out", str(tmp_path / "cli_b")])

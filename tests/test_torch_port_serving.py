@@ -177,8 +177,10 @@ def test_batching_server_reports_failed_batch():
 
 
 def test_service_from_path_serves_family_d_only():
-    with pytest.raises(NotImplementedError, match="family 'd'"):
-        service_from_path(CKPT, family="b", device="cpu")
+    """Of the families, only D and B (tests/test_torch_port_train_b.py)
+    have a scorer in the port; the others raise."""
+    with pytest.raises(NotImplementedError, match="families 'd' and 'b'"):
+        service_from_path(CKPT, family="c", device="cpu")
 
 
 def _post(url, body, ctype):
