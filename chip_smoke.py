@@ -64,15 +64,36 @@ Phases:
            1,8,32,128, warmed up; float32 requests of N=1, 5, 32 and a
            uint8 one of N=8, two of them concurrent; every score within
            1e-5 of the direct scorer; /healthz and /stats answer
+  long_model  (main path 5, scoring) the family-D checkpoint scores 128
+           64-frame clips with conv_group_impl='s2d' on the card (conv1 on
+           K5; the launch counts read over this call alone), against the
+           default lowering on the card (K1) and the K5 route's plain
+           version on the CPU: within 1e-4
+  long_train_parity  3 float32 steps at T=64, B=8 from seed 0 on the card
+           and on the CPU, both on the K5 route: tolerances as
+           train_parity's; each card step launches K5 forward and weight
+           gradient and K2 forward and backward once
+  long_train  (main path 5) `Trainer.fit` at T=64, B=128, float32, 512
+           synthetic train and 128 eval clips, uint8 transfer, 3 epochs,
+           conv1 on K5; 2 epochs + restore + epoch 3 bit-identical to the
+           uninterrupted run; the `best` checkpoint's scorer within 1e-5 of
+           the eval step
   times    kernel, plain-version and library times (CUDA events), the
            bounds, per-bucket request latency of both families, bulk
-           clips/s, the train step of both families at B=256 in f32 and
-           bf16 (median of 20) and its device time by kernel
-           (torch.profiler)
+           clips/s, the train step of both families at B=256 and the
+           long-window step at T=64, B=128, in f32 and bf16 (median of 20),
+           with device time by kernel (torch.profiler); K4 and K5 at the
+           main shape, K1 and F.conv3d on the same conv, and the two layout
+           copies around K5
+The kernels phase also holds K4 (forward, input and weight gradient) and
+K5 (forward, weight gradient), called through their wrappers and
+autograd, against their plain versions at B=2, T=16, 16x16 and at the main
+shape B=128, T=64, 64x64, f32 and bf16, a second call bit-identical, each
+wrapper counter one higher a call.
 Kernel launch counts are set to 0 just before each main path (serve + bulk,
-train, family_b_train, family_b_serve) and read just after it.  The last
-lines are the kernels summary, the card's nvidia-smi name and power limit,
-and {"ok": true, "device": {...}}.
+long_score, long_train, train, family_b_train, family_b_serve) and read
+just after it.  The last lines are the kernels summary, the card's
+nvidia-smi name and power limit, and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -103,6 +124,12 @@ CLIP_B = (8, 64, 64, 1)            # family B's clip
 B_FILL = 300                       # bank rows filled in family_b_model
 B_ANOMALY_RATE = 0.2               # the synthetic train split's rate
 MEM_SHAPES = ((256, 500, 64), (1024, 4096, 128))  # K3 timing (B, M, D)
+# long windows (main path 5): (T, H, W, C) of one clip, batch, T-group size
+LONG_CLIP, LONG_BATCH, LONG_G = (64, 64, 64, 3), 128, 8
+LONG_TRAIN_CLIPS, LONG_EVAL_CLIPS, LONG_PARITY_BATCH = 512, 128, 8
+# K4/K5 checks: (B, T, H, W, g), the small case of tests/test_s2d_fold.py
+# and the main path's shape
+S2D_CASES = ((2, 16, 16, 16, 4), (LONG_BATCH, 64, 64, 64, LONG_G))
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and FLOP/s by type
 HBM_BYTES_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
@@ -216,7 +243,8 @@ def phase_kernels(rng: np.random.Generator) -> dict:
     grad = check_tfold_grad(rng)
     pair = check_pairwise(rng)
     mem = check_memory(rng)
-    emit({"phase": "kernels", "kernels": [
+    s2d = check_s2d(rng)
+    emit({"phase": "kernels", "s2d": s2d, "kernels": [
         {"name": "tfold_conv1", "comparison_launches": tfold_conv1.launches,
          "max_abs_err_f32": err32, "max_abs_err_bf16": err16,
          "cases": cases, "grad": grad},
@@ -224,7 +252,120 @@ def phase_kernels(rng: np.random.Generator) -> dict:
         {"name": "memory_min_cosine", **mem}]})
     return {"f32": err32, "bf16": err16, "pair_fwd": pair["max_abs_err_avg"],
             "pair_bwd": pair["max_abs_err_grad"],
-            "memory": mem["max_abs_err"]}
+            "memory": mem["max_abs_err"], "s2d": s2d["max_abs_err"]}
+
+
+def s2d_inputs(rng: np.random.Generator, b: int, t: int, h: int, w: int,
+               g: int, dtype: torch.dtype = torch.float32) -> dict:
+    """K4's and K5's operands on the card, from clips (B, T, H, W, 3) in
+    [0, 1) and a (3, 3, 3, 3, 16) kernel ~ N(0, 0.2^2), with N(0, 1)
+    cotangents, in `dtype`."""
+    from cvad_tpu_torch.ops import pallas_s2d as ps
+
+    x = torch.from_numpy(rng.uniform(0, 1, (b, t, h, w, 3))
+                         .astype(np.float32)).cuda().to(dtype)
+    k = torch.from_numpy(rng.normal(0, 0.2, (3, 3, 3, 3, 16))
+                         .astype(np.float32)).cuda().to(dtype)
+    xf = ps.s2d_fold_input(x, g).contiguous()
+    wd = ps.s2d_fold_kernel(k, g).contiguous()
+    xg = ps.s2d_fold_groups(x, g).contiguous()
+    wdp = ps._pad_wd(wd).contiguous()
+    gen = torch.Generator("cuda").manual_seed(int(rng.integers(1 << 30)))
+    ho, wo = h // 2, w // 2
+    return {"xf": xf, "wd": wd, "w4": wd.reshape(4, *wd.shape[2:]),
+            "xg": xg, "wdp": wdp, "n": t // g,
+            "ct4": torch.randn((xf.shape[0], ho, wo, wd.shape[3]),
+                               generator=gen, device="cuda").to(dtype),
+            "ct5": torch.randn((b, ho, wo, t * 16), generator=gen,
+                               device="cuda").to(dtype)}
+
+
+def s2d_wrapper_grads(d: dict, g: int) -> dict:
+    """K4 and K5 through their wrappers, as a model calls them: the outputs
+    of `s2d_fold_matmul(xf, wd)` and `s2d_group_conv(xg, wd, g)`, and their
+    gradients from `torch.autograd.grad` with the cotangents of `d` (K4: x
+    and the weight; K5: the weight only, as in a train step, where conv1's
+    input needs none).  Checks that each wrapper counter rose by one."""
+    from cvad_tpu_torch.ops import pallas_s2d as ps
+
+    k4, k5 = ps.s2d_fold_matmul, ps.s2d_group_conv
+    counters = {"k4_forward": (k4, "launches"),
+                "k4_dgrad": (k4, "dgrad_launches"),
+                "k4_wgrad": (k4, "wgrad_launches"),
+                "k5_forward": (k5, "launches"),
+                "k5_wgrad": (k5, "backward_launches")}
+    before = {k: getattr(f, a) for k, (f, a) in counters.items()}
+    xf = d["xf"].detach().requires_grad_(True)
+    wd4 = d["wd"].detach().requires_grad_(True)
+    y4 = k4(xf, wd4)
+    dx4, dw4 = torch.autograd.grad(y4, (xf, wd4), d["ct4"])
+    wd5 = d["wd"].detach().requires_grad_(True)
+    y5 = k5(d["xg"], wd5, g)
+    (dw5,) = torch.autograd.grad(y5, wd5, d["ct5"])
+    rose = {k: getattr(f, a) - before[k] for k, (f, a) in counters.items()}
+    check(all(v == 1 for v in rose.values()),
+          f"K4/K5 wrapper counters rose by {rose}, not 1 each")
+    return {"k4_forward": y4.detach(), "k4_dgrad": dx4, "k4_wgrad": dw4,
+            "k5_forward": y5.detach(), "k5_wgrad": dw5}
+
+
+def check_s2d(rng: np.random.Generator) -> dict:
+    """K4 forward, dgrad and wgrad and K5 forward and wgrad, through their
+    wrappers and autograd (`s2d_wrapper_grads`), against their plain
+    versions at S2D_CASES, float32 and bfloat16 (against the plain version
+    in float32 on the same bf16-rounded inputs), and a second call
+    bit-identical.  Outputs (forward, dgrad): float32 within atol 1e-4
+    (f32 sums of up to 4 x 128 terms in another order), bf16 within
+    1e-2 |ref| + 1e-4 (one bf16 rounding of the f32 sum); weight gradients
+    (float32 sums over every pixel, in another order, then cast to the
+    weight's dtype): within 1e-5 of the largest |ref| entry, plus 2^-8 |ref|
+    in bf16 (the one rounding of the cast)."""
+    from cvad_tpu_torch.ops import pallas_s2d as ps
+
+    errs, cases = {}, []
+    for b, t, h, w, g in S2D_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            d = s2d_inputs(rng, b, t, h, w, g, dtype)
+            kc, kp, n = d["wd"].shape[2], d["wdp"].shape[1], d["n"]
+            got, again = s2d_wrapper_grads(d, g), s2d_wrapper_grads(d, g)
+            f = {k: v.float() for k, v in d.items() if torch.is_tensor(v)}
+            ref = {"k4_forward": ps._xla_dot_core(f["xf"], f["wd"]),
+                   "k4_dgrad": ps.s2d_matmul_dgrad_reference(f["ct4"],
+                                                             f["wd"]),
+                   "k4_wgrad": ps.s2d_matmul_wgrad_reference(f["xf"],
+                                                             f["ct4"]),
+                   "k5_forward": ps._xla_slabs_core(f["xg"], f["wdp"], n),
+                   # the pad rows of _pad_wd carry no gradient to wd
+                   "k5_wgrad": ps.s2d_group_wgrad_reference(
+                       f["xg"], f["ct5"], kp)[:, :kc].reshape(d["wd"].shape)}
+            torch.cuda.synchronize()
+            case = {"B": b, "T": t, "H": h, "W": w, "g": g,
+                    "dtype": str(dtype).replace("torch.", "")}
+            for name, r in ref.items():
+                y = got[name]
+                where = f"{name} at {case}"
+                check(tuple(y.shape) == tuple(r.shape), f"shape of {where}")
+                check(y.dtype == dtype, f"dtype of {where}")
+                check(torch.equal(y, again[name]),
+                      f"{where}: a second call is not bit-identical")
+                e = (y.float() - r).abs()
+                if name.endswith("wgrad"):
+                    tol = 1e-5 * r.abs().max().item()
+                    if dtype == torch.bfloat16:
+                        tol = tol + 2.0 ** -8 * r.abs()
+                    ok = bool((e <= tol).all())
+                elif dtype == torch.float32:
+                    ok = bool((e <= 1e-4).all())
+                else:
+                    ok = bool((e <= 1e-2 * r.abs() + 1e-4).all())
+                err = e.max().item()
+                case[name] = err
+                check(ok, f"{where}: max abs err {err} beyond tolerance")
+                key = f"{name}_{case['dtype']}"
+                errs[key] = max(errs.get(key, 0.0), err)
+            cases.append(case)
+    return {"cases": cases, "max_abs_err": errs,
+            "bit_identical_second_call": True}
 
 
 def memory_inputs(rng: np.random.Generator, b: int, m: int, d: int):
@@ -467,10 +608,17 @@ def counts() -> dict:
     from cvad_tpu_torch.ops.pallas_kernels import (memory_min_cosine_distance,
                                                    pairwise_l1_mean)
 
+    from cvad_tpu_torch.ops.pallas_s2d import s2d_fold_matmul, s2d_group_conv
+
     return {"tfold_conv1": tfold_conv1.launches,
             "pairwise_l1_forward": pairwise_l1_mean.launches,
             "pairwise_l1_backward": pairwise_l1_mean.backward_launches,
-            "memory_min_cosine": memory_min_cosine_distance.launches}
+            "memory_min_cosine": memory_min_cosine_distance.launches,
+            "s2d_group_forward": s2d_group_conv.launches,
+            "s2d_group_wgrad": s2d_group_conv.backward_launches,
+            "s2d_matmul_forward": s2d_fold_matmul.launches,
+            "s2d_matmul_dgrad": s2d_fold_matmul.dgrad_launches,
+            "s2d_matmul_wgrad": s2d_fold_matmul.wgrad_launches}
 
 
 def reset_counts() -> None:
@@ -478,9 +626,14 @@ def reset_counts() -> None:
     from cvad_tpu_torch.ops.pallas_kernels import (memory_min_cosine_distance,
                                                    pairwise_l1_mean)
 
+    from cvad_tpu_torch.ops.pallas_s2d import s2d_fold_matmul, s2d_group_conv
+
     tfold_conv1.launches = 0
     pairwise_l1_mean.launches = pairwise_l1_mean.backward_launches = 0
     memory_min_cosine_distance.launches = 0
+    s2d_group_conv.launches = s2d_group_conv.backward_launches = 0
+    s2d_fold_matmul.launches = s2d_fold_matmul.dgrad_launches = 0
+    s2d_fold_matmul.wgrad_launches = 0
 
 
 def train_config(batch: int, **train):
@@ -521,7 +674,8 @@ def phase_train_parity(state: dict, rng: np.random.Generator) -> None:
         runs[dev] = (metrics, {k: v.cpu() for k, v in
                                st.model.state_dict().items()}, rose)
     (mg, pg, rose), (mc, pc, cpu_rose) = runs["cuda"], runs["cpu"]
-    check(all(v == (0 if k == "memory_min_cosine" else PARITY_STEPS)
+    on_path = ("tfold_conv1", "pairwise_l1_forward", "pairwise_l1_backward")
+    check(all(v == (PARITY_STEPS if k in on_path else 0)
               for k, v in rose.items()),
           f"card launches over {PARITY_STEPS} steps: {rose}")
     check(not any(cpu_rose.values()), f"CPU steps launched {cpu_rose}")
@@ -627,6 +781,183 @@ def phase_train(workdir: Path) -> dict:
           f"K2 launches {launches} for {steps} train steps")
     check(launches["tfold_conv1"] >= steps,
           f"K1 launches {launches} for {steps} train steps")
+    return launches
+
+
+def long_config(batch: int, conv1_mode: str = "auto", **train):
+    """Family D on 64-frame windows with conv_group_impl='s2d': conv1 runs K5
+    on the card ('auto' resolves to 'tfold' there); conv1_mode='tfold' takes
+    the K5 route on the CPU too."""
+    cfg = train_config(batch, **train)
+    return cfg.replace(
+        data=cfg.data.replace(clip_len=LONG_CLIP[0]),
+        model=cfg.model.replace(conv_group_impl="s2d", conv1_mode=conv1_mode))
+
+
+def phase_long_model(state: dict, clips: np.ndarray) -> dict:
+    """Main path 5, scoring: the fixture scores 64-frame clips on the card
+    through the K5 route, the launch counts set to 0 just before and read
+    just after.  Then, outside that window, the K1 route on the card and
+    the K5 route's plain version on the CPU (TF32 off): scores and
+    adjacency within 1e-4.  Returns the main path's launch counts."""
+    from cvad_tpu_torch.evaluation.scoring import make_family_d_score_fn
+
+    cfg = long_config(LONG_BATCH, conv1_mode="tfold").model
+    reset_counts()
+    s5, a5 = make_family_d_score_fn(state, cfg)(clips)
+    k5 = counts()
+    s1, a1 = make_family_d_score_fn(state)(clips)  # default lowering: K1
+    k1 = {k: v - k5[k] for k, v in counts().items()}
+    sc, ac = make_family_d_score_fn(state, cfg, device="cpu")(clips)
+    errs = {"score_vs_k1": float(np.abs(s5 - s1).max()),
+            "adj_vs_k1": float(np.abs(a5 - a1).max()),
+            "score_vs_cpu": float(np.abs(s5 - sc).max()),
+            "adj_vs_cpu": float(np.abs(a5 - ac).max())}
+    emit({"phase": "long_model", "clips": len(clips),
+          "clip": list(clips.shape[1:]), "k5_route_launches": k5,
+          "k1_route_launches": k1, **errs,
+          "score_mean": float(s5.mean()),
+          "edges_per_graph": float((a5 > 0.1).sum((1, 2)).mean())})
+    check(s5.shape == (len(clips),) and a5.shape == (len(clips), 16, 16)
+          and bool(np.isfinite(s5).all() and np.isfinite(a5).all()),
+          "long-window scores and adjacency")
+    check(k5["s2d_group_forward"] == 1 and k5["tfold_conv1"] == 0,
+          f"the K5 route launched {k5}")
+    check(k1["tfold_conv1"] == 1 and k1["s2d_group_forward"] == 0,
+          f"the K1 route launched {k1}")
+    check(max(errs.values()) <= 1e-4, f"long-window scores differ: {errs}")
+    return k5
+
+
+def phase_long_train_parity(rng: np.random.Generator) -> None:
+    """3 float32 steps at T=64, B=8 from seed 0 on the card and on the CPU,
+    both on the K5 route, dropout 0 and injected pseudo-labels; tolerances
+    as train_parity's.  Each card step launches K5's forward and weight
+    gradient and K2's forward and backward once, K1 never."""
+    from cvad_tpu_torch.train.state import float_metrics
+    from cvad_tpu_torch.train.tasks import build_task
+
+    cfg = long_config(LONG_PARITY_BATCH, conv1_mode="tfold")
+    cfg = cfg.replace(model=cfg.model.replace(dropout=0.0))
+    task = build_task(cfg)
+    clips = rng.integers(0, 256, (PARITY_STEPS, LONG_PARITY_BATCH)
+                         + LONG_CLIP, dtype=np.uint8)
+    targets = (rng.uniform(size=(PARITY_STEPS, LONG_PARITY_BATCH)) < 0.25
+               ).astype(np.float32)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        st = task.init_state(0, dev)
+        before, metrics = counts(), []
+        for i in range(PARITY_STEPS):
+            st, m = task.train_step(st, {
+                "clips": torch.from_numpy(clips[i]).to(dev),
+                "pseudo_targets": torch.from_numpy(targets[i]).to(dev)}, 1)
+            metrics.append(float_metrics(m))
+        rose = {k: v - before[k] for k, v in counts().items()}
+        runs[dev] = (metrics, {k: v.cpu() for k, v in
+                               st.model.state_dict().items()}, rose)
+    (mg, pg, rose), (mc, pc, cpu_rose) = runs["cuda"], runs["cpu"]
+    on_path = ("s2d_group_forward", "s2d_group_wgrad", "pairwise_l1_forward",
+               "pairwise_l1_backward")
+    check(all(v == (PARITY_STEPS if k in on_path else 0)
+              for k, v in rose.items()),
+          f"card launches over {PARITY_STEPS} long-window steps: {rose}")
+    check(not any(cpu_rose.values()), f"CPU steps launched {cpu_rose}")
+    err_m = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-6)
+                for a, b in zip(mg, mc) for k in a)
+    err_p = max((pg[k] - pc[k]).abs().max().item() for k in pg)
+    emit({"phase": "long_train_parity", "batch": LONG_PARITY_BATCH,
+          "clip": list(LONG_CLIP), "steps": PARITY_STEPS,
+          "card_launches": rose, "loss_card": [m["loss"] for m in mg],
+          "loss_cpu": [m["loss"] for m in mc],
+          "metrics_max_rel_err": err_m, "params_max_abs_err": err_p})
+    check(err_m <= 1e-4, f"long-window card vs CPU metrics differ by {err_m}")
+    check(err_p <= 5e-5, f"long-window card vs CPU parameters differ by "
+                         f"{err_p}")
+
+
+def phase_long_train(workdir: Path) -> dict:
+    """Main path 5: `Trainer.fit` at T=64, B=128 on the card with
+    conv_group_impl='s2d' (K5), an interrupted run resumed from its epoch-2
+    checkpoint, and the `best` checkpoint scored by the long-window
+    scorer."""
+    from cvad_tpu_torch.data.batcher import BatchLoader
+    from cvad_tpu_torch.data.datasets import build_dataset
+    from cvad_tpu_torch.evaluation.scoring import make_family_d_score_fn
+    from cvad_tpu_torch.runtime.checkpoint import load_torch_state_dict
+    from cvad_tpu_torch.train.engine import Trainer
+    from cvad_tpu_torch.train.state import param_count
+
+    cfg = long_config(LONG_BATCH, num_epochs=TRAIN_EPOCHS, eval_every=1,
+                      save_interval=1)
+    t0 = time.perf_counter()
+    train_loader = BatchLoader(
+        build_dataset(cfg.data, "Train", LONG_TRAIN_CLIPS), LONG_BATCH,
+        shuffle=True, seed=cfg.data.seed, transfer_dtype="uint8")
+    eval_loader = BatchLoader(
+        build_dataset(cfg.data, "Test", LONG_EVAL_CLIPS), LONG_BATCH,
+        transfer_dtype="uint8")
+    data_s = time.perf_counter() - t0
+    score_clips = np.stack([eval_loader.dataset.get_uint8(i)[0]
+                            for i in range(len(eval_loader.dataset))])
+
+    reset_counts()
+    t0 = time.perf_counter()
+    full = Trainer(cfg, out_dir=str(workdir / "long_full"))
+    hist = full.fit(train_loader, eval_loader)
+    fit_s = time.perf_counter() - t0
+    first = Trainer(cfg.replace(train=cfg.train.replace(
+        num_epochs=TRAIN_EPOCHS - 1)), out_dir=str(workdir / "long_resumed"))
+    first.fit(train_loader, eval_loader)
+    resumed = Trainer(cfg, out_dir=str(workdir / "long_resumed"))
+    restored = resumed.restore()
+    resumed.fit(train_loader, eval_loader)
+    best = full.ckpt.path("best")
+    scores, adj = make_family_d_score_fn(load_torch_state_dict(str(best)),
+                                         cfg.model)(score_clips)
+    ref = Trainer(cfg, out_dir=str(workdir / "long_ref"))
+    ref.init_state()
+    ref.state.load_state_dict(full.ckpt.restore("best"))
+    want = ref.task.eval_step(ref.state, ref.put_batch(
+        {"clips": score_clips}))
+    torch.cuda.synchronize()
+    launches = counts()
+
+    steps = (2 * TRAIN_EPOCHS) * (LONG_TRAIN_CLIPS // LONG_BATCH)
+    err_s = float(np.abs(scores - want["predictions"].cpu().numpy()).max())
+    err_a = float(np.abs(adj - want["causal_graphs"].cpu().numpy()).max())
+    bit_identical = same_run(full, resumed)
+    n_params = param_count(full.state.model)
+    emit({"phase": "long_train", "params": n_params, "batch": LONG_BATCH,
+          "clip": list(LONG_CLIP), "train_clips": LONG_TRAIN_CLIPS,
+          "eval_clips": len(eval_loader.dataset), "epochs": TRAIN_EPOCHS,
+          "train_steps": steps, "launches": launches,
+          "synthetic_data_s": data_s, "fit_s": fit_s,
+          "train_losses": hist["train_losses"],
+          "eval_score_range": [e["score_range"]
+                               for e in hist["evaluation_metrics"]],
+          "resumed_from_epoch": restored,
+          "resume_bit_identical": bit_identical,
+          "best_checkpoint_score_err": err_s, "best_checkpoint_adj_err": err_a,
+          "best_score_mean": float(scores.mean())})
+    check(n_params == 188849, f"{n_params} parameters, not the shipped "
+                              "model's 188,849")
+    check(len(hist["epochs"]) == TRAIN_EPOCHS
+          and all(np.isfinite(hist["train_losses"])), "long-window history")
+    check(restored == TRAIN_EPOCHS - 1, f"restored epoch {restored}")
+    check(bit_identical,
+          "the resumed long-window run differs from the uninterrupted one")
+    check(scores.shape == (len(score_clips),)
+          and bool(np.isfinite(scores).all()), "best checkpoint scores")
+    check(err_s <= 1e-5 and err_a <= 1e-5,
+          f"long-window best checkpoint scorer vs eval step: {err_s}, "
+          f"{err_a}")
+    check(launches["s2d_group_wgrad"] == steps
+          and launches["s2d_group_forward"] > steps
+          and launches["pairwise_l1_forward"] == steps
+          and launches["pairwise_l1_backward"] == steps
+          and launches["tfold_conv1"] == 0,
+          f"main path 5 launches {launches} for {steps} train steps")
     return launches
 
 
@@ -895,6 +1226,130 @@ def kernel_times(rng: np.random.Generator, dtype: torch.dtype) -> dict:
             "share_of_bound": bound / ms, "bytes": nbytes, "flops": flops}
 
 
+def s2d_times(rng: np.random.Generator) -> dict:
+    """K5 (forward, weight gradient) and K4 (forward, input and weight
+    gradient) at the main path's shape, B=128, T=64, 64x64 (K5's input
+    (128, 33, 33, 1024), K4's (1024, 33, 33, 120)), float32 and bfloat16:
+    kernel, plain version and one library call (grouped `F.conv2d` on the
+    channels-last view, or its `aten.convolution_backward`; TF32 off), with
+    the bound from this call's bytes (each input read once, each output
+    written once) and operations (2 MACs over the kernel's K, pad and
+    banded zeros included, at the type's rate); `conv_bound_ms` counts
+    only the conv's own 81 MACs an output.  Beside them: K1 and
+    `F.conv3d` on the same conv, and the two layout copies around K5 in the
+    model (the fold of the NCTHW input into slabs, and the unfold of K5's
+    t-major output back to NCTHW), in float32."""
+    import torch.nn.functional as F
+
+    from cvad_tpu_torch.ops import pallas_s2d as ps
+    from cvad_tpu_torch.ops.pallas_conv import tfold_conv1
+
+    b, (t, h, w, c), g = LONG_BATCH, LONG_CLIP, LONG_G
+    x = torch.from_numpy(rng.uniform(0, 1, (b, c, t, h, w))
+                         .astype(np.float32)).cuda()
+    w1 = torch.from_numpy(rng.normal(0, 0.2, (16, c, 3, 3, 3))
+                          .astype(np.float32)).cuda()
+    out = {"B": b, "T": t, "g": g}
+    def fold():  # as TFoldConv1 folds its NCTHW input
+        return ps.s2d_fold_groups(x.permute(0, 2, 3, 4, 1), g)
+
+    def unfold():  # and unfolds K5's t-major output
+        return y.view(b, h // 2, w // 2, t, 16).permute(
+            0, 4, 3, 1, 2).contiguous()
+
+    with no_tf32():
+        y = ps.s2d_group_conv(fold(), ps.s2d_fold_kernel(
+            w1.permute(2, 3, 4, 1, 0), g), g)
+        out["layout_copies_f32"] = {
+            "fold_ms": cuda_ms(fold, iters=10),
+            "fold_bytes": (x.numel() + fold().numel()) * 4,
+            "unfold_ms": cuda_ms(unfold, iters=10),
+            "unfold_bytes": 2 * y.numel() * 4}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
+        d = s2d_inputs(rng, b, t, h, w, g, dtype)
+        size, peak = d["xg"].element_size(), PEAK_FLOPS[dtype]
+        xg, wdp, n, ct5 = d["xg"], d["wdp"], d["n"], d["ct5"]
+        kp, no = wdp.shape[1], wdp.shape[2]
+        w_lib = wdp.view(2, 2, kp, no).permute(3, 2, 0, 1).repeat(n, 1, 1, 1)
+        x_lib, c_lib = xg.permute(0, 3, 1, 2), ct5.permute(0, 3, 1, 2)
+        flops5 = 2 * b * (h // 2) * (w // 2) * n * 4 * kp * no
+        xf, wd, w4, ct4 = d["xf"], d["wd"], d["w4"], d["ct4"]
+        kc = wd.shape[2]
+        xf_lib, c4_lib = xf.permute(0, 3, 1, 2), ct4.permute(0, 3, 1, 2)
+        wd_lib = wd.permute(3, 2, 0, 1)
+        flops4 = 2 * ct4.numel() * 4 * kc
+        x1, k1 = x.to(dtype), w1.to(dtype)
+
+        def conv_bwd(gy, inp, wt, groups, needs):
+            return torch.ops.aten.convolution_backward(
+                gy, inp, wt, None, [1, 1], [0, 0], [1, 1], False, [0, 0],
+                groups, [needs[0], needs[1], False])
+
+        with no_tf32():
+            rows = {
+                "k5_forward": {
+                    "ms": cuda_ms(lambda: ps._launch_forward(xg, wdp, n), 10),
+                    "plain_ms": cuda_ms(lambda: ps._xla_slabs_core(
+                        xg, wdp, n), 3),
+                    "library_ms": cuda_ms(lambda: F.conv2d(
+                        x_lib, w_lib, groups=n), 5),
+                    **bound((xg.numel() + wdp.numel() + ct5.numel()) * size,
+                            flops5, peak)},
+                "k5_wgrad": {
+                    "ms": cuda_ms(lambda: ps._launch_wgrad(xg, ct5, kp, n),
+                                  10),
+                    "plain_ms": cuda_ms(lambda: ps.s2d_group_wgrad_reference(
+                        xg, ct5, kp), 3),
+                    "library_ms": cuda_ms(lambda: conv_bwd(
+                        c_lib, x_lib, w_lib, n, (False, True)), 5),
+                    **bound((xg.numel() + ct5.numel()) * size
+                            + wdp.numel() * 4, flops5, peak)},
+                "k4_forward": {
+                    "ms": cuda_ms(lambda: ps._launch_forward(xf, w4, 1), 10),
+                    "plain_ms": cuda_ms(lambda: ps._xla_dot_core(xf, wd), 3),
+                    "library_ms": cuda_ms(lambda: F.conv2d(xf_lib, wd_lib),
+                                          5),
+                    **bound((xf.numel() + wd.numel() + ct4.numel()) * size,
+                            flops4, peak)},
+                "k4_dgrad": {
+                    "ms": cuda_ms(lambda: ps._launch_dgrad(ct4, w4), 10),
+                    "plain_ms": cuda_ms(lambda: ps.s2d_matmul_dgrad_reference(
+                        ct4, wd), 3),
+                    "library_ms": cuda_ms(lambda: conv_bwd(
+                        c4_lib, xf_lib, wd_lib, 1, (True, False)), 5),
+                    **bound((ct4.numel() + wd.numel() + xf.numel()) * size,
+                            flops4, peak)},
+                "k4_wgrad": {
+                    "ms": cuda_ms(lambda: ps._launch_wgrad(xf, ct4, kc, 1),
+                                  10),
+                    "plain_ms": cuda_ms(lambda: ps.s2d_matmul_wgrad_reference(
+                        xf, ct4), 3),
+                    "library_ms": cuda_ms(lambda: conv_bwd(
+                        c4_lib, xf_lib, wd_lib, 1, (False, True)), 5),
+                    **bound((xf.numel() + ct4.numel()) * size
+                            + wd.numel() * 4, flops4, peak)},
+                "k1_same_conv": {
+                    "ms": cuda_ms(lambda: tfold_conv1(x1, k1), 10),
+                    "library_ms": cuda_ms(lambda: F.conv3d(
+                        x1, k1, stride=(1, 2, 2), padding=1), 5),
+                    **bound((x1.numel() + k1.numel() + ct5.numel()) * size,
+                            2 * 81 * ct5.numel(), peak)}}
+        # the conv's own work, without the fold's pad channels and banded
+        # zeros: 81 MACs (C x 27 taps) an output element, as K1's bound
+        conv_ops = 2 * 81 * ct5.numel()
+        for key, r in rows.items():
+            r["share_of_bound"] = r["bound_ms"] / r["ms"]
+            if key != "k1_same_conv":
+                conv = bound(r["bytes"], conv_ops, peak)["bound_ms"]
+                r["conv_bound_ms"] = conv
+                r["conv_share_of_bound"] = conv / r["ms"]
+        out[name] = rows
+        del d, xg, wdp, ct5, xf, wd, w4, ct4, x_lib, c_lib, xf_lib, c4_lib
+        torch.cuda.empty_cache()
+    return out
+
+
 def bound(nbytes: float, ops: float, peak: float) -> dict:
     """The least time for `nbytes` moved and `ops` done at `peak`
     operations/s, and which of the two bounds it."""
@@ -986,18 +1441,27 @@ def train_step_times(rng: np.random.Generator, dtype: str,
                      family: str = "d") -> dict:
     """The train step of family D (or B) at B=256 from uint8 clips already
     on the card: CUDA events around each of 20 steps after 3 warm-up
-    steps.  Family B's labels are normal at the train split's rate."""
+    steps.  Family B's labels are normal at the train split's rate.
+    family='d64' is the long-window step: T=64, B=128, conv1 on K5;
+    'd64_k1' the same step with the default lowering, conv1 on K1 (its
+    backward the whole-T folded conv's)."""
     from cvad_tpu_torch.train.tasks import build_task
 
+    batch_size = TRAIN_BATCH
     if family == "b":
         cfg, clip = b_train_config(TRAIN_BATCH, dtype=dtype), CLIP_B
+    elif family in ("d64", "d64_k1"):
+        batch_size, clip = LONG_BATCH, LONG_CLIP
+        cfg = long_config(LONG_BATCH, dtype=dtype)
+        if family == "d64_k1":
+            cfg = cfg.replace(model=cfg.model.replace(conv_group_impl="stack"))
     else:
         cfg, clip = train_config(TRAIN_BATCH, dtype=dtype), CLIP
     task = build_task(cfg)
     state = task.init_state(0, "cuda")
     batch = {"clips": torch.from_numpy(rng.integers(
-        0, 256, (TRAIN_BATCH,) + clip, dtype=np.uint8)).cuda(),
-        "labels": torch.from_numpy((rng.uniform(size=TRAIN_BATCH)
+        0, 256, (batch_size,) + clip, dtype=np.uint8)).cuda(),
+        "labels": torch.from_numpy((rng.uniform(size=batch_size)
                                     < B_ANOMALY_RATE).astype(np.float32))
         .cuda()}
 
@@ -1016,10 +1480,10 @@ def train_step_times(rng: np.random.Generator, dtype: str,
         stop.synchronize()
         ms.append(start.elapsed_time(stop))
     med = statistics.median(ms)
-    return {"family": family, "dtype": dtype, "B": TRAIN_BATCH,
-            "steps": len(ms),
+    return {"family": family, "dtype": dtype, "B": batch_size,
+            "T": clip[0], "steps": len(ms),
             "median_ms": med, "min_ms": min(ms), "max_ms": max(ms),
-            "clips_per_s": TRAIN_BATCH / med * 1e3,
+            "clips_per_s": batch_size / med * 1e3,
             "breakdown": device_breakdown(step)}
 
 
@@ -1139,7 +1603,19 @@ def main() -> int:
     phase_family_b_model(rng)
     phase_family_b_parity(rng)
     paths = {"serve": serve_launches}
+    # main path 5, scoring: the fixture on 64-frame clips, both routes
+    long_clips = rng.uniform(0, 1, (LONG_BATCH,) + LONG_CLIP).astype(
+        np.float32)
+    paths["long_score"] = phase_long_model(state, long_clips)  # resets
+    emit({"phase": "main_path", "path": "long_score",
+          "launches": paths["long_score"]})
+    del long_clips
+    phase_long_train_parity(rng)
     with tempfile.TemporaryDirectory(prefix="cvad_chip_smoke_") as tmp:
+        # main path 5, training (resets the counts first)
+        paths["long_train"] = phase_long_train(Path(tmp))
+        emit({"phase": "main_path", "path": "long_train",
+              "launches": paths["long_train"]})
         paths["train"] = phase_train(Path(tmp))  # resets the counts first
         emit({"phase": "main_path", "path": "train",
               "launches": paths["train"]})
@@ -1174,7 +1650,12 @@ def main() -> int:
     train_times = [train_step_times(rng, "float32"),
                    train_step_times(rng, "bfloat16"),
                    train_step_times(rng, "float32", "b"),
-                   train_step_times(rng, "bfloat16", "b")]
+                   train_step_times(rng, "bfloat16", "b"),
+                   train_step_times(rng, "float32", "d64"),
+                   train_step_times(rng, "bfloat16", "d64"),
+                   train_step_times(rng, "float32", "d64_k1"),
+                   train_step_times(rng, "bfloat16", "d64_k1")]
+    s2d_t = s2d_times(rng)
     pair_t = pairwise_times(rng)
     k1_bwd = tfold_backward_times(rng)
     mem_t = memory_times(rng)
@@ -1187,7 +1668,7 @@ def main() -> int:
                    "clips_per_s": BULK_CLIPS / statistics.median(bulk_s)},
           "train_step": train_times, "pairwise_l1": pair_t,
           "tfold_conv1_backward_plain": k1_bwd, "memory_min_cosine": mem_t,
-          "total_s": time.perf_counter() - t_start})
+          "s2d": s2d_t, "total_s": time.perf_counter() - t_start})
 
     def row(t: dict, err: float) -> dict:
         return {k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
@@ -1197,6 +1678,29 @@ def main() -> int:
         by_path = {p: c[name] for p, c in paths.items()}
         return {"launches": sum(by_path.values()),
                 "launches_by_path": by_path}
+
+    def s2d_entry(name: str, line: int, counter: str) -> dict:
+        """K4 and K5 at the main shape (B=128, T=64): f32 times, the bf16
+        ones beside them, the largest error of the kernels phase.
+        `bound_ms` counts the MACs the kernel does (pad channels and banded
+        zeros of the fold included), `conv_bound_ms` only the conv's own.
+        K4 is on no main path (no model calls it; it shares K5's source)."""
+        part = counter.replace("s2d_group_", "k5_").replace(
+            "s2d_matmul_", "k4_")
+        err = {dt: errs["s2d"][f"{part}_{dt}"]
+               for dt in ("float32", "bfloat16")}
+
+        def s2d_row(dt: str) -> dict:
+            t = s2d_t[dt][part]
+            return row(t, err[dt]) | {"conv_bound_ms": t["conv_bound_ms"]}
+
+        return {"name": name, "route": "cuda",
+                "source": "cvad_tpu_torch/csrc/s2d_conv.cu",
+                "replaces": f"cvad_tpu/ops/pallas_s2d.py:{line}",
+                **launches(counter), "on_main_path": part.startswith("k5"),
+                "dtype": "float32", "B": LONG_BATCH,
+                "T": LONG_CLIP[0], **s2d_row("float32"),
+                "bfloat16": s2d_row("bfloat16"), "card": dev["card"]}
 
     emit({"kernels": [
         {"name": "tfold_conv1", "route": "cuda",
@@ -1226,7 +1730,13 @@ def main() -> int:
          "dtype": "float32", "B": mem_t[0]["B"], "M": mem_t[0]["M"],
          "D": mem_t[0]["D"], **row(mem_t[0], errs["memory"]),
          "large": {k: mem_t[1][k] for k in ("B", "M", "D")}
-         | row(mem_t[1], errs["memory"]), "card": dev["card"]}]})
+         | row(mem_t[1], errs["memory"]), "card": dev["card"]},
+        *(s2d_entry(name, line, counter) for name, line, counter in (
+            ("s2d_group_conv_forward", 418, "s2d_group_forward"),
+            ("s2d_group_conv_wgrad", 468, "s2d_group_wgrad"),
+            ("s2d_fold_matmul_forward", 177, "s2d_matmul_forward"),
+            ("s2d_fold_matmul_dgrad", 223, "s2d_matmul_dgrad"),
+            ("s2d_fold_matmul_wgrad", 271, "s2d_matmul_wgrad")))]})
     print(dev["card"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],
                                  "count": dev["count"]}})

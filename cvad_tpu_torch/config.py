@@ -3,12 +3,14 @@ training.
 
 An own copy of the fields of `cvad_tpu.config` that the family-D and
 family-B serving and training paths read; the port imports nothing of
-`cvad_tpu`.  The TPU lowering knobs of `FamilyDConfig` (`conv1_mode`,
-`conv_stack`, `conv_group_impl`) are left out: they select exact
-relowerings of the same convolution that exist to fill TPU tiles.  So are
-`DataConfig.grayscale` and `label_policy`, which only the frame-folder
-datasets read (ROADMAP Queue 1 item 6; the synthetic clips take
-`channels`), and `TrainConfig.normal_only`, which no code of `cvad_tpu`
+`cvad_tpu`.  `FamilyDConfig`'s conv1 lowering knobs (`conv1_mode`,
+`conv_stack`, `conv_group_impl`) take every value `cvad_tpu` documents and
+route as there (`models/family_d.py::conv1_route`): where `cvad_tpu` runs
+the s2d group kernel (K5), so does the port; every other lowering is an
+exact relowering of the same convolution, which K1 computes directly.
+Left out are `DataConfig.grayscale` and `label_policy`, which only the
+frame-folder datasets read (ROADMAP Queue 1 item 6; the synthetic clips
+take `channels`), and `TrainConfig.normal_only`, which no code of `cvad_tpu`
 reads (family B's step trains on the normal clips).  Knobs of
 `TrainConfig` that have no port yet are carried and refused where they are
 read (`Trainer`), so that setting one never silently runs something else:
@@ -52,6 +54,12 @@ class _Base:
 
     def replace(self, **kw):
         return dataclasses.replace(self, **kw)
+
+
+CONV1_MODES = ("auto", "native", "tfold", "tfold2", "tfold3",
+               "tfold_pallas", "tpair", "s2d", "cpad")
+CONV_STACKS = ("auto", "ndhwc", "folded", "folded2", "folded3")
+CONV_GROUP_IMPLS = ("stack", "gconv", "s2d")
 
 
 @dataclass(frozen=True)
@@ -101,6 +109,22 @@ class FamilyDConfig(_Base):
     # computation dtype of the conv stack and fc ('float32' | 'bfloat16');
     # parameters stay float32 and the heads run in float32
     dtype: str = "float32"
+    # conv1 lowering, `cvad_tpu`'s knobs (config.py:124-149).  All are exact
+    # relowerings of one conv; 'auto' resolves by the input's device:
+    # 'tfold' / 'folded' on CUDA, 'native' / 'ndhwc' on the CPU.  Only
+    # conv_group_impl='s2d' at long T (T*16 > 128) changes what runs: conv1
+    # becomes K5 where `cvad_tpu` runs it (models/family_d.py::conv1_route)
+    conv1_mode: str = "auto"  # CONV1_MODES
+    conv_stack: str = "auto"  # CONV_STACKS
+    conv_group_impl: str = "stack"  # CONV_GROUP_IMPLS
+
+    def __post_init__(self):
+        for name, allowed in (("conv1_mode", CONV1_MODES),
+                              ("conv_stack", CONV_STACKS),
+                              ("conv_group_impl", CONV_GROUP_IMPLS)):
+            if getattr(self, name) not in allowed:
+                raise ValueError(f"model.{name}={getattr(self, name)!r}; "
+                                 f"one of {', '.join(allowed)}")
 
 
 @dataclass(frozen=True)

@@ -30,6 +30,7 @@ from torch import nn
 
 from cvad_tpu_torch.config import FamilyDConfig
 from cvad_tpu_torch.models.layers import TFoldConv1
+from cvad_tpu_torch.ops.pallas_conv import fold_group_size
 
 
 def dropout(x: torch.Tensor, p: float, training: bool,
@@ -42,6 +43,49 @@ def dropout(x: torch.Tensor, p: float, training: bool,
     return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
 
 
+def _resolve_lowering(cfg: FamilyDConfig, on_cpu: bool) -> Tuple[str, str]:
+    """(conv_stack, conv1_mode) with 'auto' resolved as `cvad_tpu` does
+    (family_d.py:29-51), by the input's device: 'folded' / 'tfold' on
+    CUDA, 'ndhwc' / 'native' on the CPU."""
+    stack, conv1 = cfg.conv_stack, cfg.conv1_mode
+    if stack == "auto":
+        stack = "ndhwc" if on_cpu else "folded"
+    if conv1 == "auto":
+        conv1 = "native" if on_cpu else "tfold"
+    return stack, conv1
+
+
+def conv1_route(cfg: FamilyDConfig, t: int, h: int, w: int, on_cpu: bool
+                ) -> str:
+    """'s2d' where `cvad_tpu` runs conv1 through ``s2d_group_conv`` (K5),
+    'tfold' (K1) for every other lowering, for clips (T, H, W); raises
+    where `cvad_tpu` raises.  The rules of family_d.py:69-116 and
+    layers.py:167-200 and 420-442: the folded stack derives conv1's mode
+    from the stack and ignores `conv1_mode`; the ndhwc stack keeps a
+    'tfold' mode at long T only with 'gconv' or 's2d'; a group-wise fold
+    (g = `fold_group_size` < T) with 'tfold2' / 'tfold3' raises.  (Its
+    rule that 's2d' needs spatial stride 2 cannot fire: family D's conv1
+    has stride 2.)"""
+    stack, mode = _resolve_lowering(cfg, on_cpu)
+    gi = cfg.conv_group_impl
+    g = fold_group_size(t, cfg.conv_channels[0])
+    whole_t = t >= 2 and g == t  # layers.py::_useful_fold
+    even = h % 2 == 0 and w % 2 == 0
+    if (stack in ("folded", "folded2", "folded3") and even
+            and (whole_t or (gi in ("gconv", "s2d") and g >= 2))):
+        mode = {"folded2": "tfold2", "folded3": "tfold3"}.get(stack, "tfold")
+    elif (mode in ("tfold", "tfold_pallas") and not whole_t
+          and gi not in ("gconv", "s2d")):
+        mode = "native"
+    if (mode not in ("tfold", "tfold2", "tfold3", "tfold_pallas")
+            or not even or g < 2 or g == t):
+        return "tfold"  # not a group-wise T fold: K1 computes the conv
+    if mode not in ("tfold", "tfold_pallas"):
+        raise ValueError(f"conv1_mode {mode!r} folds whole T only; T={t} "
+                         f"folds group-wise (g={g}) and needs 'tfold'")
+    return "s2d" if gi == "s2d" else "tfold"
+
+
 def _conv(conv: nn.Conv3d, x: torch.Tensor) -> torch.Tensor:
     """`conv` applied in x's dtype."""
     return F.conv3d(x, conv.weight.to(x.dtype), conv.bias.to(x.dtype),
@@ -51,11 +95,13 @@ def _conv(conv: nn.Conv3d, x: torch.Tensor) -> torch.Tensor:
 class CompactFeatureExtractor(nn.Module):
     """3D CNN clip encoder -> `causal_dim` features: convs 3->16->32->64
     with strides (1,2,2)/(2,2,2)/(2,2,2), adaptive average pool to (4,4,4),
-    fc 4096->16, dropout after the fc."""
+    fc 4096->16, dropout after the fc.  Conv1 runs K1 or, where
+    `conv1_route` says so for the clip's shape and device, K5."""
 
     def __init__(self, cfg: FamilyDConfig):
         super().__init__()
         c1, c2, c3 = cfg.conv_channels
+        self.cfg = cfg
         self.dtype = getattr(torch, cfg.dtype)
         self.pool_out = tuple(cfg.pool_out)
         self.conv3d_1 = TFoldConv1(cfg.in_channels, c1)
@@ -67,10 +113,13 @@ class CompactFeatureExtractor(nn.Module):
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         x = x.to(self.dtype)
-        x = F.relu(self.conv3d_1(x))
+        route = conv1_route(self.cfg, *x.shape[2:],
+                            on_cpu=x.device.type == "cpu")
+        x = F.relu(self.conv3d_1(x, route))
         x = F.relu(_conv(self.conv3d_2, x))
         x = F.relu(_conv(self.conv3d_3, x))
-        # (2, 8, 8) -> (4, 4, 4) at 8x64x64 clips: T is oversampled
+        # (2, 8, 8) -> (4, 4, 4) at 8x64x64 clips: T is oversampled; at 64
+        # frames (16, 8, 8) -> (4, 4, 4)
         x = F.adaptive_avg_pool3d(x, self.pool_out)
         # NCTHW flattens channel-major, the order the reference fc expects
         x = x.reshape(x.shape[0], -1)
@@ -104,8 +153,9 @@ def acyclicity_constraint(adj: torch.Tensor) -> torch.Tensor:
 
 
 class CausalAnomalyDetector(nn.Module):
-    """Full family-D model: clips (B, C=3, T=8, H=64, W=64) in [0, 1] ->
-    (scores (B, 1), adjacency (B, 16, 16), features (B, 16))."""
+    """Full family-D model: clips (B, C=3, T, H=64, W=64) in [0, 1], T=8
+    as trained or a long window such as T=64 -> (scores (B, 1), adjacency
+    (B, 16, 16), features (B, 16))."""
 
     def __init__(self, cfg: FamilyDConfig = FamilyDConfig()):
         super().__init__()

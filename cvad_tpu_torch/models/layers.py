@@ -2,9 +2,18 @@
 
 `TFoldConv1` is family D's conv1 (`cvad_tpu.models.layers.Conv3dTorch` with
 ``mode='tfold_pallas'``, stride (1, 2, 2)): the same parameters as
-``nn.Conv3d(3, 16, 3, stride=(1, 2, 2), padding=1)``, with the convolution run
-by the K1 kernel (`cvad_tpu_torch.ops.pallas_conv.tfold_conv1`) and the bias
-added here, as `cvad_tpu` leaves the bias to the caller of its kernel.
+``nn.Conv3d(3, 16, 3, stride=(1, 2, 2), padding=1)``, with the bias added
+here, as `cvad_tpu` leaves the bias to the caller of its kernels.  Its
+convolution runs by one of two routes, which the model picks
+(`models/family_d.py::conv1_route`):
+
+- ``'tfold'``: the K1 kernel (`cvad_tpu_torch.ops.pallas_conv.tfold_conv1`);
+- ``'s2d'``: the long-window route of `cvad_tpu`'s ``_TFoldConv`` with
+  ``group_impl='s2d'`` (layers.py:177-200): space-to-depth and T-group fold
+  of the input (`s2d_fold_groups`) and of the weight (`s2d_fold_kernel`,
+  through which autograd carries the weight gradient back to the
+  parameter), the K5 kernel (`s2d_group_conv`), and the t-major output
+  (B, H/2, W/2, T*O) unfolded to (B, O, T, H/2, W/2).
 
 `MaskedBatchNorm` is family B's BatchNorm2d (`cvad_tpu.models.layers.
 MaskedBatchNorm`, :598-647).
@@ -18,7 +27,9 @@ from typing import Optional
 import torch
 from torch import nn
 
-from cvad_tpu_torch.ops.pallas_conv import tfold_conv1
+from cvad_tpu_torch.ops.pallas_conv import fold_group_size, tfold_conv1
+from cvad_tpu_torch.ops.pallas_s2d import (s2d_fold_groups, s2d_fold_kernel,
+                                           s2d_group_conv)
 
 
 class TFoldConv1(nn.Module):
@@ -36,9 +47,23 @@ class TFoldConv1(nn.Module):
         bound = 1.0 / math.sqrt(in_channels * 27)
         nn.init.uniform_(self.bias, -bound, bound)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w = self.weight.to(x.dtype).contiguous()
-        y = tfold_conv1(x.contiguous(), w)
+    def forward(self, x: torch.Tensor, route: str = "tfold") -> torch.Tensor:
+        """x (B, C, T, H, W) -> (B, O, T, Ho, Wo) by `route` ('tfold' or
+        's2d', which needs even H and W and g = `fold_group_size` < T)."""
+        w = self.weight.to(x.dtype)
+        if route == "tfold":
+            y = tfold_conv1(x.contiguous(), w.contiguous())
+        elif route == "s2d":
+            b, _, t, h, wd = x.shape
+            o = w.shape[0]
+            g = fold_group_size(t, o)
+            xg = s2d_fold_groups(x.permute(0, 2, 3, 4, 1), g)
+            wk = s2d_fold_kernel(w.permute(2, 3, 4, 1, 0), g)  # (kT..., C, O)
+            y = s2d_group_conv(xg, wk, g)  # (B, H/2, W/2, T*O), t-major
+            y = y.view(b, h // 2, wd // 2, t, o).permute(0, 4, 3, 1, 2)
+            y = y.contiguous()
+        else:
+            raise ValueError(f"conv1 route {route!r}: 'tfold' or 's2d'")
         return y + self.bias.to(x.dtype).view(1, -1, 1, 1, 1)
 
 

@@ -36,6 +36,17 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_CIN, KERNEL_COUT = 3, 16  # the one instantiation csrc/ builds
 
 
+def fold_group_size(t: int, cout: int) -> int:
+    """Largest T-group size g dividing t with g*cout <= 128 (the TPU's lane
+    width), as `cvad_tpu`'s (:35-45): g == t is the whole-T fold, g < t the
+    group-wise fold of long windows (g = 8 at T=64, O=16), 1 no fold."""
+    best = 1
+    for g in range(1, t + 1):
+        if t % g == 0 and g * cout <= 128:
+            best = g
+    return best
+
+
 def fold_input(x: torch.Tensor) -> torch.Tensor:
     """(B, C, T, H, W) -> folded, padded (B, (T+2)*C, H+2, W+2); folded
     channel t*C + c, as in `cvad_tpu`'s (B, H+2, W+2, (T+2)*C)."""

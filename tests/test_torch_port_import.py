@@ -35,6 +35,7 @@ def test_imports_without_jax_or_cvad_tpu():
     for mod in ("cvad_tpu_torch.cli", "cvad_tpu_torch.config",
                 "cvad_tpu_torch.ops.pallas_conv",
                 "cvad_tpu_torch.ops.pallas_kernels",
+                "cvad_tpu_torch.ops.pallas_s2d",
                 "cvad_tpu_torch.ops.losses", "cvad_tpu_torch.ops.adjacency",
                 "cvad_tpu_torch.models.family_d",
                 "cvad_tpu_torch.models.family_b",

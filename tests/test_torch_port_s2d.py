@@ -1,0 +1,419 @@
+"""K4 and K5, the space-to-depth T-group-folded conv1 of long windows: the
+port's fold transforms and plain versions against `cvad_tpu`'s
+(`cvad_tpu/ops/pallas_s2d.py`) and its Pallas kernels in interpret mode,
+and against ``lax.conv`` through ``jax.grad``, on the CPU; the CUDA kernels
+against the plain versions on a card.
+
+The small case is `tests/test_s2d_fold.py`'s: B=2, T=16, 16x16, C=3, O=16,
+g=4 (K = 72, N = 64, slabs padded to 128).  Tolerances are that file's:
+5e-6 forward, 1e-5 for the input gradient, atol 1e-3 / rtol 1e-5 for the
+weight gradient (sums over every output pixel).  JAX and `cvad_tpu` are
+imported inside the tests that use them, so that the card tests run on a
+machine without JAX.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from cvad_tpu_torch.ops import pallas_s2d as ps
+
+B, T, H, W, C, O, G = 2, 16, 16, 16, 3, 16, 4
+
+
+def _case(seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(B, T, H, W, C)).astype(np.float32)
+    k = (0.1 * rng.normal(size=(3, 3, 3, C, O))).astype(np.float32)
+    return x, k
+
+
+def _np(t):
+    return t.detach().numpy()
+
+
+def _ref_conv(x, k):
+    import jax
+
+    dn = jax.lax.conv_dimension_numbers(x.shape, k.shape,
+                                        ("NDHWC", "DHWIO", "NDHWC"))
+    return jax.lax.conv_general_dilated(x, k, (1, 2, 2),
+                                        ((1, 1), (1, 1), (1, 1)),
+                                        dimension_numbers=dn)
+
+
+def _perm(y, axes):
+    return y.permute(*axes) if isinstance(y, torch.Tensor) else \
+        y.transpose(axes)
+
+
+def _unfold_groups(y):
+    """K4's (B*n, H/2, W/2, g*O) -> (B, T, H/2, W/2, O), numpy, JAX or
+    torch."""
+    y = y.reshape(B, T // G, H // 2, W // 2, G, O)
+    return _perm(y, (0, 1, 4, 2, 3, 5)).reshape(B, T, H // 2, W // 2, O)
+
+
+def _unfold_tmajor(y):
+    """K5's (B, H/2, W/2, T*O) -> (B, T, H/2, W/2, O)."""
+    return _perm(y.reshape(B, H // 2, W // 2, T, O), (0, 3, 1, 2, 4))
+
+
+# -- fold transforms -----------------------------------------------------------
+
+
+@pytest.mark.parametrize("name", ["s2d_fold_input", "s2d_fold_kernel",
+                                  "s2d_foldT_input", "s2d_fold_groups",
+                                  "_pad_wd"])
+def test_fold_transform_matches_jax_exactly(name):
+    import jax.numpy as jnp
+
+    from cvad_tpu.ops import pallas_s2d as jps
+
+    x, k = _case()
+    if name in ("s2d_fold_input", "s2d_fold_groups"):
+        args = ((x, G), (torch.from_numpy(x), G))
+    elif name == "s2d_foldT_input":
+        args = ((x,), (torch.from_numpy(x),))
+    elif name == "s2d_fold_kernel":
+        args = ((k, G), (torch.from_numpy(k), G))
+    else:
+        wd = np.array(jps.s2d_fold_kernel(jnp.asarray(k), G))
+        args = ((wd,), (torch.from_numpy(wd),))
+    want = np.asarray(getattr(jps, name)(*args[0]))
+    got = _np(getattr(ps, name)(*args[1]))
+    np.testing.assert_array_equal(got, want)
+
+
+# -- K4 ------------------------------------------------------------------------
+
+
+def _k4_inputs():
+    x, k = _case()
+    xf = ps.s2d_fold_input(torch.from_numpy(x), G)
+    wd = ps.s2d_fold_kernel(torch.from_numpy(k), G)
+    return x, k, xf, wd
+
+
+@pytest.mark.parametrize("core", ["s2d_fold_matmul", "_xla_dot_core",
+                                  "_xla_core"])
+def test_k4_forward_matches_pallas_and_lax_conv(core):
+    """The port's plain K4 forward (the CPU route of `s2d_fold_matmul`) and
+    its conv reference, against the Pallas kernel in interpret mode and
+    against ``lax.conv`` of the unfolded conv."""
+    import jax.numpy as jnp
+
+    from cvad_tpu.ops import pallas_s2d as jps
+
+    x, k, xf, wd = _k4_inputs()
+    before = ps.s2d_fold_matmul.launches
+    got = _np(getattr(ps, core)(xf, wd))
+    assert ps.s2d_fold_matmul.launches == before  # the CPU launches nothing
+    want = np.asarray(jps.s2d_fold_matmul(jnp.asarray(_np(xf)),
+                                          jnp.asarray(_np(wd)),
+                                          interpret=True))
+    assert got.shape == want.shape == (B * T // G, H // 2, W // 2, G * O)
+    np.testing.assert_allclose(got, want, atol=5e-6)
+    np.testing.assert_allclose(_unfold_groups(got),
+                               np.asarray(_ref_conv(x, k)), atol=5e-6)
+
+
+def test_k4_grads_match_pallas_interpret_and_lax_conv():
+    """The Function's gradient (the plain dgrad and wgrad on the CPU)
+    against ``jax.grad`` through the Pallas kernels in interpret mode and
+    through ``lax.conv``, w.r.t. the clip and the (3, 3, 3, C, O) kernel."""
+    import jax
+    import jax.numpy as jnp
+
+    from cvad_tpu.ops import pallas_s2d as jps
+
+    x, k = _case()
+    ct = np.random.default_rng(5).normal(
+        size=(B, T, H // 2, W // 2, O)).astype(np.float32)
+
+    def loss_s2d(xj, kj):
+        y = jps.s2d_fold_matmul(jps.s2d_fold_input(xj, G),
+                                jps.s2d_fold_kernel(kj, G), interpret=True)
+        return jnp.sum(_unfold_groups(y) * ct)
+
+    def loss_ref(xj, kj):
+        return jnp.sum(_ref_conv(xj, kj) * ct)
+
+    xt = torch.from_numpy(x).requires_grad_(True)
+    kt = torch.from_numpy(k).requires_grad_(True)
+    y = ps.s2d_fold_matmul(ps.s2d_fold_input(xt, G),
+                           ps.s2d_fold_kernel(kt, G))
+    gx, gk = torch.autograd.grad(
+        (_unfold_groups(y) * torch.from_numpy(ct)).sum(), (xt, kt))
+    for fn in (loss_s2d, loss_ref):
+        jgx, jgk = jax.grad(fn, (0, 1))(jnp.asarray(x), jnp.asarray(k))
+        np.testing.assert_allclose(_np(gx), np.asarray(jgx), atol=1e-5)
+        np.testing.assert_allclose(_np(gk), np.asarray(jgk), atol=1e-3,
+                                   rtol=1e-5)
+
+
+@pytest.mark.parametrize("part", ["dgrad", "wgrad"])
+def test_k4_plain_backward_matches_pallas_kernel(part):
+    """Each plain backward against the Pallas kernel it stands for, in
+    interpret mode, on the same folded operands."""
+    import jax.numpy as jnp
+
+    from cvad_tpu.ops import pallas_s2d as jps
+
+    _, _, xf, wd = _k4_inputs()
+    ct = np.random.default_rng(6).normal(
+        size=(B * T // G, H // 2, W // 2, G * O)).astype(np.float32)
+    if part == "dgrad":
+        want = jps._make_dgrad(True)(jnp.asarray(ct), jnp.asarray(_np(wd)),
+                                     jnp.float32)
+        got = ps.s2d_matmul_dgrad_reference(torch.from_numpy(ct), wd)
+        tol = dict(atol=1e-5)
+    else:
+        want = jps._make_wgrad(True)(jnp.asarray(_np(xf)), jnp.asarray(ct),
+                                     jnp.float32)
+        got = ps.s2d_matmul_wgrad_reference(xf, torch.from_numpy(ct))
+        tol = dict(atol=1e-3, rtol=1e-5)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    np.testing.assert_allclose(_np(got), np.asarray(want), **tol)
+
+
+# -- K5 ------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("core", ["s2d_group_conv", "_xla_groups_core"])
+def test_k5_forward_matches_pallas_and_lax_conv(core):
+    """The whole-T grouped conv: the port's plain K5 (the CPU route of
+    `s2d_group_conv`) and the per-group reference on the whole-T fold,
+    against the Pallas kernel in interpret mode and ``lax.conv``."""
+    import jax.numpy as jnp
+
+    from cvad_tpu.ops import pallas_s2d as jps
+
+    x, k = _case()
+    xt = torch.from_numpy(x)
+    wd = ps.s2d_fold_kernel(torch.from_numpy(k), G)
+    before = ps.s2d_group_conv.launches
+    if core == "s2d_group_conv":
+        got = _np(ps.s2d_group_conv(ps.s2d_fold_groups(xt, G), wd, G))
+    else:
+        got = _np(ps._xla_groups_core(ps.s2d_foldT_input(xt), wd, G))
+    assert ps.s2d_group_conv.launches == before
+    want = np.asarray(jps.s2d_group_conv(jps.s2d_fold_groups(x, G),
+                                         jps.s2d_fold_kernel(k, G), G,
+                                         interpret=True))
+    assert got.shape == want.shape == (B, H // 2, W // 2, T * O)
+    np.testing.assert_allclose(got, want, atol=5e-6)
+    np.testing.assert_allclose(_unfold_tmajor(got),
+                               np.asarray(_ref_conv(x, k)), atol=5e-6)
+
+
+def test_k5_grads_match_pallas_interpret_and_lax_conv():
+    """K5's gradient in the port (plain wgrad, dgrad through the plain
+    version) against ``jax.grad`` through `s2d_group_conv(...,
+    interpret=True)` and through ``lax.conv``."""
+    import jax
+    import jax.numpy as jnp
+
+    from cvad_tpu.ops import pallas_s2d as jps
+
+    x, k = _case()
+    ct = np.random.default_rng(7).normal(
+        size=(B, T, H // 2, W // 2, O)).astype(np.float32)
+
+    def loss_s2d(xj, kj):
+        y = jps.s2d_group_conv(jps.s2d_fold_groups(xj, G),
+                               jps.s2d_fold_kernel(kj, G), G, interpret=True)
+        return jnp.sum(_unfold_tmajor(y) * ct)
+
+    def loss_ref(xj, kj):
+        return jnp.sum(_ref_conv(xj, kj) * ct)
+
+    xt = torch.from_numpy(x).requires_grad_(True)
+    kt = torch.from_numpy(k).requires_grad_(True)
+    y = ps.s2d_group_conv(ps.s2d_fold_groups(xt, G),
+                          ps.s2d_fold_kernel(kt, G), G)
+    gx, gk = torch.autograd.grad(
+        (_unfold_tmajor(y) * torch.from_numpy(ct)).sum(), (xt, kt))
+    for fn in (loss_s2d, loss_ref):
+        jgx, jgk = jax.grad(fn, (0, 1))(jnp.asarray(x), jnp.asarray(k))
+        np.testing.assert_allclose(_np(gx), np.asarray(jgx), atol=1e-5)
+        np.testing.assert_allclose(_np(gk), np.asarray(jgk), atol=1e-3,
+                                   rtol=1e-5)
+
+
+def test_k5_plain_wgrad_matches_pallas_kernel():
+    import jax.numpy as jnp
+
+    from cvad_tpu.ops import pallas_s2d as jps
+
+    x, k = _case()
+    xg = ps.s2d_fold_groups(torch.from_numpy(x), G)
+    kp = ps._pad_wd(ps.s2d_fold_kernel(torch.from_numpy(k), G)).shape[1]
+    ct = np.random.default_rng(8).normal(
+        size=(B, H // 2, W // 2, T * O)).astype(np.float32)
+    want = jps._make_group_wgrad(True)(jnp.asarray(_np(xg)), jnp.asarray(ct),
+                                       kp, jnp.float32)
+    got = ps.s2d_group_wgrad_reference(xg, torch.from_numpy(ct), kp)
+    assert got.shape == want.shape == (4, 128, G * O)
+    np.testing.assert_allclose(_np(got), np.asarray(want), atol=1e-3,
+                               rtol=1e-5)
+
+
+def test_k5_plain_bf16_accumulates_in_f32():
+    """bf16 in, bf16 out; the sum is the f32 one rounded once (half a bf16
+    ulp, 2^-8 relative, beyond f32 order differences)."""
+    x, k = _case()
+    xg = ps.s2d_fold_groups(torch.from_numpy(x), G)
+    wd = ps.s2d_fold_kernel(torch.from_numpy(k), G)
+    got = ps.s2d_group_conv(xg.bfloat16(), wd.bfloat16(), G)
+    assert got.dtype == torch.bfloat16
+    ref = ps.s2d_group_conv(xg.bfloat16().float(), wd.bfloat16().float(), G)
+    torch.testing.assert_close(got.float(), ref, rtol=2 ** -8, atol=1e-5)
+
+
+def test_k5_rejects_mismatched_slabs():
+    x, k = _case()
+    xg = ps.s2d_fold_groups(torch.from_numpy(x), G)
+    wd = ps.s2d_fold_kernel(torch.from_numpy(k), G)
+    with pytest.raises(ValueError):
+        ps.s2d_group_conv(xg[..., :-8], wd, G)
+
+
+# -- the kernels on a card -----------------------------------------------------
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    c = torch.backends.cudnn
+    return c.flags(enabled=c.enabled, benchmark=False, deterministic=True,
+                   allow_tf32=False)
+
+
+CARD_CASES = [(2, 16, 16, 16, 4), (3, 64, 64, 64, 8), (1, 16, 10, 14, 8)]
+
+
+def _card_inputs(b, t, h, w, g, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.uniform(0, 1, (b, t, h, w, C))
+                         .astype(np.float32)).cuda().to(dtype)
+    k = torch.from_numpy(rng.normal(0, 0.2, (3, 3, 3, C, O))
+                         .astype(np.float32)).cuda().to(dtype)
+    return x, k
+
+
+def _close(got, ref, dtype, what):
+    """float32: atol 1e-4 (f32 sums of up to 4*128 terms in another order);
+    bf16 outputs: one bf16 rounding of the f32 sum, 2^-8 relative."""
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-4, msg=what)
+    else:
+        torch.testing.assert_close(got.float(), ref.float(), rtol=1e-2,
+                                   atol=1e-4, msg=what)
+
+
+def _wgrad_close(got, ref, what):
+    """Weight gradients (float32 sums over every pixel, in another order):
+    within 1e-5 of the largest |ref| entry."""
+    scale = ref.abs().max().item()
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-5 * scale, msg=what)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,h,w,g", CARD_CASES)
+def test_k4_kernels_match_plain_on_card(dtype, b, t, h, w, g):
+    flags = _card()
+    x, k = _card_inputs(b, t, h, w, g, dtype)
+    xf = ps.s2d_fold_input(x, g).contiguous()
+    wd = ps.s2d_fold_kernel(k, g).contiguous()
+    w4 = wd.reshape(4, wd.shape[2], wd.shape[3])
+    ct = torch.randn((xf.shape[0], xf.shape[1] - 1, xf.shape[2] - 1,
+                      wd.shape[3]), generator=torch.Generator(
+                          "cuda").manual_seed(1), device="cuda").to(dtype)
+    with flags:
+        y = ps._launch_forward(xf, w4, 1)
+        dx = ps._launch_dgrad(ct, w4)
+        dw = ps._launch_wgrad(xf, ct, wd.shape[2], 1)
+        again = (ps._launch_forward(xf, w4, 1), ps._launch_dgrad(ct, w4),
+                 ps._launch_wgrad(xf, ct, wd.shape[2], 1))
+        xf32, wd32, ct32 = xf.float(), wd.float(), ct.float()
+        ref_y = ps._xla_dot_core(xf32, wd32)
+        ref_dx = ps.s2d_matmul_dgrad_reference(ct32, wd32)
+        ref_dw = ps.s2d_matmul_wgrad_reference(xf32, ct32)
+    torch.cuda.synchronize()
+    assert y.dtype == dx.dtype == dtype and dw.dtype == torch.float32
+    _close(y, ref_y, dtype, "K4 forward")
+    _close(dx, ref_dx, dtype, "K4 dgrad")
+    _wgrad_close(dw.reshape(ref_dw.shape), ref_dw, "K4 wgrad")
+    for a, b2 in zip((y, dx, dw), again):
+        assert torch.equal(a, b2)  # no atomics: bit-identical
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,h,w,g", CARD_CASES)
+def test_k5_kernels_match_plain_on_card(dtype, b, t, h, w, g):
+    flags = _card()
+    x, k = _card_inputs(b, t, h, w, g, dtype)
+    xg = ps.s2d_fold_groups(x, g).contiguous()
+    wdp = ps._pad_wd(ps.s2d_fold_kernel(k, g)).contiguous()
+    kp, n = wdp.shape[1], xg.shape[-1] // wdp.shape[1]
+    ct = torch.randn((b, xg.shape[1] - 1, xg.shape[2] - 1, t * O),
+                     generator=torch.Generator("cuda").manual_seed(2),
+                     device="cuda").to(dtype)
+    with flags:
+        y = ps._launch_forward(xg, wdp, n)
+        dw = ps._launch_wgrad(xg, ct, kp, n)
+        again = (ps._launch_forward(xg, wdp, n),
+                 ps._launch_wgrad(xg, ct, kp, n))
+        ref_y = ps._xla_slabs_core(xg.float(), wdp.float(), n)
+        ref_dw = ps.s2d_group_wgrad_reference(xg.float(), ct.float(), kp)
+    torch.cuda.synchronize()
+    _close(y, ref_y, dtype, "K5 forward")
+    _wgrad_close(dw, ref_dw, "K5 wgrad")
+    assert torch.equal(y, again[0]) and torch.equal(dw, again[1])
+
+
+@pytest.mark.cuda
+def test_functions_launch_and_count_on_card():
+    """Through autograd: K4's forward, dgrad and wgrad each launch once; K5's
+    forward and wgrad once, its dgrad (plain) not at all unless the input
+    asks for a gradient."""
+    flags = _card()
+    x, k = _card_inputs(2, 16, 16, 16, 4, torch.float32)
+    counts = (ps.s2d_fold_matmul.launches, ps.s2d_fold_matmul.dgrad_launches,
+              ps.s2d_fold_matmul.wgrad_launches, ps.s2d_group_conv.launches,
+              ps.s2d_group_conv.backward_launches)
+    with flags:
+        xr = x.clone().requires_grad_(True)
+        kr = k.clone().requires_grad_(True)
+        y4 = ps.s2d_fold_matmul(ps.s2d_fold_input(xr, 4),
+                                ps.s2d_fold_kernel(kr, 4))
+        torch.autograd.grad(y4.square().sum(), (xr, kr))
+        kr2 = k.clone().requires_grad_(True)
+        y5 = ps.s2d_group_conv(ps.s2d_fold_groups(x, 4),
+                               ps.s2d_fold_kernel(kr2, 4), 4)
+        (gk,) = torch.autograd.grad(y5.square().sum(), (kr2,))
+    torch.cuda.synchronize()
+    now = (ps.s2d_fold_matmul.launches, ps.s2d_fold_matmul.dgrad_launches,
+           ps.s2d_fold_matmul.wgrad_launches, ps.s2d_group_conv.launches,
+           ps.s2d_group_conv.backward_launches)
+    assert [a - b for a, b in zip(now, counts)] == [1, 1, 1, 1, 1]
+    assert torch.isfinite(gk).all()
+
+
+@pytest.mark.cuda
+def test_kernels_reject_what_they_do_not_take():
+    _card()
+    x, k = _card_inputs(1, 16, 16, 16, 8, torch.float32)
+    xg = ps.s2d_fold_groups(x, 8).contiguous()
+    wdp = ps._pad_wd(ps.s2d_fold_kernel(k, 8)).contiguous()
+    with pytest.raises(TypeError):
+        ps._launch_forward(xg.half(), wdp.half(), 2)
+    with pytest.raises(TypeError):
+        ps._launch_forward(xg, wdp.bfloat16(), 2)
+    with pytest.raises(ValueError):
+        ps._launch_forward(xg, wdp, 3)
+    with pytest.raises(ValueError):
+        ps._launch_forward(xg.transpose(1, 2), wdp, 2)
