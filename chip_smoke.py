@@ -78,21 +78,46 @@ Phases:
            conv1 on K5; 2 epochs + restore + epoch 3 bit-identical to the
            uninterrupted run; the `best` checkpoint's scorer within 1e-5 of
            the eval step
+  attn_model  family B with the attention encoder at bench.py's flash
+           configuration (latent 128, one head, 2 layers; random init from
+           seed 0, bank filled with 300 rows of width 128) scores 32 clips
+           of 128x64x64x1 on the card (attention on K6) and on the CPU:
+           scores and outputs within 1e-4
+  attn_parity  3 float32 train steps of that model at B=4, T=128 from seed
+           0 on the card and on the CPU: losses within rtol 1e-4;
+           parameters, BatchNorm statistics and the bank within 5e-5; each
+           card step launches K6 forward and both backward kernels once a
+           layer
+  attn_train  (main path 6) `Trainer.fit` with that model, float32, B=16,
+           256 synthetic 128-frame train clips and 64 eval clips, uint8
+           transfer, 3 epochs, eval and checkpoints every epoch; 2 epochs +
+           restore + epoch 3 bit-identical to the uninterrupted run
+           (parameters, Adam, BatchNorm statistics, bank rows, ptr, fill,
+           history); the `best` checkpoint's scorer within 1e-5 of the eval
+           step; K6 forward and backward launched
   times    kernel, plain-version and library times (CUDA events), the
            bounds, per-bucket request latency of both families, bulk
-           clips/s, the train step of both families at B=256 and the
-           long-window step at T=64, B=128, in f32 and bf16 (median of 20),
-           with device time by kernel (torch.profiler); K4 and K5 at the
-           main shape, K1 and F.conv3d on the same conv, and the two layout
-           copies around K5
+           clips/s, the train step of both families at B=256, the
+           long-window step at T=64, B=128 and the attention step at
+           B=16, T=128, in f32 and bf16 (median of 20), with device time by
+           kernel (torch.profiler); K4 and K5 at the main shape, K1 and
+           F.conv3d on the same conv, the two layout copies around K5; K6
+           forward, dQ and dK/dV at (B, H, T, Dh) = (16, 1, 128, 128) and
+           (8, 1, 2048, 128) against F.scaled_dot_product_attention
 The kernels phase also holds K4 (forward, input and weight gradient) and
 K5 (forward, weight gradient), called through their wrappers and
 autograd, against their plain versions at B=2, T=16, 16x16 and at the main
 shape B=128, T=64, 64x64, f32 and bf16, a second call bit-identical, each
-wrapper counter one higher a call.
+wrapper counter one higher a call; and K6 (forward, dQ, dK, dV) through
+its autograd Function against autograd through its plain version at
+(B, H, T, Dh) in {(2, 1, 128, 128), (16, 1, 128, 128), (4, 2, 256, 128)},
+causal and not, f32 and bf16 (TF32 off): forward f32 within 1e-5,
+gradients within 1e-5 of the largest entry in f32 and 2e-2 of it in bf16
+(bf16 forward too), a second call bit-identical, each counter one higher a
+call.
 Kernel launch counts are set to 0 just before each main path (serve + bulk,
-long_score, long_train, train, family_b_train, family_b_serve) and read
-just after it.  The last lines are the kernels summary, the card's
+long_score, long_train, train, family_b_train, family_b_serve, attn_train)
+and read just after it.  The last lines are the kernels summary, the card's
 nvidia-smi name and power limit, and {"ok": true, "device": {...}}.
 """
 
@@ -130,12 +155,33 @@ LONG_TRAIN_CLIPS, LONG_EVAL_CLIPS, LONG_PARITY_BATCH = 512, 128, 8
 # K4/K5 checks: (B, T, H, W, g), the small case of tests/test_s2d_fold.py
 # and the main path's shape
 S2D_CASES = ((2, 16, 16, 16, 4), (LONG_BATCH, 64, 64, 64, LONG_G))
+# family B with the attention encoder (main path 6): bench.py's flash
+# configuration (measure_flash_attention), (T, H, W, C) of one clip
+ATTN_MODEL = dict(temporal_encoder="attention", latent_dim=128, attn_heads=1)
+ATTN_CLIP, ATTN_BATCH, ATTN_PARAMS = (128, 64, 64, 1), 16, 2302273
+ATTN_TRAIN_CLIPS, ATTN_EVAL_CLIPS, ATTN_SCORE_CLIPS = 256, 64, 32
+ATTN_PARITY_BATCH = 4
+# K6 checks and times, (B, H, T, Dh): the main path's shape is the second
+FLASH_CASES = ((2, 1, 128, 128), (16, 1, 128, 128), (4, 2, 256, 128))
+FLASH_TIMES = ((16, 1, 128, 128), (8, 1, 2048, 128))
+# the port's CUDA kernels by symbol name (cvad_tpu_torch/csrc/*.cu), picked
+# out of the profiler's rows
+PORT_KERNELS = ("tfold_conv1_kernel", "pairwise_", "memory_min_cosine_kernel",
+                "s2d_gemm_kernel", "s2d_wgrad_", "flash_fwd_kernel",
+                "flash_bwd_")
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and FLOP/s by type
 HBM_BYTES_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 
 
+_START = time.perf_counter()
+
+
 def emit(obj: dict) -> None:
+    """One JSON line; a phase's line carries the seconds since the script
+    started (`elapsed_s`)."""
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": time.perf_counter() - _START}
     print(json.dumps(obj), flush=True)
 
 
@@ -244,7 +290,8 @@ def phase_kernels(rng: np.random.Generator) -> dict:
     pair = check_pairwise(rng)
     mem = check_memory(rng)
     s2d = check_s2d(rng)
-    emit({"phase": "kernels", "s2d": s2d, "kernels": [
+    flash = check_flash(rng)
+    emit({"phase": "kernels", "s2d": s2d, "flash": flash, "kernels": [
         {"name": "tfold_conv1", "comparison_launches": tfold_conv1.launches,
          "max_abs_err_f32": err32, "max_abs_err_bf16": err16,
          "cases": cases, "grad": grad},
@@ -252,7 +299,82 @@ def phase_kernels(rng: np.random.Generator) -> dict:
         {"name": "memory_min_cosine", **mem}]})
     return {"f32": err32, "bf16": err16, "pair_fwd": pair["max_abs_err_avg"],
             "pair_bwd": pair["max_abs_err_grad"],
-            "memory": mem["max_abs_err"], "s2d": s2d["max_abs_err"]}
+            "memory": mem["max_abs_err"], "s2d": s2d["max_abs_err"],
+            "flash": flash["max_abs_err"]}
+
+
+def flash_inputs(rng: np.random.Generator, shape: tuple,
+                 dtype: torch.dtype = torch.float32) -> tuple:
+    """q, k, v and a cotangent (B, H, T, Dh), standard normal, on the card
+    in `dtype`."""
+    return tuple(torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+                 .cuda().to(dtype) for _ in range(4))
+
+
+def flash_grads(q, k, v, ct, causal: bool, fn=None) -> dict:
+    """The output of `fn` (K6's autograd Function by default) and its
+    gradients w.r.t. q, k and v for the cotangent `ct`."""
+    from cvad_tpu_torch.ops.flash_attention import flash_attention
+
+    xs = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    out = (fn or flash_attention)(*xs, causal=causal,
+                                  sm_scale=q.shape[3] ** -0.5)
+    grads = torch.autograd.grad(out, xs, ct)
+    return dict(zip(("forward", "dq", "dk", "dv"), (out.detach(), *grads)))
+
+
+def check_flash(rng: np.random.Generator) -> dict:
+    """K6 forward, dQ and dK/dV through its autograd Function against
+    autograd through `attention_reference` in float32 on the same (rounded)
+    inputs, TF32 off, at FLASH_CASES, causal and not, f32 and bf16; a
+    second call bit-identical and each counter one higher a call.  f32:
+    forward within 1e-5, gradients within 1e-5 of the largest |ref| entry
+    (float32 sums over T in another order); bf16: within 2e-2 of the
+    largest entry (P and dS rounded to bf16 before their products, as the
+    library does, and the outputs cast once)."""
+    from cvad_tpu_torch.ops.flash_attention import (attention_reference,
+                                                    flash_attention)
+
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 matmuls are on: the plain version would not be float32")
+    errs, cases = {}, []
+    for shape in FLASH_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, ct = flash_inputs(rng, shape, dtype)
+            for causal in (False, True):
+                before = counts()
+                got = flash_grads(q, k, v, ct, causal)
+                again = flash_grads(q, k, v, ct, causal)
+                rose = {n: counts()[n] - before[n] for n in
+                        ("flash_forward", "flash_dq", "flash_dkv")}
+                ref = flash_grads(q.float(), k.float(), v.float(),
+                                  ct.float(), causal, attention_reference)
+                torch.cuda.synchronize()
+                case = {"shape": list(shape), "causal": causal,
+                        "dtype": str(dtype).replace("torch.", "")}
+                check(all(n == 2 for n in rose.values()),
+                      f"K6 counters rose by {rose} over two calls at {case}")
+                for name, r in ref.items():
+                    y = got[name]
+                    where = f"{name} at {case}"
+                    check(y.dtype == dtype and y.shape == r.shape,
+                          f"dtype or shape of {where}")
+                    check(torch.equal(y, again[name]),
+                          f"{where}: a second call is not bit-identical")
+                    err = (y.float() - r).abs().max().item()
+                    scale = r.abs().max().item()
+                    if dtype == torch.bfloat16:
+                        tol = 2e-2 * scale
+                    else:
+                        tol = 1e-5 if name == "forward" else 1e-5 * scale
+                    case[name] = err
+                    check(err <= tol,
+                          f"{where}: max abs err {err} beyond {tol}")
+                    key = f"{name}_{case['dtype']}"
+                    errs[key] = max(errs.get(key, 0.0), err)
+                cases.append(case)
+    return {"cases": cases, "max_abs_err": errs,
+            "bit_identical_second_call": True}
 
 
 def s2d_inputs(rng: np.random.Generator, b: int, t: int, h: int, w: int,
@@ -608,6 +730,7 @@ def counts() -> dict:
     from cvad_tpu_torch.ops.pallas_kernels import (memory_min_cosine_distance,
                                                    pairwise_l1_mean)
 
+    from cvad_tpu_torch.ops.flash_attention import flash_attention
     from cvad_tpu_torch.ops.pallas_s2d import s2d_fold_matmul, s2d_group_conv
 
     return {"tfold_conv1": tfold_conv1.launches,
@@ -618,7 +741,10 @@ def counts() -> dict:
             "s2d_group_wgrad": s2d_group_conv.backward_launches,
             "s2d_matmul_forward": s2d_fold_matmul.launches,
             "s2d_matmul_dgrad": s2d_fold_matmul.dgrad_launches,
-            "s2d_matmul_wgrad": s2d_fold_matmul.wgrad_launches}
+            "s2d_matmul_wgrad": s2d_fold_matmul.wgrad_launches,
+            "flash_forward": flash_attention.launches,
+            "flash_dq": flash_attention.dq_launches,
+            "flash_dkv": flash_attention.dkv_launches}
 
 
 def reset_counts() -> None:
@@ -626,6 +752,7 @@ def reset_counts() -> None:
     from cvad_tpu_torch.ops.pallas_kernels import (memory_min_cosine_distance,
                                                    pairwise_l1_mean)
 
+    from cvad_tpu_torch.ops.flash_attention import flash_attention
     from cvad_tpu_torch.ops.pallas_s2d import s2d_fold_matmul, s2d_group_conv
 
     tfold_conv1.launches = 0
@@ -634,6 +761,8 @@ def reset_counts() -> None:
     s2d_group_conv.launches = s2d_group_conv.backward_launches = 0
     s2d_fold_matmul.launches = s2d_fold_matmul.dgrad_launches = 0
     s2d_fold_matmul.wgrad_launches = 0
+    flash_attention.launches = flash_attention.dq_launches = 0
+    flash_attention.dkv_launches = 0
 
 
 def train_config(batch: int, **train):
@@ -1158,6 +1287,220 @@ def phase_family_b_train(workdir: Path) -> tuple:
     return launches, best
 
 
+def attn_config(batch: int, **train):
+    """memory_ae with the attention encoder at bench.py's flash
+    configuration (latent 128, one head, 2 layers) on 128-frame clips: on
+    the card every attention runs K6."""
+    cfg = b_train_config(batch, **train)
+    return cfg.replace(model=cfg.model.replace(**ATTN_MODEL),
+                       data=cfg.data.replace(clip_len=ATTN_CLIP[0]))
+
+
+def phase_attn_model(rng: np.random.Generator) -> None:
+    """The attention model (seed 0, B_FILL bank rows of width 128) scores
+    ATTN_SCORE_CLIPS 128-frame clips on the card and on the CPU, TF32 off:
+    the scorer within 1e-4, and the forward's outputs within 1e-4."""
+    from cvad_tpu_torch.evaluation.scoring import make_family_b_score_fn
+    from cvad_tpu_torch.models import MemoryVideoAutoEncoder
+    from cvad_tpu_torch.models.family_b import MemoryBankState
+
+    cfg = attn_config(ATTN_BATCH).model
+    model = MemoryVideoAutoEncoder(cfg, seed=0)
+    width = cfg.latent_dim
+    memory = torch.zeros(cfg.memory_size, width)
+    memory[:B_FILL] = torch.from_numpy(
+        rng.normal(size=(B_FILL, width)).astype(np.float32))
+    fill = torch.tensor(B_FILL, dtype=torch.int32)
+    model.set_memory_bank(MemoryBankState(memory, fill, fill))
+    state = model.state_dict()
+    clips = rng.uniform(0, 1, (ATTN_SCORE_CLIPS,) + ATTN_CLIP).astype(
+        np.float32)
+    before = counts()
+    s_gpu = make_family_b_score_fn(state, cfg=cfg)(clips)
+    rose = {k: v - before[k] for k, v in counts().items() if v != before[k]}
+    s_cpu = make_family_b_score_fn(state, cfg=cfg, device="cpu")(clips)
+    x = torch.from_numpy(clips).permute(0, 1, 4, 2, 3).contiguous()
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        m = MemoryVideoAutoEncoder(cfg)
+        m.load_state_dict(state, strict=True)
+        m = m.to(dev).eval()
+        with torch.no_grad(), no_tf32():
+            outs[dev] = {k: v.cpu() for k, v in m(x.to(dev)).items()}
+    errs = {k: (outs["cuda"][k] - outs["cpu"][k]).abs().max().item()
+            for k in outs["cpu"]}
+    es = float(np.abs(s_gpu - s_cpu).max())
+    emit({"phase": "attn_model", "clips": len(clips),
+          "clip": list(ATTN_CLIP), "bank": list(memory.shape),
+          "bank_fill": B_FILL, "scorer_launches": rose,
+          "score_max_abs_err": es, "output_max_abs_err": errs,
+          "score_mean": float(s_gpu.mean()),
+          "memory_score_mean": float(outs["cuda"]["anomaly_score"].mean())})
+    check(s_gpu.shape == (len(clips),) and bool(np.isfinite(s_gpu).all()),
+          "attention-model scores")
+    check(outs["cuda"]["sequence_feature"].shape == (len(clips), width),
+          "sequence feature width")
+    check(rose.get("flash_forward") == cfg.attn_layers
+          and rose.get("memory_min_cosine") == 1
+          and not rose.get("flash_dq") and not rose.get("flash_dkv"),
+          f"the attention scorer launched {rose}")
+    check(es <= 1e-4 and max(errs.values()) <= 1e-4,
+          f"attention model card vs CPU: scores {es}, outputs {errs}")
+
+
+def phase_attn_parity(rng: np.random.Generator) -> None:
+    """The same 3 float32 steps of the attention model at B=4, T=128 from
+    seed 0 on the card and on the CPU, with the train split's share of
+    normal clips; tolerances as family_b_parity's.  Each card step launches
+    K6's forward and its two backward kernels once a layer."""
+    from cvad_tpu_torch.train.state import float_metrics
+    from cvad_tpu_torch.train.tasks import build_task
+
+    cfg = attn_config(ATTN_PARITY_BATCH)
+    task = build_task(cfg)
+    clips = rng.integers(0, 256, (PARITY_STEPS, ATTN_PARITY_BATCH)
+                         + ATTN_CLIP, dtype=np.uint8)
+    labels = (rng.uniform(size=(PARITY_STEPS, ATTN_PARITY_BATCH))
+              < B_ANOMALY_RATE).astype(np.float32)
+    labels[:, 0] = 0.0  # every step trains on at least one clip
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        st = task.init_state(0, dev)
+        before, metrics = counts(), []
+        for i in range(PARITY_STEPS):
+            st, m = task.train_step(st, {
+                "clips": torch.from_numpy(clips[i]).to(dev),
+                "labels": torch.from_numpy(labels[i]).to(dev)}, 1)
+            metrics.append(float_metrics(m))
+        rose = {k: v - before[k] for k, v in counts().items()}
+        runs[dev] = (metrics, {k: v.cpu() for k, v in
+                               st.model.state_dict().items()}, rose)
+    (mg, pg, rose), (mc, pc, cpu_rose) = runs["cuda"], runs["cpu"]
+    per_step = PARITY_STEPS * cfg.model.attn_layers
+    on_path = ("flash_forward", "flash_dq", "flash_dkv")
+    check(all(v == (per_step if k in on_path else 0)
+              for k, v in rose.items()),
+          f"card launches over {PARITY_STEPS} attention steps: {rose}")
+    check(not any(cpu_rose.values()), f"CPU steps launched {cpu_rose}")
+    err_m = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-6)
+                for a, b in zip(mg, mc) for k in a)
+    err_p = max((pg[k].double() - pc[k].double()).abs().max().item()
+                for k in pg)
+    emit({"phase": "attn_parity", "batch": ATTN_PARITY_BATCH,
+          "clip": list(ATTN_CLIP), "steps": PARITY_STEPS,
+          "card_launches": rose, "loss_card": [m["loss"] for m in mg],
+          "loss_cpu": [m["loss"] for m in mc],
+          "n_normal": [m["n_normal"] for m in mg],
+          "metrics_max_rel_err": err_m, "state_max_abs_err": err_p})
+    check(err_m <= 1e-4, f"attention card vs CPU metrics differ by {err_m}")
+    check(err_p <= 5e-5, f"attention card vs CPU state differs by {err_p}")
+
+
+def phase_attn_train(workdir: Path) -> dict:
+    """Main path 6: `Trainer.fit` with the attention model on 128-frame
+    clips, an interrupted run resumed from its epoch-2 checkpoint, and the
+    `best` checkpoint scored by `make_family_b_score_fn(cfg=...)`."""
+    from cvad_tpu_torch.data.batcher import BatchLoader
+    from cvad_tpu_torch.data.datasets import build_dataset
+    from cvad_tpu_torch.evaluation.scoring import make_family_b_score_fn
+    from cvad_tpu_torch.runtime.checkpoint import load_torch_state_dict
+    from cvad_tpu_torch.train.engine import Trainer
+    from cvad_tpu_torch.train.state import param_count
+
+    cfg = attn_config(ATTN_BATCH, num_epochs=TRAIN_EPOCHS, eval_every=1,
+                      save_interval=1)
+    t0 = time.perf_counter()
+    train_loader = BatchLoader(
+        build_dataset(cfg.data, "Train", ATTN_TRAIN_CLIPS), ATTN_BATCH,
+        shuffle=True, seed=cfg.data.seed, transfer_dtype="uint8")
+    eval_loader = BatchLoader(
+        build_dataset(cfg.data, "Test", ATTN_EVAL_CLIPS), ATTN_BATCH,
+        transfer_dtype="uint8")
+    data_s = time.perf_counter() - t0
+    # float clips inside the preset's clamp, as in family_b_train
+    score_clips = np.stack([eval_loader.dataset[i][0]
+                            for i in range(ATTN_SCORE_CLIPS)])
+    n_normal = int((train_loader.dataset.labels == 0).sum())
+
+    reset_counts()
+    t0 = time.perf_counter()
+    full = Trainer(cfg, out_dir=str(workdir / "attn_full"))
+    hist = full.fit(train_loader, eval_loader)
+    fit_s = time.perf_counter() - t0
+    first = Trainer(cfg.replace(train=cfg.train.replace(
+        num_epochs=TRAIN_EPOCHS - 1)), out_dir=str(workdir / "attn_resumed"))
+    first.fit(train_loader, eval_loader)
+    resumed = Trainer(cfg, out_dir=str(workdir / "attn_resumed"))
+    restored = resumed.restore()
+    resumed.fit(train_loader, eval_loader)
+    best = full.ckpt.path("best")
+    scores = make_family_b_score_fn(load_torch_state_dict(str(best)),
+                                    cfg=cfg.model)(score_clips)
+    ref = Trainer(cfg, out_dir=str(workdir / "attn_ref"))
+    ref.init_state()
+    ref.state.load_state_dict(full.ckpt.restore("best"))
+    want = ref.task.eval_step(ref.state, ref.put_batch(
+        {"clips": score_clips,
+         "labels": np.zeros(len(score_clips), np.float32)}))
+    torch.cuda.synchronize()
+    launches = counts()
+
+    steps = (2 * TRAIN_EPOCHS) * (ATTN_TRAIN_CLIPS // ATTN_BATCH)
+    err = float(np.abs(scores - want["predictions"].cpu().numpy()).max())
+    a, b = full.ckpt.restore(TRAIN_EPOCHS), resumed.ckpt.restore(TRAIN_EPOCHS)
+    ckpt_same = all(torch.equal(v, b[part][k]) for part in
+                    ("model_state_dict", "optimizer")
+                    for k, v in a[part].items())
+    bit_identical = same_run(full, resumed) and ckpt_same
+    bank = a["model_state_dict"]
+    n_params = param_count(full.state.model)
+    evals = hist["evaluation_metrics"]
+    emit({"phase": "attn_train", "params": n_params, "batch": ATTN_BATCH,
+          "clip": list(ATTN_CLIP), "train_clips": ATTN_TRAIN_CLIPS,
+          "normal_train_clips": n_normal,
+          "eval_clips": len(eval_loader.dataset), "epochs": TRAIN_EPOCHS,
+          "train_steps": steps, "launches": launches,
+          "synthetic_data_s": data_s, "fit_s": fit_s,
+          "train_losses": hist["train_losses"],
+          "val_loss": [e["val_loss"] for e in evals],
+          "auc": [e["auc"] for e in evals], "best_val_loss": full._best,
+          "bank": list(bank["normal_memory"].shape),
+          "bank_after_epoch_3": {"ptr": int(bank["memory_ptr"]),
+                                 "fill": int(bank["memory_fill"])},
+          "resumed_from_epoch": restored,
+          "resume_bit_identical": bit_identical,
+          "best_checkpoint_score_err": err,
+          "best_score_mean": float(scores.mean())})
+    check(n_params == ATTN_PARAMS, f"{n_params} parameters, not the flash "
+                                   f"configuration's {ATTN_PARAMS:,}")
+    check(tuple(bank["normal_memory"].shape) == (500, 128),
+          f"bank {tuple(bank['normal_memory'].shape)}, not (500, 128)")
+    check(len(hist["epochs"]) == TRAIN_EPOCHS
+          and all(np.isfinite(hist["train_losses"]))
+          and all(np.isfinite(e["val_loss"]) for e in evals),
+          "attention train history")
+    check(full._best == min(e["val_loss"] for e in evals),
+          "best checkpoint is not the least val_loss")
+    written = TRAIN_EPOCHS * n_normal
+    check(int(bank["memory_fill"]) == min(written, 500)
+          and int(bank["memory_ptr"]) == written % 500,
+          f"bank after {TRAIN_EPOCHS} epochs: {bank['memory_ptr']}, "
+          f"{bank['memory_fill']}")
+    check(restored == TRAIN_EPOCHS - 1, f"restored epoch {restored}")
+    check(bit_identical,
+          "the resumed attention run differs from the uninterrupted one")
+    check(scores.shape == (len(score_clips),)
+          and bool(np.isfinite(scores).all()), "best checkpoint scores")
+    check(err <= 1e-5, f"best checkpoint scorer vs eval step: {err}")
+    layers = cfg.model.attn_layers
+    check(launches["flash_dq"] == launches["flash_dkv"] == steps * layers
+          and launches["flash_forward"] > steps * layers
+          and launches["memory_min_cosine"] >= 1
+          and launches["tfold_conv1"] == launches["s2d_group_forward"] == 0,
+          f"main path 6 launches {launches} for {steps} train steps")
+    return launches
+
+
 def memory_times(rng: np.random.Generator) -> list:
     """K3 at MEM_SHAPES with a full bank: the kernel, the plain version, and
     the library yardstick F.normalize + torch.mm + torch.where + amin
@@ -1350,6 +1693,88 @@ def s2d_times(rng: np.random.Generator) -> dict:
     return out
 
 
+def flash_times(rng: np.random.Generator) -> list:
+    """K6 at FLASH_TIMES, not causal (as the model runs it), float32 and
+    bfloat16: the forward, dQ and dK/dV kernels alone (CUDA events), the
+    plain version (forward; autograd through it for the gradients each
+    kernel gives) and the library yardstick `F.scaled_dot_product_attention`
+    (forward; its backward for the same gradients), which the port never
+    calls.  Bounds from this call's bytes (each input read once, each
+    output written once) and operations: the forward's two products,
+    4 B H T^2 Dh; the dQ kernel's three (QK^T recomputed, dO V^T, dS K),
+    6 B H T^2 Dh; the dK/dV kernel's four (QK^T and dO V^T recomputed,
+    P^T dO, dS^T Q), 8 B H T^2 Dh; the backward as a whole needs at least
+    10 B H T^2 Dh (`backward_bound_ms`)."""
+    import torch.nn.functional as F
+
+    from cvad_tpu_torch.ops import flash_attention as fa
+
+    out = []
+    for shape in FLASH_TIMES:
+        b, h, t, dh = shape
+        scale = dh ** -0.5
+        mm = 2 * b * h * t * t * dh  # one (T x Dh) x (Dh x T) product
+        for dtype in (torch.float32, torch.bfloat16):
+            size, peak = dtype.itemsize, PEAK_FLOPS[dtype]
+            q, k, v, do = flash_inputs(rng, shape, dtype)
+            o, lse = fa._launch_forward(q, k, v, False, scale)
+            dq, dvec = fa._launch_dq(q, k, v, o, lse, do, False, scale)
+            n = q.numel()
+            rows = b * h * t * 4  # one float32 per row (lse, D)
+
+            def plain_grad(wrt):
+                xs = [x.detach().requires_grad_(i in wrt)
+                      for i, x in enumerate((q, k, v))]
+                y = fa.attention_reference(*xs, sm_scale=scale)
+                return torch.autograd.grad(y, [xs[i] for i in wrt], do)
+
+            def library_grad(wrt):
+                xs = [x.detach().requires_grad_(i in wrt)
+                      for i, x in enumerate((q, k, v))]
+                y = F.scaled_dot_product_attention(*xs, scale=scale)
+                return torch.autograd.grad(y, [xs[i] for i in wrt], do)
+
+            iters = 50 if t <= 128 else 5
+            row = {"shape": list(shape),
+                   "dtype": str(dtype).replace("torch.", ""),
+                   "forward": {
+                       "ms": cuda_ms(lambda: fa._launch_forward(
+                           q, k, v, False, scale), iters),
+                       "plain_ms": cuda_ms(lambda: fa.attention_reference(
+                           q, k, v, sm_scale=scale), iters),
+                       "library_ms": cuda_ms(
+                           lambda: F.scaled_dot_product_attention(
+                               q, k, v, scale=scale), iters),
+                       **bound(4 * n * size + rows, 2 * mm, peak)},
+                   "dq": {
+                       "ms": cuda_ms(lambda: fa._launch_dq(
+                           q, k, v, o, lse, do, False, scale), iters),
+                       "plain_ms": cuda_ms(lambda: plain_grad((0,)), iters),
+                       "library_ms": cuda_ms(lambda: library_grad((0,)),
+                                             iters),
+                       **bound(6 * n * size + 2 * rows, 3 * mm, peak)},
+                   "dkv": {
+                       "ms": cuda_ms(lambda: fa._launch_dkv(
+                           q, k, v, do, lse, dvec, False, scale), iters),
+                       "plain_ms": cuda_ms(lambda: plain_grad((1, 2)),
+                                           iters),
+                       "library_ms": cuda_ms(lambda: library_grad((1, 2)),
+                                             iters),
+                       **bound(6 * n * size + 2 * rows, 4 * mm, peak)}}
+            row["backward_bound_ms"] = bound(
+                8 * n * size + rows, 5 * mm, peak)["bound_ms"]
+            row["backward_ms"] = row["dq"]["ms"] + row["dkv"]["ms"]
+            row["library_backward_ms"] = cuda_ms(
+                lambda: library_grad((0, 1, 2)), iters)
+            for part in ("forward", "dq", "dkv"):
+                r = row[part]
+                r["share_of_bound"] = r["bound_ms"] / r["ms"]
+            out.append(row)
+            del q, k, v, do, o, lse, dq, dvec
+    torch.cuda.empty_cache()
+    return out
+
+
 def bound(nbytes: float, ops: float, peak: float) -> dict:
     """The least time for `nbytes` moved and `ops` done at `peak`
     operations/s, and which of the two bounds it."""
@@ -1444,12 +1869,17 @@ def train_step_times(rng: np.random.Generator, dtype: str,
     steps.  Family B's labels are normal at the train split's rate.
     family='d64' is the long-window step: T=64, B=128, conv1 on K5;
     'd64_k1' the same step with the default lowering, conv1 on K1 (its
-    backward the whole-T folded conv's)."""
+    backward the whole-T folded conv's); 'b_attn' family B with the
+    attention encoder at B=16, T=128 (attention on K6, in float32 at
+    either dtype, as in `cvad_tpu`)."""
     from cvad_tpu_torch.train.tasks import build_task
 
     batch_size = TRAIN_BATCH
     if family == "b":
         cfg, clip = b_train_config(TRAIN_BATCH, dtype=dtype), CLIP_B
+    elif family == "b_attn":
+        batch_size, clip = ATTN_BATCH, ATTN_CLIP
+        cfg = attn_config(ATTN_BATCH, dtype=dtype)
     elif family in ("d64", "d64_k1"):
         batch_size, clip = LONG_BATCH, LONG_CLIP
         cfg = long_config(LONG_BATCH, dtype=dtype)
@@ -1457,6 +1887,7 @@ def train_step_times(rng: np.random.Generator, dtype: str,
             cfg = cfg.replace(model=cfg.model.replace(conv_group_impl="stack"))
     else:
         cfg, clip = train_config(TRAIN_BATCH, dtype=dtype), CLIP
+    t0 = time.perf_counter()
     task = build_task(cfg)
     state = task.init_state(0, "cuda")
     batch = {"clips": torch.from_numpy(rng.integers(
@@ -1484,7 +1915,8 @@ def train_step_times(rng: np.random.Generator, dtype: str,
             "T": clip[0], "steps": len(ms),
             "median_ms": med, "min_ms": min(ms), "max_ms": max(ms),
             "clips_per_s": batch_size / med * 1e3,
-            "breakdown": device_breakdown(step)}
+            "breakdown": device_breakdown(step),
+            "seconds": time.perf_counter() - t0}
 
 
 def device_breakdown(fn) -> dict:
@@ -1510,7 +1942,10 @@ def device_breakdown(fn) -> dict:
     return {"wall_ms": wall_us / 1e3, "device_ms": busy_us / 1e3,
             "device_busy_share": busy_us / wall_us,
             "top": [{"name": k[:80], "ms": t / 1e3, "calls": c}
-                    for k, t, c in rows[:12]]}
+                    for k, t, c in rows[:12]],
+            "port_kernels": [{"name": k[:80], "ms": t / 1e3, "calls": c}
+                             for k, t, c in rows
+                             if any(n in k for n in PORT_KERNELS)]}
 
 
 def forward_breakdown(score, clips: np.ndarray) -> dict:
@@ -1647,6 +2082,13 @@ def main() -> int:
         breakdown["b_f32_bucket128"] = forward_breakdown(
             direct_b, requests_b[2].repeat(4, 0))
 
+        # family B with the attention encoder on 128-frame clips
+        phase_attn_model(rng)
+        phase_attn_parity(rng)
+        paths["attn_train"] = phase_attn_train(Path(tmp))  # resets first
+        emit({"phase": "main_path", "path": "attn_train",
+              "launches": paths["attn_train"]})
+
     train_times = [train_step_times(rng, "float32"),
                    train_step_times(rng, "bfloat16"),
                    train_step_times(rng, "float32", "b"),
@@ -1654,11 +2096,22 @@ def main() -> int:
                    train_step_times(rng, "float32", "d64"),
                    train_step_times(rng, "bfloat16", "d64"),
                    train_step_times(rng, "float32", "d64_k1"),
-                   train_step_times(rng, "bfloat16", "d64_k1")]
-    s2d_t = s2d_times(rng)
-    pair_t = pairwise_times(rng)
-    k1_bwd = tfold_backward_times(rng)
-    mem_t = memory_times(rng)
+                   train_step_times(rng, "bfloat16", "d64_k1"),
+                   train_step_times(rng, "float32", "b_attn"),
+                   train_step_times(rng, "bfloat16", "b_attn")]
+    spent = {}  # seconds of each timing block
+
+    def timed(name: str, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        spent[name] = time.perf_counter() - t0
+        return out
+
+    s2d_t = timed("s2d", s2d_times, rng)
+    pair_t = timed("pairwise_l1", pairwise_times, rng)
+    k1_bwd = timed("tfold_conv1_backward", tfold_backward_times, rng)
+    mem_t = timed("memory_min_cosine", memory_times, rng)
+    flash_t = timed("flash_attention", flash_times, rng)
     emit({"phase": "times", "card": dev["card"], "kernel": [times32, times16],
           "request_latency": latency, "request_latency_b": latency_b,
           "forward_breakdown": breakdown,
@@ -1668,7 +2121,8 @@ def main() -> int:
                    "clips_per_s": BULK_CLIPS / statistics.median(bulk_s)},
           "train_step": train_times, "pairwise_l1": pair_t,
           "tfold_conv1_backward_plain": k1_bwd, "memory_min_cosine": mem_t,
-          "s2d": s2d_t, "total_s": time.perf_counter() - t_start})
+          "s2d": s2d_t, "flash_attention": flash_t, "seconds": spent,
+          "total_s": time.perf_counter() - t_start})
 
     def row(t: dict, err: float) -> dict:
         return {k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
@@ -1701,6 +2155,31 @@ def main() -> int:
                 "dtype": "float32", "B": LONG_BATCH,
                 "T": LONG_CLIP[0], **s2d_row("float32"),
                 "bfloat16": s2d_row("bfloat16"), "card": dev["card"]}
+
+    def flash_entry(name: str, line: int, part: str, counter: str) -> dict:
+        """K6 at the main path's shape (B, H, T, Dh) = (16, 1, 128, 128):
+        f32 times (the model's type), bf16 beside them, the long window
+        (8, 1, 2048, 128) in `long`, the largest error of the kernels
+        phase over this kernel's outputs."""
+        def part_row(shape: tuple, dt: str) -> dict:
+            t = next(r for r in flash_t if tuple(r["shape"]) == shape
+                     and r["dtype"] == dt)
+            outs = {"forward": ("forward",), "dq": ("dq",),
+                    "dkv": ("dk", "dv")}[part]
+            err = max(errs["flash"][f"{o}_{dt}"] for o in outs)
+            return row(t[part], err)
+
+        main, long = FLASH_TIMES
+        return {"name": name, "route": "cuda",
+                "source": "cvad_tpu_torch/csrc/flash_attention.cu",
+                "replaces": "jax/experimental/pallas/ops/tpu/"
+                            f"flash_attention.py:{line}",
+                "called_from": "cvad_tpu/ops/attention.py:47-50",
+                **launches(counter), "dtype": "float32",
+                "shape": list(main), **part_row(main, "float32"),
+                "bfloat16": part_row(main, "bfloat16"),
+                "long": {"shape": list(long)}
+                | part_row(long, "float32"), "card": dev["card"]}
 
     emit({"kernels": [
         {"name": "tfold_conv1", "route": "cuda",
@@ -1736,7 +2215,11 @@ def main() -> int:
             ("s2d_group_conv_wgrad", 468, "s2d_group_wgrad"),
             ("s2d_fold_matmul_forward", 177, "s2d_matmul_forward"),
             ("s2d_fold_matmul_dgrad", 223, "s2d_matmul_dgrad"),
-            ("s2d_fold_matmul_wgrad", 271, "s2d_matmul_wgrad")))]})
+            ("s2d_fold_matmul_wgrad", 271, "s2d_matmul_wgrad"))),
+        flash_entry("flash_attention_forward", 758, "forward",
+                    "flash_forward"),
+        flash_entry("flash_attention_dkv", 1121, "dkv", "flash_dkv"),
+        flash_entry("flash_attention_dq", 1456, "dq", "flash_dq")]})
     print(dev["card"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],
                                  "count": dev["count"]}})

@@ -19,10 +19,8 @@ read (`Trainer`), so that setting one never silently runs something else:
 - ``device_cache='on'`` (the device clip cache): ROADMAP Queue 1 item 15;
   ``'auto'`` resolves to off.
 
-`FamilyBConfig.temporal_encoder='attention'` is carried and refused where
-the model is built: it needs the attention encoder and K6 (ROADMAP Queue 1
-item 12).  `ParallelConfig` (the device mesh, ROADMAP Queue 1 item 14) is
-not carried.
+`ParallelConfig` (the device mesh, ROADMAP Queue 1 item 14) is not
+carried.
 Configs are frozen dataclasses that write JSON as `cvad_tpu`'s do.
 """
 
@@ -60,6 +58,7 @@ CONV1_MODES = ("auto", "native", "tfold", "tfold2", "tfold3",
                "tfold_pallas", "tpair", "s2d", "cpad")
 CONV_STACKS = ("auto", "ndhwc", "folded", "folded2", "folded3")
 CONV_GROUP_IMPLS = ("stack", "gconv", "s2d")
+TEMPORAL_ENCODERS = ("lstm", "attention")
 
 
 @dataclass(frozen=True)
@@ -131,9 +130,12 @@ class FamilyDConfig(_Base):
 class FamilyBConfig(_Base):
     """Memory-bank video autoencoder
     (``causal_anomaly_detection1.py:124-321``): a per-frame conv encoder 1->32->64->128->128 to a 64-d tanh latent, an
-    LSTM of 64 over the frame latents, a deconv decoder back to one 64x64
-    frame, and a 500-slot ring buffer of normal sequence features scored by
-    min cosine distance once 10 slots are filled."""
+    LSTM of 64 over the frame latents (or, with
+    ``temporal_encoder='attention'``, a transformer of `attn_layers` blocks
+    and `attn_heads` heads, mean-pooled), a deconv decoder back to one 64x64
+    frame, and a 500-slot ring buffer of normal sequence features (as wide
+    as the temporal encoder's output) scored by min cosine distance once 10
+    slots are filled."""
 
     name: str = "family_b"
     in_channels: int = 1
@@ -143,15 +145,22 @@ class FamilyBConfig(_Base):
     memory_min_fill: int = 10
     lstm_hidden: int = 64
     leaky_slope: float = 0.1
-    # 'lstm' (reference parity); 'attention' needs the attention encoder
-    # and K6, not ported yet (ROADMAP Queue 1 item 12)
+    # TEMPORAL_ENCODERS: 'lstm' (reference parity) or 'attention' (the
+    # transformer of ops/attention.py, whose attention runs K6 on the card
+    # at T % 128 == 0 and head dim % 128 == 0)
     temporal_encoder: str = "lstm"
     attn_heads: int = 4
     attn_layers: int = 2
     # computation dtype of the convs and denses ('float32' | 'bfloat16');
-    # parameters, BatchNorm statistics, the latent, the LSTM and the memory
-    # stay float32
+    # parameters, BatchNorm statistics, the latent, the temporal encoder and
+    # the memory stay float32
     dtype: str = "float32"
+
+    def __post_init__(self):
+        if self.temporal_encoder not in TEMPORAL_ENCODERS:
+            raise ValueError(f"model.temporal_encoder="
+                             f"{self.temporal_encoder!r}; one of "
+                             f"{', '.join(TEMPORAL_ENCODERS)}")
 
 
 @dataclass(frozen=True)

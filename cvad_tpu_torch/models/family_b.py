@@ -2,11 +2,16 @@
 
 Port of `cvad_tpu/models/family_b.py` (the reference's ``VideoAutoEncoder``,
 ``causal_anomaly_detection1.py:124-321``): a per-frame conv encoder to a
-tanh latent, an LSTM over the frame latents whose last hidden state is the
+tanh latent, a temporal encoder over the frame latents whose output is the
 sequence feature, a deconv decoder that renders one frame from it (the
 reference decodes the same feature T times; one decode broadcast over T is
 the same), and a ring buffer of normal sequence features scored by min
-cosine distance (K3).
+cosine distance (K3).  The temporal encoder is an LSTM (its last hidden
+state; ``temporal_encoder='lstm'``) or `cvad_tpu`'s attention encoder
+(``'attention'``, `ops/attention.py`: a transformer mean-pooled over T,
+whose attention runs K6 on the card where `cvad_tpu` runs the Pallas flash
+kernel).  The bank is as wide as the sequence feature: ``lstm_hidden`` or
+``latent_dim``, as `cvad_tpu` fills it.
 
 Layout: frames are (B, T, C, H, W), as the reference's module takes them;
 the encoder runs on the B*T frames folded into the batch.  The module tree
@@ -16,7 +21,10 @@ gives the reference's state-dict keys (the ones
 ``encoder.13`` fc; ``decoder.0`` fc, ``decoder.{3,6,9,12}`` deconvs,
 ``decoder.{4,7,10}`` BatchNorms; ``temporal_encoder.{weight_ih_l0,
 weight_hh_l0, bias_ih_l0, bias_hh_l0}``; ``normal_memory`` and
-``memory_ptr``.  The port adds ``memory_fill``: the reference's
+``memory_ptr``.  The reference has no attention encoder: its keys are the
+port's own and follow flax's module names (``temporal.pos_embed``,
+``temporal.block_0.ln1``, ``temporal.block_0.qkv``, ...,
+``temporal.ln_out``).  The port adds ``memory_fill``: the reference's
 ``memory_ptr`` doubles as its fill count, `cvad_tpu` tracks the fill apart
 (so that a wrapped bank scores with all its rows), and so does the port.  A
 state dict without ``memory_fill`` (the reference's) loads with fill = ptr,
@@ -48,6 +56,7 @@ from torch import nn
 from cvad_tpu_torch.config import FamilyBConfig
 from cvad_tpu_torch.models.init import kaiming_normal_fan_out_, xavier_normal_
 from cvad_tpu_torch.models.layers import MaskedBatchNorm
+from cvad_tpu_torch.ops.attention import TemporalAttentionEncoder
 from cvad_tpu_torch.ops.pallas_kernels import memory_min_cosine_distance
 
 
@@ -166,11 +175,6 @@ class MemoryVideoAutoEncoder(nn.Module):
     def __init__(self, cfg: Optional[FamilyBConfig] = None, seed: int = 0):
         super().__init__()
         cfg = cfg or FamilyBConfig()
-        if cfg.temporal_encoder != "lstm":
-            raise NotImplementedError(
-                f"temporal_encoder={cfg.temporal_encoder!r} is not ported "
-                f"yet: the attention encoder and its flash-attention kernel "
-                f"(K6) are ROADMAP Queue 1 item 12")
         self.cfg = cfg
         # the layers' default initialisation would draw from the global
         # generator; `reset_parameters` draws everything from `seed`
@@ -200,18 +204,27 @@ class MemoryVideoAutoEncoder(nn.Module):
         layers += [nn.ConvTranspose2d(c_in, cfg.in_channels, 4, 2, 1),
                    nn.Sigmoid()]
         self.decoder = nn.Sequential(*layers)
-        self.temporal_encoder = _LSTM(cfg.latent_dim, cfg.lstm_hidden)
+        if cfg.temporal_encoder == "attention":
+            self.temporal = TemporalAttentionEncoder(
+                cfg.latent_dim, num_layers=cfg.attn_layers,
+                num_heads=cfg.attn_heads)
+            width = cfg.latent_dim
+        else:
+            self.temporal_encoder = _LSTM(cfg.latent_dim, cfg.lstm_hidden)
+            width = cfg.lstm_hidden
         self.register_buffer("normal_memory", torch.zeros(
-            cfg.memory_size, cfg.lstm_hidden))
+            cfg.memory_size, width))
         self.register_buffer("memory_ptr", torch.zeros(1, dtype=torch.long))
         self.register_buffer("memory_fill", torch.zeros(1, dtype=torch.long))
 
     @torch.no_grad()
     def reset_parameters(self, seed: int) -> None:
-        """The reference's scheme from a `torch.Generator` seeded with
-        `seed`, drawn on the CPU in module order."""
+        """The reference's scheme for the encoder and decoder, then the
+        temporal encoder's own (flax's defaults, as `cvad_tpu` initialises
+        them), from a `torch.Generator` seeded with `seed`, drawn on the CPU
+        in module order."""
         gen = torch.Generator().manual_seed(int(seed))
-        for mod in self.modules():
+        for mod in (*self.encoder, *self.decoder):
             if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d)):
                 w = torch.empty(mod.weight.shape)
                 mod.weight.copy_(kaiming_normal_fan_out_(w, gen))
@@ -220,7 +233,7 @@ class MemoryVideoAutoEncoder(nn.Module):
                 w = torch.empty(mod.weight.shape)
                 mod.weight.copy_(xavier_normal_(w, gen, gain=0.5))
                 mod.bias.zero_()
-        self.temporal_encoder.reset_parameters(gen)
+        self._temporal().reset_parameters(gen)
 
     def _load_from_state_dict(self, state_dict, prefix, local_metadata,
                               strict, missing_keys, unexpected_keys,
@@ -265,6 +278,12 @@ class MemoryVideoAutoEncoder(nn.Module):
                 x = layer(x)
         return x
 
+    def _temporal(self) -> nn.Module:
+        """The temporal encoder: (B, T, latent) -> (B, width) float32."""
+        if self.cfg.temporal_encoder == "attention":
+            return self.temporal
+        return self.temporal_encoder
+
     def _dtype(self) -> torch.dtype:
         return getattr(torch, self.cfg.dtype)
 
@@ -288,7 +307,7 @@ class MemoryVideoAutoEncoder(nn.Module):
         fvalid = None if valid is None else valid.repeat_interleave(t)
         z = self.encode_frames(frames.reshape((b * t,) + frames.shape[2:]),
                                fvalid).reshape(b, t, -1)
-        return self.temporal_encoder(z), z
+        return self._temporal()(z), z
 
     def folded_forward(self, flat: torch.Tensor,
                        memory: Optional[MemoryBankState], *, t: int,
@@ -301,7 +320,7 @@ class MemoryVideoAutoEncoder(nn.Module):
         b = flat.shape[0] // t
         fvalid = None if valid is None else valid.repeat_interleave(t)
         z = self.encode_frames(flat, fvalid).reshape(b, t, -1)
-        seq = self.temporal_encoder(z)
+        seq = self._temporal()(z)
         out = {"recon_frame": self.decode(seq, valid),
                "sequence_feature": seq, "frame_features": z}
         if memory is not None:

@@ -181,6 +181,7 @@ FAMILY_B_BNS = {"encoder.1": "encoder/bn_0", "encoder.4": "encoder/bn_1",
                 "decoder.10": "decoder/bn_2"}
 _LSTM = "temporal_encoder"
 _GATES = ("i", "f", "g", "o")  # row blocks of torch's fused (4H, .) weights
+_ATTN = "temporal."  # the attention encoder's state-dict prefix
 
 
 def _node(tree: Mapping, path: str) -> Any:
@@ -200,6 +201,46 @@ def _t(a: Any) -> torch.Tensor:
     return torch.from_numpy(np.array(a, np.float32, order="C"))
 
 
+def from_jax_temporal(tree: Mapping[str, Any], prefix: str = ""
+                      ) -> Dict[str, torch.Tensor]:
+    """`cvad_tpu`'s attention-encoder parameters (the ``temporal`` tree, or
+    one block's) -> state-dict entries under `prefix`: a Dense's (in, out)
+    kernel becomes the Linear's (out, in) weight, a LayerNorm's scale and
+    bias its weight and bias, and ``pos_embed`` is copied as it is."""
+    out: Dict[str, torch.Tensor] = {}
+    for name, node in tree.items():
+        key = prefix + name
+        if not isinstance(node, Mapping):
+            out[key] = _t(node)
+        elif "kernel" in node:
+            out[f"{key}.weight"] = _t(np.asarray(node["kernel"]).T)
+            out[f"{key}.bias"] = _t(node["bias"])
+        elif "scale" in node:
+            out[f"{key}.weight"] = _t(node["scale"])
+            out[f"{key}.bias"] = _t(node["bias"])
+        else:
+            out.update(from_jax_temporal(node, key + "."))
+    return out
+
+
+def to_jax_temporal(state: Mapping[str, torch.Tensor], prefix: str = ""
+                    ) -> Dict[str, Any]:
+    """The inverse of `from_jax_temporal` over the entries of `state` under
+    `prefix`, numpy leaves: a 2-D ``weight`` is a Dense kernel, a 1-D one a
+    LayerNorm scale."""
+    tree: Dict[str, Any] = {}
+    for key, value in state.items():
+        if not key.startswith(prefix):
+            continue
+        *path, leaf = key[len(prefix):].split(".")
+        a = value.detach().cpu().numpy()
+        if leaf == "weight":
+            leaf, a = ("kernel", np.ascontiguousarray(a.T)) if a.ndim == 2 \
+                else ("scale", a)
+        _put(tree, "/".join([*path, leaf]), a)
+    return tree
+
+
 def from_jax_family_b(variables: Mapping[str, Any], memory: Any = None
                       ) -> Dict[str, torch.Tensor]:
     """`cvad_tpu` family-B variables ``{'params', 'batch_stats'}`` and its
@@ -208,8 +249,10 @@ def from_jax_family_b(variables: Mapping[str, Any], memory: Any = None
     Conv and deconv kernels (kH, kW, I, O) / (kH, kW, O, I) become torch's
     (O, I, kH, kW) / (I, O, kH, kW); the LSTM's per-gate denses become the
     fused (4H, .) weights in gate order i, f, g, o, with flax's one bias as
-    ``bias_ih_l0`` and ``bias_hh_l0`` zero.  Without ``batch_stats`` (e.g.
-    an Adam moment tree) or `memory`, only the parameters are filled."""
+    ``bias_ih_l0`` and ``bias_hh_l0`` zero; the attention encoder's
+    ``temporal`` tree maps by `from_jax_temporal`.  Without ``batch_stats``
+    (e.g. an Adam moment tree) or `memory`, only the parameters are
+    filled."""
     params = variables["params"]
     out: Dict[str, torch.Tensor] = {}
     for prefix, path in FAMILY_B_CONVS.items():
@@ -232,14 +275,18 @@ def from_jax_family_b(variables: Mapping[str, Any], memory: Any = None
             out[f"{prefix}.running_var"] = _t(st["var"])
             out[f"{prefix}.num_batches_tracked"] = torch.zeros(
                 (), dtype=torch.long)
-    lstm = params["lstm"]
-    out[f"{_LSTM}.weight_ih_l0"] = _t(np.concatenate(
-        [np.asarray(lstm[f"i{g}"]["kernel"]).T for g in _GATES]))
-    out[f"{_LSTM}.weight_hh_l0"] = _t(np.concatenate(
-        [np.asarray(lstm[f"h{g}"]["kernel"]).T for g in _GATES]))
-    out[f"{_LSTM}.bias_ih_l0"] = _t(np.concatenate(
-        [np.asarray(lstm[f"h{g}"]["bias"]) for g in _GATES]))
-    out[f"{_LSTM}.bias_hh_l0"] = torch.zeros_like(out[f"{_LSTM}.bias_ih_l0"])
+    if "temporal" in params:
+        out.update(from_jax_temporal(params["temporal"], _ATTN))
+    else:
+        lstm = params["lstm"]
+        out[f"{_LSTM}.weight_ih_l0"] = _t(np.concatenate(
+            [np.asarray(lstm[f"i{g}"]["kernel"]).T for g in _GATES]))
+        out[f"{_LSTM}.weight_hh_l0"] = _t(np.concatenate(
+            [np.asarray(lstm[f"h{g}"]["kernel"]).T for g in _GATES]))
+        out[f"{_LSTM}.bias_ih_l0"] = _t(np.concatenate(
+            [np.asarray(lstm[f"h{g}"]["bias"]) for g in _GATES]))
+        out[f"{_LSTM}.bias_hh_l0"] = torch.zeros_like(
+            out[f"{_LSTM}.bias_ih_l0"])
     if memory is not None:
         mem, ptr, fill = (np.asarray(v) for v in memory)
         out["normal_memory"] = _t(mem)
@@ -252,7 +299,8 @@ def to_jax_family_b(state: Mapping[str, torch.Tensor]):
     """The port's state dict -> (`cvad_tpu` family-B variables with numpy
     leaves, (memory, ptr, fill) as numpy): the inverse of
     `from_jax_family_b`.  ``bias_ih_l0 + bias_hh_l0`` becomes flax's one
-    bias, and a state dict without ``memory_fill`` gives fill = ptr."""
+    bias, the attention encoder's entries its ``temporal`` tree, and a state
+    dict without ``memory_fill`` gives fill = ptr."""
     def a(key: str) -> np.ndarray:
         return state[key].detach().cpu().numpy()
 
@@ -270,15 +318,18 @@ def to_jax_family_b(state: Mapping[str, torch.Tensor]):
                             "bias": a(f"{prefix}.bias")})
         _put(stats, path, {"mean": a(f"{prefix}.running_mean"),
                            "var": a(f"{prefix}.running_var")})
-    w_ih, w_hh = a(f"{_LSTM}.weight_ih_l0"), a(f"{_LSTM}.weight_hh_l0")
-    bias = a(f"{_LSTM}.bias_ih_l0") + a(f"{_LSTM}.bias_hh_l0")
-    h = w_hh.shape[1]
-    lstm = params.setdefault("lstm", {})
-    for gi, g in enumerate(_GATES):
-        rows = slice(gi * h, (gi + 1) * h)
-        lstm[f"i{g}"] = {"kernel": np.ascontiguousarray(w_ih[rows].T)}
-        lstm[f"h{g}"] = {"kernel": np.ascontiguousarray(w_hh[rows].T),
-                         "bias": bias[rows]}
+    if any(k.startswith(_ATTN) for k in state):
+        params["temporal"] = to_jax_temporal(state, _ATTN)
+    else:
+        w_ih, w_hh = a(f"{_LSTM}.weight_ih_l0"), a(f"{_LSTM}.weight_hh_l0")
+        bias = a(f"{_LSTM}.bias_ih_l0") + a(f"{_LSTM}.bias_hh_l0")
+        h = w_hh.shape[1]
+        lstm = params.setdefault("lstm", {})
+        for gi, g in enumerate(_GATES):
+            rows = slice(gi * h, (gi + 1) * h)
+            lstm[f"i{g}"] = {"kernel": np.ascontiguousarray(w_ih[rows].T)}
+            lstm[f"h{g}"] = {"kernel": np.ascontiguousarray(w_hh[rows].T),
+                             "bias": bias[rows]}
     ptr = int(a("memory_ptr").reshape(-1)[0])
     fill = (int(a("memory_fill").reshape(-1)[0]) if "memory_fill" in state
             else ptr)

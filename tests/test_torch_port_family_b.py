@@ -275,9 +275,9 @@ def test_param_count_matches_jax():
     assert sum(p.numel() for p in port.parameters()) == n_jax == 1152001
 
 
-def test_attention_encoder_is_refused():
-    with pytest.raises(NotImplementedError, match="item 12"):
-        MemoryVideoAutoEncoder(FamilyBConfig(temporal_encoder="attention"))
+def test_unknown_temporal_encoder_is_refused():
+    with pytest.raises(ValueError, match="temporal_encoder='gru'"):
+        FamilyBConfig(temporal_encoder="gru")
 
 
 def test_state_dict_round_trips_through_jax_layout():

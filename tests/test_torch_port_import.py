@@ -36,6 +36,8 @@ def test_imports_without_jax_or_cvad_tpu():
                 "cvad_tpu_torch.ops.pallas_conv",
                 "cvad_tpu_torch.ops.pallas_kernels",
                 "cvad_tpu_torch.ops.pallas_s2d",
+                "cvad_tpu_torch.ops.attention",
+                "cvad_tpu_torch.ops.flash_attention",
                 "cvad_tpu_torch.ops.losses", "cvad_tpu_torch.ops.adjacency",
                 "cvad_tpu_torch.models.family_d",
                 "cvad_tpu_torch.models.family_b",
@@ -123,3 +125,11 @@ def test_entry_points_default_to_cuda(tmp_path):
     with pytest.raises(RuntimeError):
         main(["train", "--preset", "memory_ae", "--epochs", "1",
               "--n-synthetic", "8", "--out", str(tmp_path / "cli_b")])
+    # family B with the attention encoder
+    from cvad_tpu_torch.config import FamilyBConfig
+
+    attn = FamilyBConfig(temporal_encoder="attention", latent_dim=32,
+                         attn_heads=2, attn_layers=1)
+    with pytest.raises(RuntimeError):
+        make_family_b_score_fn(MemoryVideoAutoEncoder(attn).state_dict(),
+                               cfg=attn)
