@@ -103,7 +103,9 @@ Phases:
            kernel (torch.profiler); K4 and K5 at the main shape, K1 and
            F.conv3d on the same conv, the two layout copies around K5; K6
            forward, dQ and dK/dV at (B, H, T, Dh) = (16, 1, 128, 128) and
-           (8, 1, 2048, 128) against F.scaled_dot_product_attention
+           (8, 1, 2048, 128) against its plain version and
+           F.scaled_dot_product_attention (backward alone for the
+           gradients), by CUDA events and on the card alone
 The kernels phase also holds K4 (forward, input and weight gradient) and
 K5 (forward, weight gradient), called through their wrappers and
 autograd, against their plain versions at B=2, T=16, 16x16 and at the main
@@ -209,6 +211,32 @@ def cuda_ms(fn, iters: int, warm: int = 3) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def device_ms(fn, iters: int, warm: int = 3) -> float:
+    """Mean milliseconds per call of `fn` on the card alone: CUDA events
+    around `iters` calls queued behind a spin kernel (`torch.cuda._sleep`),
+    so that they time the card running the calls back to back and not the
+    host issuing them.  The spin is lengthened until the host has queued
+    every call before it ends (the start event still pending)."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    cycles = 20_000_000  # ~10 ms at the H100's clocks
+    for _ in range(5):
+        start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(iters):
+            fn()
+        stop.record()
+        queued = not start.query()
+        torch.cuda.synchronize()
+        if queued:
+            return start.elapsed_time(stop) / iters
+        cycles *= 4
+    raise RuntimeError("the host did not queue the timed calls ahead of the "
+                       "card")
 
 
 def post(url: str, body: bytes, ctype: str) -> dict:
@@ -1695,16 +1723,22 @@ def s2d_times(rng: np.random.Generator) -> dict:
 
 def flash_times(rng: np.random.Generator) -> list:
     """K6 at FLASH_TIMES, not causal (as the model runs it), float32 and
-    bfloat16: the forward, dQ and dK/dV kernels alone (CUDA events), the
-    plain version (forward; autograd through it for the gradients each
-    kernel gives) and the library yardstick `F.scaled_dot_product_attention`
-    (forward; its backward for the same gradients), which the port never
-    calls.  Bounds from this call's bytes (each input read once, each
-    output written once) and operations: the forward's two products,
-    4 B H T^2 Dh; the dQ kernel's three (QK^T recomputed, dO V^T, dS K),
-    6 B H T^2 Dh; the dK/dV kernel's four (QK^T and dO V^T recomputed,
-    P^T dO, dS^T Q), 8 B H T^2 Dh; the backward as a whole needs at least
-    10 B H T^2 Dh (`backward_bound_ms`)."""
+    bfloat16: the forward, dQ and dK/dV kernels alone, the plain version and
+    the library yardstick `F.scaled_dot_product_attention`, which the port
+    never calls; each timed with CUDA events around back-to-back calls
+    (`ms`) and on the card alone (`device_ms`: the calls queued behind a
+    spin kernel, so no host gap between launches is timed).  For the gradients the plain version's and
+    the library's graphs are built once, outside the timed calls, so that
+    only their backward is timed (autograd for the kernel's gradients, the
+    graph kept).  The library's backward is one kernel that gives dQ, dK
+    and dV whichever are asked for, so its time stands against K6's two
+    kernels together (`backward_ms`, `library_backward_ms`).  Bounds from
+    this call's bytes (each input read once, each output written once) and
+    operations: the forward's two products, 4 B H T^2 Dh; the dQ kernel's
+    three (QK^T recomputed, dO V^T, dS K), 6 B H T^2 Dh; the dK/dV kernel's
+    four (QK^T and dO V^T recomputed, P^T dO, dS^T Q), 8 B H T^2 Dh; the
+    backward as a whole needs at least 10 B H T^2 Dh
+    (`backward_bound_ms`)."""
     import torch.nn.functional as F
 
     from cvad_tpu_torch.ops import flash_attention as fa
@@ -1722,55 +1756,57 @@ def flash_times(rng: np.random.Generator) -> list:
             n = q.numel()
             rows = b * h * t * 4  # one float32 per row (lse, D)
 
-            def plain_grad(wrt):
+            def plain(*xs):
+                return fa.attention_reference(*xs, sm_scale=scale)
+
+            def library(*xs):
+                return F.scaled_dot_product_attention(*xs, scale=scale)
+
+            def backward_of(attend, wrt):
                 xs = [x.detach().requires_grad_(i in wrt)
                       for i, x in enumerate((q, k, v))]
-                y = fa.attention_reference(*xs, sm_scale=scale)
-                return torch.autograd.grad(y, [xs[i] for i in wrt], do)
+                y = attend(*xs)
+                want = [xs[i] for i in wrt]
+                return lambda: torch.autograd.grad(y, want, do,
+                                                   retain_graph=True)
 
-            def library_grad(wrt):
-                xs = [x.detach().requires_grad_(i in wrt)
-                      for i, x in enumerate((q, k, v))]
-                y = F.scaled_dot_product_attention(*xs, scale=scale)
-                return torch.autograd.grad(y, [xs[i] for i in wrt], do)
-
+            calls = {
+                "forward": (
+                    lambda: fa._launch_forward(q, k, v, False, scale),
+                    lambda: plain(q, k, v), lambda: library(q, k, v),
+                    bound(4 * n * size + rows, 2 * mm, peak)),
+                "dq": (
+                    lambda: fa._launch_dq(q, k, v, o, lse, do, False, scale),
+                    backward_of(plain, (0,)), backward_of(library, (0,)),
+                    bound(6 * n * size + 2 * rows, 3 * mm, peak)),
+                "dkv": (
+                    lambda: fa._launch_dkv(q, k, v, do, lse, dvec, False,
+                                           scale),
+                    backward_of(plain, (1, 2)), backward_of(library, (1, 2)),
+                    bound(6 * n * size + 2 * rows, 4 * mm, peak))}
             iters = 50 if t <= 128 else 5
             row = {"shape": list(shape),
-                   "dtype": str(dtype).replace("torch.", ""),
-                   "forward": {
-                       "ms": cuda_ms(lambda: fa._launch_forward(
-                           q, k, v, False, scale), iters),
-                       "plain_ms": cuda_ms(lambda: fa.attention_reference(
-                           q, k, v, sm_scale=scale), iters),
-                       "library_ms": cuda_ms(
-                           lambda: F.scaled_dot_product_attention(
-                               q, k, v, scale=scale), iters),
-                       **bound(4 * n * size + rows, 2 * mm, peak)},
-                   "dq": {
-                       "ms": cuda_ms(lambda: fa._launch_dq(
-                           q, k, v, o, lse, do, False, scale), iters),
-                       "plain_ms": cuda_ms(lambda: plain_grad((0,)), iters),
-                       "library_ms": cuda_ms(lambda: library_grad((0,)),
-                                             iters),
-                       **bound(6 * n * size + 2 * rows, 3 * mm, peak)},
-                   "dkv": {
-                       "ms": cuda_ms(lambda: fa._launch_dkv(
-                           q, k, v, do, lse, dvec, False, scale), iters),
-                       "plain_ms": cuda_ms(lambda: plain_grad((1, 2)),
-                                           iters),
-                       "library_ms": cuda_ms(lambda: library_grad((1, 2)),
-                                             iters),
-                       **bound(6 * n * size + 2 * rows, 4 * mm, peak)}}
+                   "dtype": str(dtype).replace("torch.", "")}
+            for part, (kernel, plain_fn, library_fn, bnd) in calls.items():
+                r = {"ms": cuda_ms(kernel, iters),
+                     "device_ms": device_ms(kernel, iters),
+                     "plain_ms": cuda_ms(plain_fn, iters),
+                     "plain_device_ms": device_ms(plain_fn, iters),
+                     "library_ms": cuda_ms(library_fn, iters),
+                     "library_device_ms": device_ms(library_fn, iters),
+                     **bnd}
+                r["share_of_bound"] = r["bound_ms"] / r["ms"]
+                r["device_share_of_bound"] = r["bound_ms"] / r["device_ms"]
+                row[part] = r
             row["backward_bound_ms"] = bound(
                 8 * n * size + rows, 5 * mm, peak)["bound_ms"]
-            row["backward_ms"] = row["dq"]["ms"] + row["dkv"]["ms"]
-            row["library_backward_ms"] = cuda_ms(
-                lambda: library_grad((0, 1, 2)), iters)
-            for part in ("forward", "dq", "dkv"):
-                r = row[part]
-                r["share_of_bound"] = r["bound_ms"] / r["ms"]
+            for key in ("ms", "device_ms"):
+                row[f"backward_{key}"] = row["dq"][key] + row["dkv"][key]
+            library_bwd = backward_of(library, (0, 1, 2))
+            row["library_backward_ms"] = cuda_ms(library_bwd, iters)
+            row["library_backward_device_ms"] = device_ms(library_bwd, iters)
             out.append(row)
-            del q, k, v, do, o, lse, dq, dvec
+            del q, k, v, do, o, lse, dq, dvec, calls, library_bwd
     torch.cuda.empty_cache()
     return out
 
@@ -2158,16 +2194,19 @@ def main() -> int:
 
     def flash_entry(name: str, line: int, part: str, counter: str) -> dict:
         """K6 at the main path's shape (B, H, T, Dh) = (16, 1, 128, 128):
-        f32 times (the model's type), bf16 beside them, the long window
-        (8, 1, 2048, 128) in `long`, the largest error of the kernels
-        phase over this kernel's outputs."""
+        f32 times (the model's type; CUDA events, and the card's time
+        alone beside them), bf16 beside them, the long window (8, 1, 2048, 128) in
+        `long`, the largest error of the kernels phase over this kernel's
+        outputs."""
         def part_row(shape: tuple, dt: str) -> dict:
             t = next(r for r in flash_t if tuple(r["shape"]) == shape
                      and r["dtype"] == dt)
             outs = {"forward": ("forward",), "dq": ("dq",),
                     "dkv": ("dk", "dv")}[part]
             err = max(errs["flash"][f"{o}_{dt}"] for o in outs)
-            return row(t[part], err)
+            return row(t[part], err) | {
+                key: t[part][key] for key in (
+                    "device_ms", "plain_device_ms", "library_device_ms")}
 
         main, long = FLASH_TIMES
         return {"name": name, "route": "cuda",

@@ -43,7 +43,8 @@
 // - tiles staged in dynamic shared memory as float32 with a padded row
 //   stride (129 and 65 floats) so that the 16 column-owning threads of a
 //   row read 16 banks; 113-162 KB a block, above the 48 KB default, so the
-//   launcher raises the limit with cudaFuncSetAttribute;
+//   launcher raises the limit with cudaFuncSetAttribute (once per kernel
+//   and device);
 // - forward: one block per (bh, query tile), K/V tiles streamed through
 //   shared memory with an online softmax (running max and sum in
 //   registers, reduced over the 16 threads of a row with xor shuffles,
@@ -59,6 +60,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <math.h>
 
 namespace {
@@ -488,17 +490,31 @@ cudaError_t check_shape(int bh, int seq, int dim) {
   return cudaSuccess;
 }
 
+// The dynamic shared-memory limit is raised once per kernel and device, not
+// at every launch: each launcher keeps its own `done` flags, one per device
+// (threads racing on a first launch all set the same value, harmlessly).
+constexpr int kMaxDevices = 64;
+using SmemFlags = std::atomic<bool>[kMaxDevices];
+
 template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
+cudaError_t allow_smem(SmemFlags& done, Kernel kernel, size_t bytes) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (done[dev].load(std::memory_order_acquire)) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  if (err == cudaSuccess) done[dev].store(true, std::memory_order_release);
+  return err;
 }
 
 template <typename T>
 int forward(const void* q, const void* k, const void* v, void* o, void* lse,
             int bh, int seq, float scale, int causal, cudaStream_t stream) {
-  cudaError_t err = allow_smem(flash_fwd_kernel<T>, kFwdSmem);
+  static SmemFlags done;
+  cudaError_t err = allow_smem(done, flash_fwd_kernel<T>, kFwdSmem);
   if (err != cudaSuccess) return (int)err;
   flash_fwd_kernel<T><<<dim3(seq / kBQ, bh), kThreads, kFwdSmem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
@@ -512,7 +528,8 @@ int backward_dq(const void* q, const void* k, const void* v, const void* o,
                 const void* dout, const void* lse, void* dvec, void* dq,
                 int bh, int seq, float scale, int causal,
                 cudaStream_t stream) {
-  cudaError_t err = allow_smem(flash_bwd_dq_kernel<T>, kDqSmem);
+  static SmemFlags done;
+  cudaError_t err = allow_smem(done, flash_bwd_dq_kernel<T>, kDqSmem);
   if (err != cudaSuccess) return (int)err;
   flash_bwd_dq_kernel<T><<<dim3(seq / kBQ, bh), kThreads, kDqSmem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
@@ -527,7 +544,8 @@ int backward_dkv(const void* q, const void* k, const void* v,
                  const void* dout, const void* lse, const void* dvec,
                  void* dk, void* dv, int bh, int seq, float scale, int causal,
                  cudaStream_t stream) {
-  cudaError_t err = allow_smem(flash_bwd_dkv_kernel<T>, kDkvSmem);
+  static SmemFlags done;
+  cudaError_t err = allow_smem(done, flash_bwd_dkv_kernel<T>, kDkvSmem);
   if (err != cudaSuccess) return (int)err;
   flash_bwd_dkv_kernel<T>
       <<<dim3(seq / kBK, bh), kThreads, kDkvSmem, stream>>>(
@@ -543,7 +561,7 @@ int backward_dkv(const void* q, const void* k, const void* v,
 // q, k, v, o (BH, T, 128) contiguous on the device, float32 (bf16 = 0) or
 // bfloat16 (bf16 = 1); lse (BH, T) float32.  Each entry point launches one
 // kernel on `stream` and returns cudaGetLastError() (0 on success), or the
-// error of cudaFuncSetAttribute; shapes the kernels do not take (head dim
+// error of cudaGetDevice or cudaFuncSetAttribute; shapes the kernels do not take (head dim
 // other than 128, T not a positive multiple of 64, BH outside 1..65535)
 // return cudaErrorInvalidValue without launching.
 extern "C" int flash_attention_forward(const void* q, const void* k,

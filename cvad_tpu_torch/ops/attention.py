@@ -44,15 +44,12 @@ def flash_eligible(t: int, head_dim: int, device) -> bool:
 
 
 def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, causal: bool = False, use_flash=None
-                         ) -> torch.Tensor:
+                         *, causal: bool = False) -> torch.Tensor:
     """Attention over (B, H, T, Dh) tensors; the flash kernel when
-    eligible (or when `use_flash` says so), else the plain expression."""
+    `flash_eligible`, else the plain expression."""
     t, dh = q.shape[2], q.shape[3]
     scale = dh ** -0.5
-    if use_flash is None:
-        use_flash = flash_eligible(t, dh, q.device)
-    if use_flash:
+    if flash_eligible(t, dh, q.device):
         return flash_attention(q, k, v, causal=causal, sm_scale=scale)
     return attention_reference(q, k, v, causal=causal, sm_scale=scale)
 
