@@ -20,10 +20,18 @@ Phases:
            tfold_conv1's autograd gradient (x and weight, f32 and bf16, B=4)
            against autograd through the plain version: f32 within 1e-5 of
            the largest |ref|, bf16 within 2e-2 of it;
+           conv1 at widths K1 does not take (C=1 -> 16, 3 -> 32): F.conv3d,
+           no K1 launch, output and weight gradient against the plain
+           folded conv;
            pairwise_l1 forward and backward at B in {1, 2, 33, 256}, N in
-           {1, 7, 256}, masks all zero / single / random / all one: avg
+           {1, 7, 256}, and at (B, N) = (64, 16384) (two 8,192-wide
+           chunks), masks all zero / single / random / all one: avg
            within rtol 1e-5 (atol 1e-7), n_pairs exact, gradient within
-           atol 1e-6, and a second call bit-identical
+           atol 1e-6, and a second call bit-identical;
+           memory_min_cosine at B x M x D over {1..1024} x {1..4096} x
+           {64, 128} and at (16, 500, 2048), (8, 64, 4096) (2 and 4
+           1,024-wide chunks of D): within 1e-6, a second call
+           bit-identical
   model    the family-D checkpoint scores 128 clips on the card (float32,
            TF32 off) and on the CPU: scores and adjacency within atol 1e-4
   serve    (main path 1) HTTP server on an ephemeral port, buckets
@@ -88,6 +96,12 @@ Phases:
            parameters, BatchNorm statistics and the bank within 5e-5; each
            card step launches K6 forward and both backward kernels once a
            layer
+  widths   configurations whose widths the kernels did not take before,
+           one float32 step each from seed 0, card vs CPU at attn_parity's
+           tolerances: family D with in_channels=1 at T=8 and T=64 (default
+           lowering) and with conv_channels=(32, 32, 64) (conv1 on
+           F.conv3d, no K1 launch); family B with the attention encoder at
+           latent 256, one head, T=128 (K6 at head dim 256)
   attn_train  (main path 6) `Trainer.fit` with that model, float32, B=16,
            256 synthetic 128-frame train clips and 64 eval clips, uint8
            transfer, 3 epochs, eval and checkpoints every epoch; 2 epochs +
@@ -108,12 +122,18 @@ Phases:
            gradients), by CUDA events and on the card alone
 The kernels phase also holds K4 (forward, input and weight gradient) and
 K5 (forward, weight gradient), called through their wrappers and
-autograd, against their plain versions at B=2, T=16, 16x16 and at the main
-shape B=128, T=64, 64x64, f32 and bf16, a second call bit-identical, each
-wrapper counter one higher a call; and K6 (forward, dQ, dK, dV) through
-its autograd Function against autograd through its plain version at
-(B, H, T, Dh) in {(2, 1, 128, 128), (16, 1, 128, 128), (4, 2, 256, 128)},
-causal and not, f32 and bf16 (TF32 off): forward f32 within 1e-5,
+autograd, against their plain versions at B=2, T=16, 16x16 (RGB with g=4,
+grayscale with g=8, 32 output channels with g=4) and at the main shape
+B=128, T=64, 64x64, f32 and bf16, a second call bit-identical, each
+wrapper counter one higher a call.  K5 computes only the band of the
+folded kernel: its weight gradient's band entries are held against the
+plain version's, its other entries must be exactly 0, and conv1's
+(3, 3, 3, C, O) kernel gradient through the fold's autograd against the
+plain route's.  K6 (forward, dQ, dK, dV) is held through its autograd
+Function against autograd through its plain version at (B, H, T, Dh) in
+{(2, 1, 128, 128), (16, 1, 128, 128), (4, 2, 256, 128), (2, 1, 128, 256),
+(2, 1, 128, 512)}, causal and not, f32 and bf16 (TF32 off): forward f32
+within 1e-5,
 gradients within 1e-5 of the largest entry in f32 and 2e-2 of it in bf16
 (bf16 forward too), a second call bit-identical, each counter one higher a
 call.
@@ -151,12 +171,22 @@ CLIP_B = (8, 64, 64, 1)            # family B's clip
 B_FILL = 300                       # bank rows filled in family_b_model
 B_ANOMALY_RATE = 0.2               # the synthetic train split's rate
 MEM_SHAPES = ((256, 500, 64), (1024, 4096, 128))  # K3 timing (B, M, D)
+# K3 beyond one 1,024-wide chunk of D, and K2 beyond one 8,192-wide chunk
+# of N: checked against the plain versions and timed
+MEM_WIDE = ((16, 500, 2048), (8, 64, 4096))
+PAIR_WIDE = (64, 16384)
+# conv1 widths K1 does not take (TFoldConv1 runs F.conv3d there), (C, O)
+CONV1_WIDTHS = ((1, 16), (3, 32))
+# family B with the attention encoder at head dim 256 (K6 over two chunks)
+WIDE_HEAD = dict(temporal_encoder="attention", latent_dim=256, attn_heads=1)
 # long windows (main path 5): (T, H, W, C) of one clip, batch, T-group size
 LONG_CLIP, LONG_BATCH, LONG_G = (64, 64, 64, 3), 128, 8
 LONG_TRAIN_CLIPS, LONG_EVAL_CLIPS, LONG_PARITY_BATCH = 512, 128, 8
-# K4/K5 checks: (B, T, H, W, g), the small case of tests/test_s2d_fold.py
-# and the main path's shape
-S2D_CASES = ((2, 16, 16, 16, 4), (LONG_BATCH, 64, 64, 64, LONG_G))
+# K4/K5 checks: (B, T, H, W, g, C, O): the small case of
+# tests/test_s2d_fold.py, grayscale and 32 output channels at its size, and
+# the main path's shape
+S2D_CASES = ((2, 16, 16, 16, 4, 3, 16), (2, 16, 16, 16, 8, 1, 16),
+             (2, 16, 16, 16, 4, 3, 32), (LONG_BATCH, 64, 64, 64, LONG_G, 3, 16))
 # family B with the attention encoder (main path 6): bench.py's flash
 # configuration (measure_flash_attention), (T, H, W, C) of one clip
 ATTN_MODEL = dict(temporal_encoder="attention", latent_dim=128, attn_heads=1)
@@ -164,12 +194,14 @@ ATTN_CLIP, ATTN_BATCH, ATTN_PARAMS = (128, 64, 64, 1), 16, 2302273
 ATTN_TRAIN_CLIPS, ATTN_EVAL_CLIPS, ATTN_SCORE_CLIPS = 256, 64, 32
 ATTN_PARITY_BATCH = 4
 # K6 checks and times, (B, H, T, Dh): the main path's shape is the second
-FLASH_CASES = ((2, 1, 128, 128), (16, 1, 128, 128), (4, 2, 256, 128))
-FLASH_TIMES = ((16, 1, 128, 128), (8, 1, 2048, 128))
+FLASH_CASES = ((2, 1, 128, 128), (16, 1, 128, 128), (4, 2, 256, 128),
+               (2, 1, 128, 256), (2, 1, 128, 512))
+FLASH_TIMES = ((16, 1, 128, 128), (8, 1, 2048, 128), (16, 1, 128, 256))
 # the port's CUDA kernels by symbol name (cvad_tpu_torch/csrc/*.cu), picked
 # out of the profiler's rows
 PORT_KERNELS = ("tfold_conv1_kernel", "pairwise_", "memory_min_cosine_kernel",
-                "s2d_gemm_kernel", "s2d_wgrad_", "flash_fwd_kernel",
+                "s2d_gemm_kernel", "s2d_wgrad_", "s2d_group_",
+                "flash_fwd_kernel",
                 "flash_bwd_")
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and FLOP/s by type
 HBM_BYTES_S = 3.35e12
@@ -315,6 +347,7 @@ def phase_kernels(rng: np.random.Generator) -> dict:
                       f"(max abs err {e16})")
         err32, err16 = max(err32, e32), max(err16, e16)
     grad = check_tfold_grad(rng)
+    widths = check_conv1_widths(rng)
     pair = check_pairwise(rng)
     mem = check_memory(rng)
     s2d = check_s2d(rng)
@@ -322,7 +355,7 @@ def phase_kernels(rng: np.random.Generator) -> dict:
     emit({"phase": "kernels", "s2d": s2d, "flash": flash, "kernels": [
         {"name": "tfold_conv1", "comparison_launches": tfold_conv1.launches,
          "max_abs_err_f32": err32, "max_abs_err_bf16": err16,
-         "cases": cases, "grad": grad},
+         "cases": cases, "grad": grad, "other_widths": widths},
         {"name": "pairwise_l1", **pair},
         {"name": "memory_min_cosine", **mem}]})
     return {"f32": err32, "bf16": err16, "pair_fwd": pair["max_abs_err_avg"],
@@ -406,15 +439,16 @@ def check_flash(rng: np.random.Generator) -> dict:
 
 
 def s2d_inputs(rng: np.random.Generator, b: int, t: int, h: int, w: int,
-               g: int, dtype: torch.dtype = torch.float32) -> dict:
-    """K4's and K5's operands on the card, from clips (B, T, H, W, 3) in
-    [0, 1) and a (3, 3, 3, 3, 16) kernel ~ N(0, 0.2^2), with N(0, 1)
+               g: int, dtype: torch.dtype = torch.float32, cin: int = 3,
+               cout: int = 16) -> dict:
+    """K4's and K5's operands on the card, from clips (B, T, H, W, C) in
+    [0, 1) and a (3, 3, 3, C, O) kernel ~ N(0, 0.2^2), with N(0, 1)
     cotangents, in `dtype`."""
     from cvad_tpu_torch.ops import pallas_s2d as ps
 
-    x = torch.from_numpy(rng.uniform(0, 1, (b, t, h, w, 3))
+    x = torch.from_numpy(rng.uniform(0, 1, (b, t, h, w, cin))
                          .astype(np.float32)).cuda().to(dtype)
-    k = torch.from_numpy(rng.normal(0, 0.2, (3, 3, 3, 3, 16))
+    k = torch.from_numpy(rng.normal(0, 0.2, (3, 3, 3, cin, cout))
                          .astype(np.float32)).cuda().to(dtype)
     xf = ps.s2d_fold_input(x, g).contiguous()
     wd = ps.s2d_fold_kernel(k, g).contiguous()
@@ -422,20 +456,23 @@ def s2d_inputs(rng: np.random.Generator, b: int, t: int, h: int, w: int,
     wdp = ps._pad_wd(wd).contiguous()
     gen = torch.Generator("cuda").manual_seed(int(rng.integers(1 << 30)))
     ho, wo = h // 2, w // 2
-    return {"xf": xf, "wd": wd, "w4": wd.reshape(4, *wd.shape[2:]),
-            "xg": xg, "wdp": wdp, "n": t // g,
+    return {"xf": xf, "k": k, "wd": wd, "w4": wd.reshape(4, *wd.shape[2:]),
+            "xg": xg, "wdp": wdp, "n": t // g, "g": g, "cin": cin,
+            "cout": cout,
             "ct4": torch.randn((xf.shape[0], ho, wo, wd.shape[3]),
                                generator=gen, device="cuda").to(dtype),
-            "ct5": torch.randn((b, ho, wo, t * 16), generator=gen,
+            "ct5": torch.randn((b, ho, wo, t * cout), generator=gen,
                                device="cuda").to(dtype)}
 
 
 def s2d_wrapper_grads(d: dict, g: int) -> dict:
     """K4 and K5 through their wrappers, as a model calls them: the outputs
-    of `s2d_fold_matmul(xf, wd)` and `s2d_group_conv(xg, wd, g)`, and their
-    gradients from `torch.autograd.grad` with the cotangents of `d` (K4: x
-    and the weight; K5: the weight only, as in a train step, where conv1's
-    input needs none).  Checks that each wrapper counter rose by one."""
+    of `s2d_fold_matmul(xf, wd)` and `s2d_group_conv(xg, s2d_fold_kernel(k,
+    g), g)`, and their gradients from `torch.autograd.grad` with the
+    cotangents of `d` (K4: x and the weight; K5: the folded weight and
+    conv1's (3, 3, 3, C, O) kernel through `s2d_fold_kernel`'s autograd, as
+    in a train step, where conv1's input needs none).  Checks that each
+    wrapper counter rose by one."""
     from cvad_tpu_torch.ops import pallas_s2d as ps
 
     k4, k5 = ps.s2d_fold_matmul, ps.s2d_group_conv
@@ -449,14 +486,32 @@ def s2d_wrapper_grads(d: dict, g: int) -> dict:
     wd4 = d["wd"].detach().requires_grad_(True)
     y4 = k4(xf, wd4)
     dx4, dw4 = torch.autograd.grad(y4, (xf, wd4), d["ct4"])
-    wd5 = d["wd"].detach().requires_grad_(True)
+    kk = d["k"].detach().requires_grad_(True)
+    wd5 = ps.s2d_fold_kernel(kk, g)
     y5 = k5(d["xg"], wd5, g)
-    (dw5,) = torch.autograd.grad(y5, wd5, d["ct5"])
+    dw5, dk5 = torch.autograd.grad(y5, (wd5, kk), d["ct5"])
     rose = {k: getattr(f, a) - before[k] for k, (f, a) in counters.items()}
     check(all(v == 1 for v in rose.values()),
           f"K4/K5 wrapper counters rose by {rose}, not 1 each")
     return {"k4_forward": y4.detach(), "k4_dgrad": dx4, "k4_wgrad": dw4,
-            "k5_forward": y5.detach(), "k5_wgrad": dw5}
+            "k5_forward": y5.detach(), "k5_wgrad": dw5, "k5_conv1_wgrad": dk5}
+
+
+def s2d_plain_conv1_wgrad(d: dict, ref_dw: torch.Tensor) -> tuple:
+    """conv1's kernel gradient by the plain route in `d`'s dtype (the fold,
+    `_xla_slabs_core`, autograd), and the sum over the fold's summands of
+    |ref_dw| (the float32 plain folded gradient, (2, 2, kc, N)): the bound
+    of one rounding of each summand."""
+    from cvad_tpu_torch.ops import pallas_s2d as ps
+
+    g = d["g"]
+    kk = d["k"].detach().requires_grad_(True)
+    y = ps._xla_slabs_core(d["xg"], ps._pad_wd(ps.s2d_fold_kernel(kk, g)),
+                           d["n"])
+    (dk,) = torch.autograd.grad(y, kk, d["ct5"])
+    kz = torch.zeros_like(d["k"], dtype=torch.float32, requires_grad=True)
+    (mag,) = torch.autograd.grad(ps.s2d_fold_kernel(kz, g), kz, ref_dw.abs())
+    return dk, mag
 
 
 def check_s2d(rng: np.random.Generator) -> dict:
@@ -469,13 +524,19 @@ def check_s2d(rng: np.random.Generator) -> dict:
     1e-2 |ref| + 1e-4 (one bf16 rounding of the f32 sum); weight gradients
     (float32 sums over every pixel, in another order, then cast to the
     weight's dtype): within 1e-5 of the largest |ref| entry, plus 2^-8 |ref|
-    in bf16 (the one rounding of the cast)."""
+    in bf16 (the one rounding of the cast).  K5 computes only the band of
+    the folded kernel (`s2d_band_mask`), so its weight gradient is held
+    three ways: the band entries as above; the others exactly 0; and
+    conv1's (3, 3, 3, C, O) kernel gradient through `s2d_fold_kernel`'s
+    autograd against the plain route's in the same dtype, within 1e-5 of
+    its largest |ref| entry, plus in bf16 2^-8 times the sum of the |terms|
+    the fold's backward adds (each rounded once to bf16)."""
     from cvad_tpu_torch.ops import pallas_s2d as ps
 
     errs, cases = {}, []
-    for b, t, h, w, g in S2D_CASES:
+    for b, t, h, w, g, cin, cout in S2D_CASES:
         for dtype in (torch.float32, torch.bfloat16):
-            d = s2d_inputs(rng, b, t, h, w, g, dtype)
+            d = s2d_inputs(rng, b, t, h, w, g, dtype, cin, cout)
             kc, kp, n = d["wd"].shape[2], d["wdp"].shape[1], d["n"]
             got, again = s2d_wrapper_grads(d, g), s2d_wrapper_grads(d, g)
             f = {k: v.float() for k, v in d.items() if torch.is_tensor(v)}
@@ -488,9 +549,12 @@ def check_s2d(rng: np.random.Generator) -> dict:
                    # the pad rows of _pad_wd carry no gradient to wd
                    "k5_wgrad": ps.s2d_group_wgrad_reference(
                        f["xg"], f["ct5"], kp)[:, :kc].reshape(d["wd"].shape)}
+            ref_dk, mag = s2d_plain_conv1_wgrad(d, ref["k5_wgrad"])
+            band = ps.s2d_band_mask(g, cin, cout, kp)[:kc].cuda().expand(
+                d["wd"].shape)
             torch.cuda.synchronize()
-            case = {"B": b, "T": t, "H": h, "W": w, "g": g,
-                    "dtype": str(dtype).replace("torch.", "")}
+            case = {"B": b, "T": t, "H": h, "W": w, "g": g, "C": cin,
+                    "O": cout, "dtype": str(dtype).replace("torch.", "")}
             for name, r in ref.items():
                 y = got[name]
                 where = f"{name} at {case}"
@@ -498,6 +562,11 @@ def check_s2d(rng: np.random.Generator) -> dict:
                 check(y.dtype == dtype, f"dtype of {where}")
                 check(torch.equal(y, again[name]),
                       f"{where}: a second call is not bit-identical")
+                if name == "k5_wgrad":  # the band entries, then the rest
+                    off = y[~band]
+                    check(not off.any(), f"{where}: {int((off != 0).sum())}"
+                                         f" entries off the band are not 0")
+                    y, r = y[band], r[band]
                 e = (y.float() - r).abs()
                 if name.endswith("wgrad"):
                     tol = 1e-5 * r.abs().max().item()
@@ -513,8 +582,25 @@ def check_s2d(rng: np.random.Generator) -> dict:
                 check(ok, f"{where}: max abs err {err} beyond tolerance")
                 key = f"{name}_{case['dtype']}"
                 errs[key] = max(errs.get(key, 0.0), err)
+            dk = got["k5_conv1_wgrad"]
+            check(dk.dtype == dtype and torch.equal(dk,
+                                                    again["k5_conv1_wgrad"]),
+                  f"conv1 kernel gradient dtype or second call at {case}")
+            e = (dk.float() - ref_dk.float()).abs()
+            tol = 1e-5 * ref_dk.float().abs().max().item()
+            if dtype == torch.bfloat16:
+                tol = tol + 2.0 ** -8 * mag
+            err = e.max().item()
+            case["k5_conv1_wgrad"] = err
+            check(bool((e <= tol).all()),
+                  f"k5_conv1_wgrad at {case}: max abs err {err} beyond "
+                  f"tolerance")
+            key = f"k5_conv1_wgrad_{case['dtype']}"
+            errs[key] = max(errs.get(key, 0.0), err)
             cases.append(case)
+            del d, got, again, f, ref
     return {"cases": cases, "max_abs_err": errs,
+            "off_band_entries_zero": True,
             "bit_identical_second_call": True}
 
 
@@ -554,6 +640,21 @@ def check_memory(rng: np.random.Generator) -> dict:
                           f"memory_min_cosine not bit-identical at {case}")
                     err = max(err, e)
                     n_cases += 1
+    wide = []
+    for b, m, d in MEM_WIDE:  # more than one 1,024-wide chunk of D
+        q, mem = memory_inputs(rng, b, m, d)
+        f = torch.tensor(m, dtype=torch.int32, device="cuda")
+        got = memory_min_cosine_distance(q, mem, f)
+        again = memory_min_cosine_distance(q, mem, f)
+        ref = memory_min_cosine_distance_reference(q, mem, f)
+        torch.cuda.synchronize()
+        e = (got - ref).abs().max().item()
+        check(e <= 1e-6, f"memory_min_cosine err {e} at B={b} M={m} D={d}")
+        check(torch.equal(got, again),
+              f"memory_min_cosine not bit-identical at D={d}")
+        wide.append({"B": b, "M": m, "D": d, "max_abs_err": e})
+        err = max(err, e)
+        n_cases += 1
     q, mem = memory_inputs(rng, 9, 500, 64)
     q[4, 7] = float("nan")
     got = memory_min_cosine_distance(q, mem, 500)
@@ -565,6 +666,7 @@ def check_memory(rng: np.random.Generator) -> dict:
           and bool(torch.isfinite(got[rest]).all()),
           f"memory_min_cosine NaN row: {got.tolist()}")
     return {"cases": n_cases, "max_abs_err": err, "nan_row_gives_nan": True,
+            "wide": wide,
             "comparison_launches": memory_min_cosine_distance.launches}
 
 
@@ -607,6 +709,45 @@ def check_tfold_grad(rng: np.random.Generator) -> dict:
     return out
 
 
+def check_conv1_widths(rng: np.random.Generator) -> dict:
+    """conv1 at the widths K1 does not take (CONV1_WIDTHS, B=2, T=8, 64x64):
+    `TFoldConv1` on its 'tfold' route runs F.conv3d there, chosen by shape
+    before any launch, so `tfold_conv1.launches` does not rise; the output
+    and its weight gradient against the plain folded conv
+    (`tfold_conv1_reference`) on the same inputs, TF32 off: f32 within
+    atol 1e-4 (outputs) and 1e-5 of the largest |ref| (weight gradient)."""
+    from cvad_tpu_torch.models.layers import TFoldConv1
+    from cvad_tpu_torch.ops.pallas_conv import (tfold_conv1,
+                                                tfold_conv1_reference)
+
+    out = []
+    for c, o in CONV1_WIDTHS:
+        layer = TFoldConv1(c, o).cuda()
+        x = torch.from_numpy(rng.uniform(0, 1, (2, c) + CLIP[:3])
+                             .astype(np.float32)).cuda()
+        g = torch.from_numpy(rng.normal(size=(2, o, 8, 32, 32))
+                             .astype(np.float32)).cuda()
+        before = tfold_conv1.launches
+        with no_tf32():
+            y = layer(x)
+            (dw,) = torch.autograd.grad(y, layer.weight, g)
+            w = layer.weight.detach().requires_grad_(True)
+            ref = tfold_conv1_reference(x, w) + layer.bias.detach().view(
+                1, -1, 1, 1, 1)
+            (ref_dw,) = torch.autograd.grad(ref, w, g)
+        torch.cuda.synchronize()
+        e = (y - ref).abs().max().item()
+        ew = (dw - ref_dw).abs().max().item()
+        case = {"C": c, "O": o, "max_abs_err": e, "wgrad_max_abs_err": ew,
+                "k1_launches": tfold_conv1.launches - before}
+        check(y.shape == (2, o, 8, 32, 32), f"conv1 shape at {case}")
+        check(case["k1_launches"] == 0, f"K1 launched at {case}")
+        check(e <= 1e-4 and ew <= 1e-5 * ref_dw.abs().max().item(),
+              f"conv1 widths card vs plain at {case}")
+        out.append(case)
+    return {"cases": out}
+
+
 def pair_inputs(rng: np.random.Generator, b: int, n: int, mask: str):
     """flat (B, N) in [0, 1) with tied columns (as the adjacency's zero
     diagonal) and a mask of the named kind, on the card."""
@@ -628,32 +769,33 @@ def check_pairwise(rng: np.random.Generator) -> dict:
 
     err_avg = err_grad = 0.0
     n_cases = 0
-    for b in (1, 2, 33, 256):
-        for n in (1, 7, 256):
-            for mask in ("zero", "single", "random", "one"):
-                flat, m = pair_inputs(rng, b, n, mask)
-                f = flat.clone().requires_grad_(True)
-                avg, n_pairs = pairwise_l1_mean(f, m)
-                (g,) = torch.autograd.grad(avg, f)
-                avg2, _ = pairwise_l1_mean(f, m)
-                (g2,) = torch.autograd.grad(avg2, f)
-                ref, ref_n = pairwise_l1_reference(flat, m)
-                ref_g = pairwise_l1_backward_reference(
-                    flat, m, ref_n, torch.ones((), device="cuda"))
-                torch.cuda.synchronize()
-                case = f"B={b} N={n} mask={mask}"
-                ea = abs(avg.item() - ref.item())
-                eg = (g - ref_g).abs().max().item()
-                check(n_pairs.item() == ref_n.item(),
-                      f"pairwise n_pairs {n_pairs.item()} vs "
-                      f"{ref_n.item()} at {case}")
-                check(ea <= 1e-5 * abs(ref.item()) + 1e-7,
-                      f"pairwise avg err {ea} at {case}")
-                check(eg <= 1e-6, f"pairwise grad err {eg} at {case}")
-                check(torch.equal(avg, avg2) and torch.equal(g, g2),
-                      f"pairwise not bit-identical across calls at {case}")
-                err_avg, err_grad = max(err_avg, ea), max(err_grad, eg)
-                n_cases += 1
+    shapes = [(b, n) for b in (1, 2, 33, 256) for n in (1, 7, 256)]
+    shapes.append(PAIR_WIDE)  # more than one 8,192-wide chunk of N
+    for b, n in shapes:
+        for mask in ("zero", "single", "random", "one"):
+            flat, m = pair_inputs(rng, b, n, mask)
+            f = flat.clone().requires_grad_(True)
+            avg, n_pairs = pairwise_l1_mean(f, m)
+            (g,) = torch.autograd.grad(avg, f)
+            avg2, _ = pairwise_l1_mean(f, m)
+            (g2,) = torch.autograd.grad(avg2, f)
+            ref, ref_n = pairwise_l1_reference(flat, m)
+            ref_g = pairwise_l1_backward_reference(
+                flat, m, ref_n, torch.ones((), device="cuda"))
+            torch.cuda.synchronize()
+            case = f"B={b} N={n} mask={mask}"
+            ea = abs(avg.item() - ref.item())
+            eg = (g - ref_g).abs().max().item()
+            check(n_pairs.item() == ref_n.item(),
+                  f"pairwise n_pairs {n_pairs.item()} vs "
+                  f"{ref_n.item()} at {case}")
+            check(ea <= 1e-5 * abs(ref.item()) + 1e-7,
+                  f"pairwise avg err {ea} at {case}")
+            check(eg <= 1e-6, f"pairwise grad err {eg} at {case}")
+            check(torch.equal(avg, avg2) and torch.equal(g, g2),
+                  f"pairwise not bit-identical across calls at {case}")
+            err_avg, err_grad = max(err_avg, ea), max(err_grad, eg)
+            n_cases += 1
     return {"cases": n_cases, "max_abs_err_avg": err_avg,
             "max_abs_err_grad": err_grad,
             "comparison_launches": pairwise_l1_mean.launches,
@@ -1424,6 +1566,78 @@ def phase_attn_parity(rng: np.random.Generator) -> None:
     check(err_p <= 5e-5, f"attention card vs CPU state differs by {err_p}")
 
 
+def card_cpu_step(cfg, batch: dict) -> dict:
+    """One float32 train step of `cfg`'s task from the seed-0 init on the
+    card and on the CPU, on the same numpy batch: the metrics' largest
+    relative difference, the state's largest absolute difference, and the
+    card's launches by kernel."""
+    from cvad_tpu_torch.train.state import float_metrics
+    from cvad_tpu_torch.train.tasks import build_task
+
+    task = build_task(cfg)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        st = task.init_state(0, dev)
+        before = counts()
+        st, m = task.train_step(st, {k: torch.from_numpy(v).to(dev)
+                                     for k, v in batch.items()}, 1)
+        rose = {k: v - before[k] for k, v in counts().items() if v != before[k]}
+        runs[dev] = (float_metrics(m), {k: v.cpu() for k, v in
+                                        st.model.state_dict().items()}, rose)
+    (mg, pg, rose), (mc, pc, cpu_rose) = runs["cuda"], runs["cpu"]
+    check(not cpu_rose, f"CPU step launched {cpu_rose}")
+    return {"loss_card": mg["loss"], "loss_cpu": mc["loss"],
+            "metrics_max_rel_err": max(abs(mg[k] - mc[k])
+                                       / max(abs(mc[k]), 1e-6) for k in mg),
+            "state_max_abs_err": max((pg[k].double() - pc[k].double())
+                                     .abs().max().item() for k in pg),
+            "card_launches": rose}
+
+
+def phase_widths(rng: np.random.Generator) -> None:
+    """Configurations `cvad_tpu` runs whose widths K1, K6, K2 or K3 did not
+    take before: family D with grayscale clips (in_channels=1) at T=8 and
+    at T=64 on the default lowering, and with conv_channels=(32, 32, 64),
+    conv1 on F.conv3d (no K1 launch); family B with the attention encoder
+    at latent 256 with one head (K6 at head dim 256) at T=128.  One float32
+    step each from the seed-0 init, card against CPU, at attn_parity's
+    tolerances: metrics rtol 1e-4, state 5e-5."""
+    b = 4
+    cases = []
+    for name, model, clip in (
+            ("d_gray_t8", dict(in_channels=1), (8, 64, 64, 1)),
+            ("d_gray_t64", dict(in_channels=1), (64, 64, 64, 1)),
+            ("d_conv32", dict(conv_channels=(32, 32, 64)), CLIP)):
+        cfg = train_config(b)
+        cfg = cfg.replace(model=cfg.model.replace(dropout=0.0, **model),
+                          data=cfg.data.replace(clip_len=clip[0]))
+        r = card_cpu_step(cfg, {
+            "clips": rng.integers(0, 256, (b,) + clip, dtype=np.uint8),
+            "pseudo_targets": (rng.uniform(size=b) < 0.25).astype(
+                np.float32)})
+        check(not r["card_launches"].get("tfold_conv1")
+              and r["card_launches"].get("pairwise_l1_forward") == 1,
+              f"{name} launched {r['card_launches']}")
+        cases.append({"case": name, **r})
+    cfg = b_train_config(2)
+    cfg = cfg.replace(model=cfg.model.replace(**WIDE_HEAD),
+                      data=cfg.data.replace(clip_len=ATTN_CLIP[0]))
+    labels = np.array([0.0, 1.0], np.float32)
+    r = card_cpu_step(cfg, {"clips": rng.integers(
+        0, 256, (2,) + ATTN_CLIP, dtype=np.uint8), "labels": labels})
+    layers = cfg.model.attn_layers
+    check(all(r["card_launches"].get(k) == layers for k in
+              ("flash_forward", "flash_dq", "flash_dkv")),
+          f"wide-head step launched {r['card_launches']}")
+    cases.append({"case": "b_attn_head256", **r})
+    emit({"phase": "widths", "cases": cases})
+    for c in cases:
+        check(c["metrics_max_rel_err"] <= 1e-4
+              and c["state_max_abs_err"] <= 5e-5,
+              f"{c['case']}: card vs CPU metrics {c['metrics_max_rel_err']},"
+              f" state {c['state_max_abs_err']}")
+
+
 def phase_attn_train(workdir: Path) -> dict:
     """Main path 6: `Trainer.fit` with the attention model on 128-frame
     clips, an interrupted run resumed from its epoch-2 checkpoint, and the
@@ -1530,9 +1744,9 @@ def phase_attn_train(workdir: Path) -> dict:
 
 
 def memory_times(rng: np.random.Generator) -> list:
-    """K3 at MEM_SHAPES with a full bank: the kernel, the plain version, and
-    the library yardstick F.normalize + torch.mm + torch.where + amin
-    (which the port never calls), with the bound from this call's bytes
+    """K3 at MEM_SHAPES and MEM_WIDE with a full bank: the kernel, the plain
+    version, and the library yardstick F.normalize + torch.mm + torch.where
+    + amin (which the port never calls), with the bound from this call's bytes
     (each input read once, the output written once) and operations
     (2 B fill D at the float32 rate)."""
     import torch.nn.functional as F
@@ -1549,7 +1763,7 @@ def memory_times(rng: np.random.Generator) -> list:
         return dist.amin(dim=1).clamp(0.0, 2.0) / 2.0
 
     out = []
-    for b, m, d in MEM_SHAPES:
+    for b, m, d in MEM_SHAPES + MEM_WIDE:
         q, mem = memory_inputs(rng, b, m, d)
         f = torch.tensor(m, dtype=torch.int32, device="cuda")
         err = (library(q, mem, f) - _launch_memory(q, mem, f)).abs().max()
@@ -1604,9 +1818,10 @@ def s2d_times(rng: np.random.Generator) -> dict:
     kernel, plain version and one library call (grouped `F.conv2d` on the
     channels-last view, or its `aten.convolution_backward`; TF32 off), with
     the bound from this call's bytes (each input read once, each output
-    written once) and operations (2 MACs over the kernel's K, pad and
-    banded zeros included, at the type's rate); `conv_bound_ms` counts
-    only the conv's own 81 MACs an output.  Beside them: K1 and
+    written once) and operations at the type's rate: the MACs each kernel
+    does, K5's band (4 taps x 12C rows an output element, 38.7 GFLOP at
+    this shape), K4's dense fold (pad channels and banded zeros included);
+    `conv_bound_ms` counts only the conv's own 81 MACs an output.  Beside them: K1 and
     `F.conv3d` on the same conv, and the two layout copies around K5 in the
     model (the fold of the NCTHW input into slabs, and the unfold of K5's
     t-major output back to NCTHW), in float32."""
@@ -1644,7 +1859,8 @@ def s2d_times(rng: np.random.Generator) -> dict:
         kp, no = wdp.shape[1], wdp.shape[2]
         w_lib = wdp.view(2, 2, kp, no).permute(3, 2, 0, 1).repeat(n, 1, 1, 1)
         x_lib, c_lib = xg.permute(0, 3, 1, 2), ct5.permute(0, 3, 1, 2)
-        flops5 = 2 * b * (h // 2) * (w // 2) * n * 4 * kp * no
+        # K5 computes the band only: 4 taps x 12C rows an output element
+        flops5 = 2 * ct5.numel() * 4 * 12 * c
         xf, wd, w4, ct4 = d["xf"], d["wd"], d["w4"], d["ct4"]
         kc = wd.shape[2]
         xf_lib, c4_lib = xf.permute(0, 3, 1, 2), ct4.permute(0, 3, 1, 2)
@@ -1660,7 +1876,8 @@ def s2d_times(rng: np.random.Generator) -> dict:
         with no_tf32():
             rows = {
                 "k5_forward": {
-                    "ms": cuda_ms(lambda: ps._launch_forward(xg, wdp, n), 10),
+                    "ms": cuda_ms(lambda: ps._launch_group_forward(
+                        xg, wdp, g, c, 16), 10),
                     "plain_ms": cuda_ms(lambda: ps._xla_slabs_core(
                         xg, wdp, n), 3),
                     "library_ms": cuda_ms(lambda: F.conv2d(
@@ -1668,8 +1885,8 @@ def s2d_times(rng: np.random.Generator) -> dict:
                     **bound((xg.numel() + wdp.numel() + ct5.numel()) * size,
                             flops5, peak)},
                 "k5_wgrad": {
-                    "ms": cuda_ms(lambda: ps._launch_wgrad(xg, ct5, kp, n),
-                                  10),
+                    "ms": cuda_ms(lambda: ps._launch_group_wgrad(
+                        xg, ct5, g, c, 16, kp), 10),
                     "plain_ms": cuda_ms(lambda: ps.s2d_group_wgrad_reference(
                         xg, ct5, kp), 3),
                     "library_ms": cuda_ms(lambda: conv_bwd(
@@ -1821,34 +2038,35 @@ def bound(nbytes: float, ops: float, peak: float) -> dict:
             "bytes": nbytes, "ops": ops}
 
 
-def pairwise_times(rng: np.random.Generator) -> dict:
-    """K2 forward and backward at B = N = 256 with a mask at the main
-    path's rate: kernels, plain versions, and torch.cdist(p=1) (the library
-    call for the pairwise L1 matrix, which the port never calls) with its
-    backward.  Simple operations (sub, abs or sign, add) count one each at
-    the float32 rate."""
+def pairwise_times(rng: np.random.Generator, b: int = 256,
+                   n: int = 256) -> dict:
+    """K2 forward and backward at (B, N) (the main path's 256 x 256 by
+    default) with a mask at the main path's rate: kernels, plain versions,
+    and torch.cdist(p=1) (the library call for the pairwise L1 matrix,
+    which the port never calls) with its backward.  Simple operations
+    (sub, abs or sign, add) count one each at the float32 rate."""
     from cvad_tpu_torch.ops.pallas_kernels import (
         _launch_backward, _launch_forward, pairwise_l1_backward_reference,
         pairwise_l1_reference)
 
-    b = n = 256
+    iters = 200 if n <= 256 else 20
     flat, m = pair_inputs(rng, b, n, "random")
     ct = torch.ones((), device="cuda")
     avg, n_pairs = _launch_forward(flat, m)
     s = float(m.sum())
     pairs = float(n_pairs)
-    fwd = {"ms": cuda_ms(lambda: _launch_forward(flat, m), iters=200),
+    fwd = {"ms": cuda_ms(lambda: _launch_forward(flat, m), iters=iters),
            "plain_ms": cuda_ms(lambda: pairwise_l1_reference(flat, m),
                                iters=20),
            "library_ms": cuda_ms(lambda: torch.cdist(flat, flat, p=1),
-                                 iters=200),
+                                 iters=iters),
            **bound((b * n + b + 2) * 4, 3 * pairs * n,
                    PEAK_FLOPS[torch.float32])}
     fr = flat.clone().requires_grad_(True)
     w = torch.triu(m[:, None] * m[None, :], 1)
     lib_loss = (torch.cdist(fr, fr, p=1) * w).sum()
     bwd = {"ms": cuda_ms(lambda: _launch_backward(flat, m, n_pairs, ct),
-                         iters=200),
+                         iters=iters),
            "plain_ms": cuda_ms(lambda: pairwise_l1_backward_reference(
                flat, m, n_pairs, ct), iters=20),
            "library_ms": cuda_ms(lambda: torch.autograd.grad(
@@ -2121,6 +2339,7 @@ def main() -> int:
         # family B with the attention encoder on 128-frame clips
         phase_attn_model(rng)
         phase_attn_parity(rng)
+        phase_widths(rng)
         paths["attn_train"] = phase_attn_train(Path(tmp))  # resets first
         emit({"phase": "main_path", "path": "attn_train",
               "launches": paths["attn_train"]})
@@ -2145,6 +2364,8 @@ def main() -> int:
 
     s2d_t = timed("s2d", s2d_times, rng)
     pair_t = timed("pairwise_l1", pairwise_times, rng)
+    pair_t["wide"] = timed("pairwise_l1_wide", pairwise_times, rng,
+                           *PAIR_WIDE)
     k1_bwd = timed("tfold_conv1_backward", tfold_backward_times, rng)
     mem_t = timed("memory_min_cosine", memory_times, rng)
     flash_t = timed("flash_attention", flash_times, rng)
@@ -2172,9 +2393,9 @@ def main() -> int:
     def s2d_entry(name: str, line: int, counter: str) -> dict:
         """K4 and K5 at the main shape (B=128, T=64): f32 times, the bf16
         ones beside them, the largest error of the kernels phase.
-        `bound_ms` counts the MACs the kernel does (pad channels and banded
-        zeros of the fold included), `conv_bound_ms` only the conv's own.
-        K4 is on no main path (no model calls it; it shares K5's source)."""
+        `bound_ms` counts the MACs the kernel does (K5 the band of the
+        fold, K4 the dense fold), `conv_bound_ms` only the conv's own.  K4
+        is on no main path (no model calls it)."""
         part = counter.replace("s2d_group_", "k5_").replace(
             "s2d_matmul_", "k4_")
         err = {dt: errs["s2d"][f"{part}_{dt}"]
@@ -2184,8 +2405,9 @@ def main() -> int:
             t = s2d_t[dt][part]
             return row(t, err[dt]) | {"conv_bound_ms": t["conv_bound_ms"]}
 
+        source = "s2d_group_conv" if part.startswith("k5") else "s2d_conv"
         return {"name": name, "route": "cuda",
-                "source": "cvad_tpu_torch/csrc/s2d_conv.cu",
+                "source": f"cvad_tpu_torch/csrc/{source}.cu",
                 "replaces": f"cvad_tpu/ops/pallas_s2d.py:{line}",
                 **launches(counter), "on_main_path": part.startswith("k5"),
                 "dtype": "float32", "B": LONG_BATCH,
@@ -2195,9 +2417,9 @@ def main() -> int:
     def flash_entry(name: str, line: int, part: str, counter: str) -> dict:
         """K6 at the main path's shape (B, H, T, Dh) = (16, 1, 128, 128):
         f32 times (the model's type; CUDA events, and the card's time
-        alone beside them), bf16 beside them, the long window (8, 1, 2048, 128) in
-        `long`, the largest error of the kernels phase over this kernel's
-        outputs."""
+        alone beside them), bf16 beside them, the long window (8, 1, 2048,
+        128) in `long`, head dim 256 (16, 1, 128, 256) in `head256`, the
+        largest error of the kernels phase over this kernel's outputs."""
         def part_row(shape: tuple, dt: str) -> dict:
             t = next(r for r in flash_t if tuple(r["shape"]) == shape
                      and r["dtype"] == dt)
@@ -2208,7 +2430,7 @@ def main() -> int:
                 key: t[part][key] for key in (
                     "device_ms", "plain_device_ms", "library_device_ms")}
 
-        main, long = FLASH_TIMES
+        main, long, wide = FLASH_TIMES
         return {"name": name, "route": "cuda",
                 "source": "cvad_tpu_torch/csrc/flash_attention.cu",
                 "replaces": "jax/experimental/pallas/ops/tpu/"
@@ -2218,7 +2440,9 @@ def main() -> int:
                 "shape": list(main), **part_row(main, "float32"),
                 "bfloat16": part_row(main, "bfloat16"),
                 "long": {"shape": list(long)}
-                | part_row(long, "float32"), "card": dev["card"]}
+                | part_row(long, "float32"),
+                "head256": {"shape": list(wide)}
+                | part_row(wide, "float32"), "card": dev["card"]}
 
     emit({"kernels": [
         {"name": "tfold_conv1", "route": "cuda",
@@ -2234,13 +2458,19 @@ def main() -> int:
          "replaces": "cvad_tpu/ops/pallas_kernels.py:214",
          **launches("pairwise_l1_forward"),
          "dtype": "float32", "B": pair_t["B"], "N": pair_t["N"],
-         **row(pair_t["forward"], errs["pair_fwd"]), "card": dev["card"]},
+         **row(pair_t["forward"], errs["pair_fwd"]),
+         "wide": {"B": PAIR_WIDE[0], "N": PAIR_WIDE[1]}
+         | row(pair_t["wide"]["forward"], errs["pair_fwd"]),
+         "card": dev["card"]},
         {"name": "pairwise_l1_backward", "route": "cuda",
          "source": "cvad_tpu_torch/csrc/pairwise_l1.cu",
          "replaces": "cvad_tpu/ops/pallas_kernels.py:243",
          **launches("pairwise_l1_backward"),
          "dtype": "float32", "B": pair_t["B"], "N": pair_t["N"],
-         **row(pair_t["backward"], errs["pair_bwd"]), "card": dev["card"]},
+         **row(pair_t["backward"], errs["pair_bwd"]),
+         "wide": {"B": PAIR_WIDE[0], "N": PAIR_WIDE[1]}
+         | row(pair_t["wide"]["backward"], errs["pair_bwd"]),
+         "card": dev["card"]},
         {"name": "memory_min_cosine", "route": "cuda",
          "source": "cvad_tpu_torch/csrc/memory_cosine.cu",
          "replaces": "cvad_tpu/ops/pallas_kernels.py:102",
@@ -2248,7 +2478,10 @@ def main() -> int:
          "dtype": "float32", "B": mem_t[0]["B"], "M": mem_t[0]["M"],
          "D": mem_t[0]["D"], **row(mem_t[0], errs["memory"]),
          "large": {k: mem_t[1][k] for k in ("B", "M", "D")}
-         | row(mem_t[1], errs["memory"]), "card": dev["card"]},
+         | row(mem_t[1], errs["memory"]),
+         "wide": [{k: t[k] for k in ("B", "M", "D")}
+                  | row(t, errs["memory"]) for t in mem_t[2:]],
+         "card": dev["card"]},
         *(s2d_entry(name, line, counter) for name, line, counter in (
             ("s2d_group_conv_forward", 418, "s2d_group_forward"),
             ("s2d_group_conv_wgrad", 468, "s2d_group_wgrad"),

@@ -9,8 +9,8 @@
 // (_flash_attention_dkv_kernel, pl.pallas_call at :1121) and dQ
 // (_flash_attention_dq_kernel, pl.pallas_call at :1456).
 //
-// What it computes, for q, k, v (BH, T, D) with D = 128, float32 or
-// bfloat16, row-major, and a scale c (D^-1/2 in the model):
+// What it computes, for q, k, v (BH, T, D) with D any positive multiple of
+// 128, float32 or bfloat16, row-major, and a scale c (D^-1/2 in the model):
 //   s_ij = c * (q_i . k_j)          (f32 sums; c applied after the product)
 //   s_ij = -inf where j > i          (causal only)
 //   o_i  = sum_j softmax_j(s_i)_j v_j, with P cast to v's type before PV
@@ -36,10 +36,21 @@
 //
 // Design (simple and exact first: CUDA-core f32 FMAs, no tensor cores, no
 // TMA; a later PR's work):
+// - the head dim is cut into 128-wide chunks (nc = D / 128).  A third grid
+//   dimension runs over the chunks of the output (O in the forward, dQ in
+//   the dQ kernel, dK and dV in the dK/dV kernel), so a block's tiles keep
+//   the size they have at D = 128.  The products over the head dim (QK^T,
+//   dO V^T, and D = rowsum(dO O)) loop over the chunks in order, so every
+//   chunk's block computes the same scores and row statistics bit for bit;
+//   only chunk 0 writes lse and D.  At D = 128 (nc = 1) Q (forward, dQ) and
+//   K, V (dK/dV) are staged once, as before the chunks existed; for nc > 1
+//   each chunk is staged as the loop reaches it, and each of the nc blocks
+//   of a tile recomputes the scores (at D = 256 the forward does 1.5x the
+//   operations of one pass);
 // - tiles of 64 query rows and 64 key rows; 256 threads as a 16 x 16 grid,
 //   thread (ty, tx) owning rows ty + 16 i (i < 4) and columns tx + 16 j of
 //   each 64 x 64 score tile, and columns tx + 16 c (c < 8) of each 64 x 128
-//   output tile;
+//   output chunk;
 // - tiles staged in dynamic shared memory as float32 with a padded row
 //   stride (129 and 65 floats) so that the 16 column-owning threads of a
 //   row read 16 banks; 113-162 KB a block, above the 48 KB default, so the
@@ -65,7 +76,7 @@
 
 namespace {
 
-constexpr int kD = 128;        // head dim
+constexpr int kD = 128;        // head-dim chunk: a tile's width
 constexpr int kBQ = 64;        // query rows a tile
 constexpr int kBK = 64;        // key rows a tile
 constexpr int kThreads = 256;  // 16 x 16
@@ -106,14 +117,15 @@ struct Io<__nv_bfloat16> {
   }
 };
 
-// a (64, D) row-major tile of global memory into shared memory as float32
-// (row stride kLd); consecutive threads read consecutive elements
+// a (64, 128) tile of global memory (rows `ld` elements apart) into shared
+// memory as float32 (row stride kLd); consecutive threads read consecutive
+// elements
 template <typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* src) {
+__device__ __forceinline__ void load_tile(float* dst, const T* src, int ld) {
 #pragma unroll 4
   for (int idx = threadIdx.x; idx < kBQ * kD; idx += kThreads) {
     const int r = idx / kD, c = idx % kD;
-    dst[r * kLd + c] = Io<T>::load(src + idx);
+    dst[r * kLd + c] = Io<T>::load(src + (long long)r * ld + c);
   }
 }
 
@@ -134,14 +146,15 @@ __device__ __forceinline__ float row_sum(float v) {
 }
 
 // ---------------------------------------------------------------------------
-// forward: one block per (query tile, bh)
+// forward: one block per (query tile, bh, output chunk)
 // ---------------------------------------------------------------------------
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int seq, float scale, int causal) {
+                 float* __restrict__ lse, int seq, int dim, float scale,
+                 int causal) {
   extern __shared__ float smem[];
   float* qs = smem;
   float* ks = qs + kTile;
@@ -150,10 +163,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
   const int qt = blockIdx.x;
   const long long bh = blockIdx.y;
-  const long long base = bh * seq * kD;
+  const int oc = blockIdx.z, nc = dim / kD;
+  const long long base = bh * seq * dim;
   const int q0 = qt * kBQ;
+  const T* qrow = q + base + (long long)q0 * dim;
 
-  load_tile<T>(qs, q + base + (long long)q0 * kD);
+  if (nc == 1) load_tile<T>(qs, qrow, dim);
 
   float acc[4][8], m[4], l[4];
 #pragma unroll
@@ -167,27 +182,30 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int n_kt = causal ? qt + 1 : seq / kBK;
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * kBK;
-    __syncthreads();  // the previous tile's ks, vs, ps are read
-    load_tile<T>(ks, k + base + (long long)k0 * kD);
-    load_tile<T>(vs, v + base + (long long)k0 * kD);
-    __syncthreads();
-
+    const long long krow = base + (long long)k0 * dim;
     float s[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+    for (int dc = 0; dc < nc; ++dc) {
+      __syncthreads();  // the previous chunk's (or tile's) tiles are read
+      if (nc > 1) load_tile<T>(qs, qrow + dc * kD, dim);
+      load_tile<T>(ks, k + krow + dc * kD, dim);
+      if (dc == nc - 1) load_tile<T>(vs, v + krow + oc * kD, dim);
+      __syncthreads();
 #pragma unroll 4
-    for (int d = 0; d < kD; ++d) {
-      float a[4], b[4];
+      for (int d = 0; d < kD; ++d) {
+        float a[4], b[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = qs[(ty + 16 * i) * kLd + d];
+        for (int i = 0; i < 4; ++i) a[i] = qs[(ty + 16 * i) * kLd + d];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = ks[(tx + 16 * j) * kLd + d];
+        for (int j = 0; j < 4; ++j) b[j] = ks[(tx + 16 * j) * kLd + d];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
+          for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
+      }
     }
 
 #pragma unroll
@@ -234,15 +252,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty + 16 * i;
     const float inv = 1.0f / l[i];
-    T* orow = o + base + (long long)row * kD;
+    T* orow = o + base + (long long)row * dim + oc * kD;
 #pragma unroll
     for (int c = 0; c < 8; ++c) Io<T>::store(orow + tx + 16 * c, acc[i][c] * inv);
-    if (tx == 0) lse[bh * seq + row] = m[i] + logf(l[i]);
+    if (tx == 0 && oc == 0) lse[bh * seq + row] = m[i] + logf(l[i]);
   }
 }
 
 // ---------------------------------------------------------------------------
-// backward, dQ (and D): one block per (query tile, bh)
+// backward, dQ (and D): one block per (query tile, bh, output chunk)
 // ---------------------------------------------------------------------------
 
 template <typename T>
@@ -251,7 +269,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ o,
                     const T* __restrict__ dout, const float* __restrict__ lse,
                     float* __restrict__ dvec, T* __restrict__ dq, int seq,
-                    float scale, int causal) {
+                    int dim, float scale, int causal) {
   extern __shared__ float smem[];
   float* qs = smem;
   float* dos = qs + kTile;
@@ -261,25 +279,35 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
   const int qt = blockIdx.x;
   const long long bh = blockIdx.y;
-  const long long base = bh * seq * kD;
+  const int oc = blockIdx.z, nc = dim / kD;
+  const long long base = bh * seq * dim;
   const int q0 = qt * kBQ;
+  const long long qrow = base + (long long)q0 * dim;
 
-  load_tile<T>(qs, q + base + (long long)q0 * kD);
-  load_tile<T>(dos, dout + base + (long long)q0 * kD);
-  load_tile<T>(ks, o + base + (long long)q0 * kD);  // O, for D only
-  __syncthreads();
-
+  // D = rowsum(dO * O) over the whole head dim, chunk by chunk in order
+  float part[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int dc = 0; dc < nc; ++dc) {
+    if (dc > 0) __syncthreads();  // the previous chunk's dos and O are read
+    if (nc == 1) load_tile<T>(qs, q + qrow, dim);
+    load_tile<T>(dos, dout + qrow + dc * kD, dim);
+    load_tile<T>(ks, o + qrow + dc * kD, dim);  // O, for D only
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = ty + 16 * i;
+#pragma unroll
+      for (int c = 0; c < 8; ++c)
+        part[i] = fmaf(dos[r * kLd + tx + 16 * c], ks[r * kLd + tx + 16 * c],
+                       part[i]);
+    }
+  }
   float di[4], li[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = ty + 16 * i;
-    float part = 0.f;
-#pragma unroll
-    for (int c = 0; c < 8; ++c)
-      part = fmaf(dos[r * kLd + tx + 16 * c], ks[r * kLd + tx + 16 * c], part);
-    di[i] = row_sum(part);
+    di[i] = row_sum(part[i]);
     li[i] = lse[bh * seq + q0 + r];
-    if (tx == 0) dvec[bh * seq + q0 + r] = di[i];
+    if (tx == 0 && oc == 0) dvec[bh * seq + q0 + r] = di[i];
   }
 
   float acc[4][8];
@@ -291,36 +319,42 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int n_kt = causal ? qt + 1 : seq / kBK;
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * kBK;
-    __syncthreads();  // O (first tile) or the previous ks, vs, dss are read
-    load_tile<T>(ks, k + base + (long long)k0 * kD);
-    load_tile<T>(vs, v + base + (long long)k0 * kD);
-    __syncthreads();
-
+    const long long krow = base + (long long)k0 * dim;
     float s[4][4], dp[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+    for (int dc = 0; dc < nc; ++dc) {
+      __syncthreads();  // O or the previous chunk's (or tile's) tiles are read
+      if (nc > 1) {
+        load_tile<T>(qs, q + qrow + dc * kD, dim);
+        load_tile<T>(dos, dout + qrow + dc * kD, dim);
+      }
+      load_tile<T>(ks, k + krow + dc * kD, dim);
+      load_tile<T>(vs, v + krow + dc * kD, dim);
+      __syncthreads();
 #pragma unroll 2
-    for (int d = 0; d < kD; ++d) {
-      float aq[4], ad[4], bk[4], bv[4];
+      for (int d = 0; d < kD; ++d) {
+        float aq[4], ad[4], bk[4], bv[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        aq[i] = qs[(ty + 16 * i) * kLd + d];
-        ad[i] = dos[(ty + 16 * i) * kLd + d];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        bk[j] = ks[(tx + 16 * j) * kLd + d];
-        bv[j] = vs[(tx + 16 * j) * kLd + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < 4; ++i) {
+          aq[i] = qs[(ty + 16 * i) * kLd + d];
+          ad[i] = dos[(ty + 16 * i) * kLd + d];
+        }
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(aq[i], bk[j], s[i][j]);
-          dp[i][j] = fmaf(ad[i], bv[j], dp[i][j]);
+          bk[j] = ks[(tx + 16 * j) * kLd + d];
+          bv[j] = vs[(tx + 16 * j) * kLd + d];
         }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            s[i][j] = fmaf(aq[i], bk[j], s[i][j]);
+            dp[i][j] = fmaf(ad[i], bv[j], dp[i][j]);
+          }
+      }
     }
 
 #pragma unroll
@@ -335,6 +369,10 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
     __syncthreads();
+    if (oc != nc - 1) {  // K's chunk oc for dS K; ks holds chunk nc - 1
+      load_tile<T>(ks, k + krow + oc * kD, dim);
+      __syncthreads();
+    }
 
 #pragma unroll 4
     for (int kk = 0; kk < kBK; ++kk) {
@@ -352,14 +390,15 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    T* row = dq + base + (long long)(q0 + ty + 16 * i) * kD;
+    T* row = dq + base + (long long)(q0 + ty + 16 * i) * dim + oc * kD;
 #pragma unroll
     for (int c = 0; c < 8; ++c) Io<T>::store(row + tx + 16 * c, acc[i][c]);
   }
 }
 
 // ---------------------------------------------------------------------------
-// backward, dK and dV: one block per (key tile, bh), after the dQ kernel
+// backward, dK and dV: one block per (key tile, bh, output chunk), after the
+// dQ kernel
 // ---------------------------------------------------------------------------
 
 template <typename T>
@@ -368,7 +407,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
                      const float* __restrict__ lse,
                      const float* __restrict__ dvec, T* __restrict__ dk,
-                     T* __restrict__ dv, int seq, float scale, int causal) {
+                     T* __restrict__ dv, int seq, int dim, float scale,
+                     int causal) {
   extern __shared__ float smem[];
   float* ks = smem;
   float* vs = ks + kTile;
@@ -381,11 +421,15 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
   const int kt = blockIdx.x;
   const long long bh = blockIdx.y;
-  const long long base = bh * seq * kD;
+  const int oc = blockIdx.z, nc = dim / kD;
+  const long long base = bh * seq * dim;
   const int k0 = kt * kBK;
+  const long long krow = base + (long long)k0 * dim;
 
-  load_tile<T>(ks, k + base + (long long)k0 * kD);
-  load_tile<T>(vs, v + base + (long long)k0 * kD);
+  if (nc == 1) {
+    load_tile<T>(ks, k + krow, dim);
+    load_tile<T>(vs, v + krow, dim);
+  }
 
   float ak[4][8], av[4][8];  // rows: keys ty + 16 i; columns tx + 16 c
 #pragma unroll
@@ -396,41 +440,47 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int n_qt = seq / kBQ;
   for (int qt = causal ? kt : 0; qt < n_qt; ++qt) {
     const int q0 = qt * kBQ;
-    __syncthreads();  // the previous tile's qs, dos, pss, dss are read
-    load_tile<T>(qs, q + base + (long long)q0 * kD);
-    load_tile<T>(dos, dout + base + (long long)q0 * kD);
-    if (threadIdx.x < kBQ) {
-      lse_s[threadIdx.x] = lse[bh * seq + q0 + threadIdx.x];
-      d_s[threadIdx.x] = dvec[bh * seq + q0 + threadIdx.x];
-    }
-    __syncthreads();
-
+    const long long qrow = base + (long long)q0 * dim;
     // scores with rows = queries ty + 16 i, columns = keys tx + 16 j
     float s[4][4], dp[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+    for (int dc = 0; dc < nc; ++dc) {
+      __syncthreads();  // the previous chunk's (or tile's) tiles are read
+      if (nc > 1) {
+        load_tile<T>(ks, k + krow + dc * kD, dim);
+        load_tile<T>(vs, v + krow + dc * kD, dim);
+      }
+      load_tile<T>(qs, q + qrow + dc * kD, dim);
+      load_tile<T>(dos, dout + qrow + dc * kD, dim);
+      if (dc == 0 && threadIdx.x < kBQ) {
+        lse_s[threadIdx.x] = lse[bh * seq + q0 + threadIdx.x];
+        d_s[threadIdx.x] = dvec[bh * seq + q0 + threadIdx.x];
+      }
+      __syncthreads();
 #pragma unroll 2
-    for (int d = 0; d < kD; ++d) {
-      float aq[4], ad[4], bk[4], bv[4];
+      for (int d = 0; d < kD; ++d) {
+        float aq[4], ad[4], bk[4], bv[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        aq[i] = qs[(ty + 16 * i) * kLd + d];
-        ad[i] = dos[(ty + 16 * i) * kLd + d];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        bk[j] = ks[(tx + 16 * j) * kLd + d];
-        bv[j] = vs[(tx + 16 * j) * kLd + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < 4; ++i) {
+          aq[i] = qs[(ty + 16 * i) * kLd + d];
+          ad[i] = dos[(ty + 16 * i) * kLd + d];
+        }
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(aq[i], bk[j], s[i][j]);
-          dp[i][j] = fmaf(ad[i], bv[j], dp[i][j]);
+          bk[j] = ks[(tx + 16 * j) * kLd + d];
+          bv[j] = vs[(tx + 16 * j) * kLd + d];
         }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            s[i][j] = fmaf(aq[i], bk[j], s[i][j]);
+            dp[i][j] = fmaf(ad[i], bv[j], dp[i][j]);
+          }
+      }
     }
 
 #pragma unroll
@@ -446,6 +496,11 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
     __syncthreads();
+    if (oc != nc - 1) {  // Q's and dO's chunk oc; qs, dos hold chunk nc - 1
+      load_tile<T>(qs, q + qrow + oc * kD, dim);
+      load_tile<T>(dos, dout + qrow + oc * kD, dim);
+      __syncthreads();
+    }
 
     // dV_j += sum_i P_ij dO_i, dK_j += sum_i dS_ij Q_i
 #pragma unroll 2
@@ -473,7 +528,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const long long off = base + (long long)(k0 + ty + 16 * i) * kD;
+    const long long off =
+        base + (long long)(k0 + ty + 16 * i) * dim + oc * kD;
 #pragma unroll
     for (int c = 0; c < 8; ++c) {
       Io<T>::store(dk + off + tx + 16 * c, ak[i][c]);
@@ -485,7 +541,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // the launch geometry every entry point shares; cudaErrorInvalidValue for
 // shapes the kernels do not take
 cudaError_t check_shape(int bh, int seq, int dim) {
-  if (bh <= 0 || bh > 65535 || dim != kD || seq <= 0 || seq % kBQ != 0)
+  if (bh <= 0 || bh > 65535 || dim <= 0 || dim % kD != 0
+      || dim / kD > 65535 || seq <= 0 || seq % kBQ != 0)
     return cudaErrorInvalidValue;
   return cudaSuccess;
 }
@@ -512,58 +569,62 @@ cudaError_t allow_smem(SmemFlags& done, Kernel kernel, size_t bytes) {
 
 template <typename T>
 int forward(const void* q, const void* k, const void* v, void* o, void* lse,
-            int bh, int seq, float scale, int causal, cudaStream_t stream) {
+            int bh, int seq, int dim, float scale, int causal,
+            cudaStream_t stream) {
   static SmemFlags done;
   cudaError_t err = allow_smem(done, flash_fwd_kernel<T>, kFwdSmem);
   if (err != cudaSuccess) return (int)err;
-  flash_fwd_kernel<T><<<dim3(seq / kBQ, bh), kThreads, kFwdSmem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      seq, scale, causal);
+  flash_fwd_kernel<T>
+      <<<dim3(seq / kBQ, bh, dim / kD), kThreads, kFwdSmem, stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<T*>(o),
+          static_cast<float*>(lse), seq, dim, scale, causal);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int backward_dq(const void* q, const void* k, const void* v, const void* o,
                 const void* dout, const void* lse, void* dvec, void* dq,
-                int bh, int seq, float scale, int causal,
+                int bh, int seq, int dim, float scale, int causal,
                 cudaStream_t stream) {
   static SmemFlags done;
   cudaError_t err = allow_smem(done, flash_bwd_dq_kernel<T>, kDqSmem);
   if (err != cudaSuccess) return (int)err;
-  flash_bwd_dq_kernel<T><<<dim3(seq / kBQ, bh), kThreads, kDqSmem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(o),
-      static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<float*>(dvec), static_cast<T*>(dq), seq, scale, causal);
+  flash_bwd_dq_kernel<T>
+      <<<dim3(seq / kBQ, bh, dim / kD), kThreads, kDqSmem, stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<const T*>(o),
+          static_cast<const T*>(dout), static_cast<const float*>(lse),
+          static_cast<float*>(dvec), static_cast<T*>(dq), seq, dim, scale,
+          causal);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int backward_dkv(const void* q, const void* k, const void* v,
                  const void* dout, const void* lse, const void* dvec,
-                 void* dk, void* dv, int bh, int seq, float scale, int causal,
-                 cudaStream_t stream) {
+                 void* dk, void* dv, int bh, int seq, int dim, float scale,
+                 int causal, cudaStream_t stream) {
   static SmemFlags done;
   cudaError_t err = allow_smem(done, flash_bwd_dkv_kernel<T>, kDkvSmem);
   if (err != cudaSuccess) return (int)err;
   flash_bwd_dkv_kernel<T>
-      <<<dim3(seq / kBK, bh), kThreads, kDkvSmem, stream>>>(
+      <<<dim3(seq / kBK, bh, dim / kD), kThreads, kDkvSmem, stream>>>(
           static_cast<const T*>(q), static_cast<const T*>(k),
           static_cast<const T*>(v), static_cast<const T*>(dout),
           static_cast<const float*>(lse), static_cast<const float*>(dvec),
-          static_cast<T*>(dk), static_cast<T*>(dv), seq, scale, causal);
+          static_cast<T*>(dk), static_cast<T*>(dv), seq, dim, scale, causal);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q, k, v, o (BH, T, 128) contiguous on the device, float32 (bf16 = 0) or
+// q, k, v, o (BH, T, D) contiguous on the device, float32 (bf16 = 0) or
 // bfloat16 (bf16 = 1); lse (BH, T) float32.  Each entry point launches one
 // kernel on `stream` and returns cudaGetLastError() (0 on success), or the
-// error of cudaGetDevice or cudaFuncSetAttribute; shapes the kernels do not take (head dim
-// other than 128, T not a positive multiple of 64, BH outside 1..65535)
-// return cudaErrorInvalidValue without launching.
+// error of cudaGetDevice or cudaFuncSetAttribute; shapes the kernels do not
+// take (D not a positive multiple of 128, T not a positive multiple of 64,
+// BH outside 1..65535) return cudaErrorInvalidValue without launching.
 extern "C" int flash_attention_forward(const void* q, const void* k,
                                        const void* v, void* o, void* lse,
                                        int bh, int seq, int dim, float scale,
@@ -571,9 +632,10 @@ extern "C" int flash_attention_forward(const void* q, const void* k,
   cudaError_t err = check_shape(bh, seq, dim);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? forward<__nv_bfloat16>(q, k, v, o, lse, bh, seq, scale,
+  return bf16 ? forward<__nv_bfloat16>(q, k, v, o, lse, bh, seq, dim, scale,
                                        causal, s)
-              : forward<float>(q, k, v, o, lse, bh, seq, scale, causal, s);
+              : forward<float>(q, k, v, o, lse, bh, seq, dim, scale, causal,
+                               s);
 }
 
 // dQ and D = rowsum(dO * O) (dvec, (BH, T) float32); run before the dK/dV
@@ -589,9 +651,9 @@ extern "C" int flash_attention_backward_dq(const void* q, const void* k,
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return bf16 ? backward_dq<__nv_bfloat16>(q, k, v, o, dout, lse, dvec, dq,
-                                           bh, seq, scale, causal, s)
+                                           bh, seq, dim, scale, causal, s)
               : backward_dq<float>(q, k, v, o, dout, lse, dvec, dq, bh, seq,
-                                   scale, causal, s);
+                                   dim, scale, causal, s);
 }
 
 extern "C" int flash_attention_backward_dkv(const void* q, const void* k,
@@ -605,9 +667,9 @@ extern "C" int flash_attention_backward_dkv(const void* q, const void* k,
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return bf16 ? backward_dkv<__nv_bfloat16>(q, k, v, dout, lse, dvec, dk, dv,
-                                            bh, seq, scale, causal, s)
+                                            bh, seq, dim, scale, causal, s)
               : backward_dkv<float>(q, k, v, dout, lse, dvec, dk, dv, bh,
-                                    seq, scale, causal, s);
+                                    seq, dim, scale, causal, s);
 }
 
 extern "C" const char* flash_attention_error_string(int code) {

@@ -29,14 +29,21 @@
 //
 // Design (simple and exact first; no tensor cores, no TMA):
 // - one block of 256 threads per tile of kRows = 8 query rows; each warp
-//   normalises one query row (lanes stride over D, a butterfly sum) into
-//   shared memory, stored d-major ([d][row]) so one thread reads the 8
-//   rows' k-th entries as two float4 loads that every thread of the warp
-//   shares (a broadcast, no bank conflicts);
-// - each thread walks memory rows j = tid, tid + 256, ... < f, reading its
-//   row once from global memory (L1/L2 keep the row's lines for the
-//   thread's next d), and keeps 8 dot products and the row's own sum of
-//   squares in registers, in a fixed order over d;
+//   computes one query row's norm over the whole of D (lanes stride over D,
+//   a butterfly sum);
+// - D is cut into chunks of kChunk = 1024 columns.  Each chunk of the 8
+//   normalised rows is staged in shared memory (32 KB), stored d-major
+//   ([d][row]) so one thread reads the 8 rows' k-th entries as two float4
+//   loads that every thread of the warp shares (a broadcast, no bank
+//   conflicts);
+// - the threads walk memory rows j = j0 + tid in rounds of 256 (j0 = 0,
+//   256, ... < f, the same rounds for every thread); in a round each thread
+//   reads its row once from global memory, chunk by chunk (L1/L2 keep the
+//   row's lines for the thread's next d), and keeps 8 dot products and the
+//   row's own sum of squares in registers, summed over d in a fixed order
+//   (chunk after chunk, d in order inside a chunk).  With one chunk (D <=
+//   1024) the rows are staged once for all rounds; with more, every round
+//   stages each chunk again;
 // - per thread, a running min of 1 - s over its rows for each query row;
 //   then a warp butterfly and a pass over the 8 warps' partial minima.
 //   min is exact, so the result does not depend on the order, and a
@@ -55,7 +62,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRows = 8;       // query rows per block; one warp normalises each
-constexpr int kMaxD = 1024;    // kRows * kMaxD floats = 32 KB of shared memory
+constexpr int kChunk = 1024;   // columns of D staged at once: 32 KB of smem
 constexpr float kEps = 1e-8f;
 
 static_assert(kRows == kWarps, "one warp normalises one query row");
@@ -92,25 +99,24 @@ memory_min_cosine_kernel(const float* __restrict__ query,
                          float* __restrict__ out, int batch, int m_rows,
                          int dim) {
   extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);  // [dim][kRows]
+  float* qs = reinterpret_cast<float*>(smem4);  // [d][kRows], one chunk
   __shared__ float part[kWarps][kRows];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int row0 = blockIdx.x * kRows;
+  const int nchunk = (dim + kChunk - 1) / kChunk;
 
-  // normalise this block's query rows; rows past the batch are zeros
+  // this warp's query row and its 1 / norm; rows past the batch are zeros
+  const int b = row0 + warp;
+  const float* q = query + (long long)b * dim;
+  float inv = 0.f;
   {
-    const int b = row0 + warp;
-    const float* q = query + (long long)b * dim;
     float ss = 0.f;
     if (b < batch)
       for (int k = lane; k < dim; k += 32) ss = fmaf(q[k], q[k], ss);
     ss = warp_sum_all(ss);
-    const float inv = 1.0f / sqrtf(ss + kEps);
-    for (int k = lane; k < dim; k += 32)
-      qs[k * kRows + warp] = b < batch ? q[k] * inv : 0.f;
+    inv = 1.0f / sqrtf(ss + kEps);
   }
-  __syncthreads();
 
   int fill = *fill_ptr;
   fill = fill < 0 ? 0 : (fill > m_rows ? m_rows : fill);
@@ -119,31 +125,47 @@ memory_min_cosine_kernel(const float* __restrict__ query,
 #pragma unroll
   for (int r = 0; r < kRows; ++r) best[r] = 3.0f;
 
-  for (int j = threadIdx.x; j < fill; j += kThreads) {
+  for (int j0 = 0; j0 < fill; j0 += kThreads) {  // the same rounds for all
+    const int j = j0 + threadIdx.x;
     const float* mj = memory + (long long)j * dim;
     float acc[kRows];
 #pragma unroll
     for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
     float ss = 0.f;
+    for (int c = 0; c < nchunk; ++c) {
+      const int d0 = c * kChunk;
+      const int dn = min(kChunk, dim - d0);
+      if (nchunk > 1 || j0 == 0) {  // stage chunk c of the normalised rows
+        __syncthreads();  // the previous chunk is read
+        for (int k = lane; k < dn; k += 32)
+          qs[k * kRows + warp] = b < batch ? q[d0 + k] * inv : 0.f;
+        __syncthreads();
+      }
+      if (j < fill) {
 #pragma unroll 4
-    for (int k = 0; k < dim; ++k) {
-      const float v = __ldg(mj + k);
-      ss = fmaf(v, v, ss);
-      const float4 lo = smem4[2 * k];
-      const float4 hi = smem4[2 * k + 1];
-      acc[0] = fmaf(lo.x, v, acc[0]);
-      acc[1] = fmaf(lo.y, v, acc[1]);
-      acc[2] = fmaf(lo.z, v, acc[2]);
-      acc[3] = fmaf(lo.w, v, acc[3]);
-      acc[4] = fmaf(hi.x, v, acc[4]);
-      acc[5] = fmaf(hi.y, v, acc[5]);
-      acc[6] = fmaf(hi.z, v, acc[6]);
-      acc[7] = fmaf(hi.w, v, acc[7]);
+        for (int k = 0; k < dn; ++k) {
+          const float v = __ldg(mj + d0 + k);
+          ss = fmaf(v, v, ss);
+          const float4 lo = smem4[2 * k];
+          const float4 hi = smem4[2 * k + 1];
+          acc[0] = fmaf(lo.x, v, acc[0]);
+          acc[1] = fmaf(lo.y, v, acc[1]);
+          acc[2] = fmaf(lo.z, v, acc[2]);
+          acc[3] = fmaf(lo.w, v, acc[3]);
+          acc[4] = fmaf(hi.x, v, acc[4]);
+          acc[5] = fmaf(hi.y, v, acc[5]);
+          acc[6] = fmaf(hi.z, v, acc[6]);
+          acc[7] = fmaf(hi.w, v, acc[7]);
+        }
+      }
     }
-    const float inv = 1.0f / sqrtf(ss + kEps);
+    if (j < fill) {
+      const float rinv = 1.0f / sqrtf(ss + kEps);
 #pragma unroll
-    for (int r = 0; r < kRows; ++r)
-      best[r] = nan_min(best[r], 1.0f - nan_clamp(acc[r] * inv, -1.f, 1.f));
+      for (int r = 0; r < kRows; ++r)
+        best[r] = nan_min(best[r],
+                          1.0f - nan_clamp(acc[r] * rinv, -1.f, 1.f));
+    }
   }
 
 #pragma unroll
@@ -171,10 +193,11 @@ extern "C" int memory_min_cosine_forward(const void* query, const void* memory,
                                          const void* fill, void* out,
                                          int batch, int m_rows, int dim,
                                          void* stream) {
-  if (batch <= 0 || m_rows <= 0 || dim <= 0 || dim > kMaxD)
+  if (batch <= 0 || m_rows <= 0 || dim <= 0)
     return (int)cudaErrorInvalidValue;
   const int blocks = (batch + kRows - 1) / kRows;
-  const size_t smem = (size_t)kRows * dim * sizeof(float);
+  const size_t smem = (size_t)kRows * (dim < kChunk ? dim : kChunk)
+                      * sizeof(float);
   memory_min_cosine_kernel<<<blocks, kThreads, smem,
                              static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(query), static_cast<const float*>(memory),

@@ -30,16 +30,22 @@
 // deterministic and free of the (B, B, N) intermediate, not at the bound.
 //
 // Design:
-// - forward, pass 1: one block per row i.  Row i is staged in shared
-//   memory; the block's threads stride over k for every j > i with
-//   m_j != 0, each thread keeping its own running sum; a fixed-order block
-//   reduction writes partial[i] = sum_{j>i} m_j sum_k |f_ik - f_jk| into a
-//   (B,) scratch that the wrapper allocates.
+// - forward, pass 1: one block per row i.  N is cut into chunks of
+//   kChunk = 8192 columns (32 KB, under the 48 KB a block may take without
+//   opting in).  For each chunk in order, the chunk of row i is staged in
+//   shared memory and the block's threads stride over its k for every
+//   j > i with m_j != 0, each thread adding m_j times its own partial sum
+//   of |f_ik - f_jk| to its running total; a fixed-order block reduction
+//   writes partial[i] = sum_{j>i} m_j sum_k |f_ik - f_jk| into a (B,)
+//   scratch that the wrapper allocates.  With one chunk (N <= 8192) the
+//   sums are the ones the kernel took before it had chunks.
 // - forward, pass 2: one block sums m_i partial[i], sum m and sum m^2 in a
 //   fixed order and writes avg and n_pairs.
 // - backward: one thread per (i, k), a loop over j; neighbouring threads
-//   read neighbouring k of row j, so the loads coalesce.  It reads n_pairs
-//   and the cotangent from device memory: no host round trip.
+//   read neighbouring k of row j, so the loads coalesce.  It stages nothing,
+//   so it takes any N as it is: the chunks of N are its blocks, in no
+//   order, each output summed by one thread over j in order.  It reads
+//   n_pairs and the cotangent from device memory: no host round trip.
 // No float atomics anywhere: repeated runs are bit-identical.
 
 #include <cuda_runtime.h>
@@ -50,9 +56,9 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-// row i in dynamic shared memory stays under the 48 KB a block may take
-// without opting in
-constexpr int kMaxN = 8192;
+// a chunk of row i in dynamic shared memory stays under the 48 KB a block
+// may take without opting in
+constexpr int kChunk = 8192;
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -78,7 +84,7 @@ __device__ __forceinline__ float block_sum(float v, float* scratch) {
 __global__ void __launch_bounds__(kThreads)
 pairwise_rows_kernel(const float* __restrict__ f, const float* __restrict__ m,
                      float* __restrict__ partial, int batch, int n) {
-  extern __shared__ float row[];  // row i, n floats
+  extern __shared__ float row[];  // a chunk of row i, up to kChunk floats
   __shared__ float scratch[kWarps];
   const int i = blockIdx.x;
   if (m[i] == 0.f) {  // uniform over the block
@@ -86,17 +92,21 @@ pairwise_rows_kernel(const float* __restrict__ f, const float* __restrict__ m,
     return;
   }
   const float* fi = f + (long long)i * n;
-  for (int k = threadIdx.x; k < n; k += blockDim.x) row[k] = fi[k];
-  __syncthreads();
   float acc = 0.f;
-  for (int j = i + 1; j < batch; ++j) {
-    const float mj = m[j];
-    if (mj == 0.f) continue;  // uniform over the block
-    const float* fj = f + (long long)j * n;
-    float s = 0.f;
-    for (int k = threadIdx.x; k < n; k += blockDim.x)
-      s += fabsf(row[k] - fj[k]);
-    acc = fmaf(mj, s, acc);
+  for (int k0 = 0; k0 < n; k0 += kChunk) {
+    const int kn = min(kChunk, n - k0);
+    if (k0 > 0) __syncthreads();  // the previous chunk is read
+    for (int k = threadIdx.x; k < kn; k += blockDim.x) row[k] = fi[k0 + k];
+    __syncthreads();
+    for (int j = i + 1; j < batch; ++j) {
+      const float mj = m[j];
+      if (mj == 0.f) continue;  // uniform over the block
+      const float* fj = f + (long long)j * n + k0;
+      float s = 0.f;
+      for (int k = threadIdx.x; k < kn; k += blockDim.x)
+        s += fabsf(row[k] - fj[k]);
+      acc = fmaf(mj, s, acc);
+    }
   }
   acc = block_sum(acc, scratch);
   if (threadIdx.x == 0) partial[i] = acc;
@@ -161,12 +171,12 @@ pairwise_backward_kernel(const float* __restrict__ f,
 extern "C" int pairwise_l1_forward(const void* flat, const void* mask,
                                    void* partial, void* avg, void* n_pairs,
                                    int batch, int n, void* stream) {
-  if (batch <= 0 || n <= 0 || n > kMaxN)
-    return (int)cudaErrorInvalidValue;
+  if (batch <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* f = static_cast<const float*>(flat);
   const float* m = static_cast<const float*>(mask);
-  pairwise_rows_kernel<<<batch, kThreads, n * sizeof(float), s>>>(
+  const size_t smem = (size_t)(n < kChunk ? n : kChunk) * sizeof(float);
+  pairwise_rows_kernel<<<batch, kThreads, smem, s>>>(
       f, m, static_cast<float*>(partial), batch, n);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;

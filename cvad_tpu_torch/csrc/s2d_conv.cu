@@ -1,11 +1,11 @@
-// Space-to-depth, T-group-folded conv1 of family D for long windows (K4 and
-// K5), written for Hopper (sm_90a): forward, input gradient, weight gradient.
+// Space-to-depth, T-group-folded conv1 of family D for long windows (K4),
+// written for Hopper (sm_90a): forward, input gradient, weight gradient.
 //
-// Replaces the Pallas TPU kernels of cvad_tpu/ops/pallas_s2d.py:
-//   K4, reached through s2d_fold_matmul (:319): _make_fwd (pl.pallas_call
-//       at :177), _make_dgrad (:223), _make_wgrad (:271);
-//   K5, reached through s2d_group_conv (:519): _make_group_fwd (:418) and
-//       _make_group_wgrad (:468).
+// Replaces the Pallas TPU kernels of cvad_tpu/ops/pallas_s2d.py reached
+// through s2d_fold_matmul (:319): _make_fwd (pl.pallas_call at :177),
+// _make_dgrad (:223), _make_wgrad (:271).  K5 (s2d_group_conv, :519) runs
+// its own band kernels (s2d_group_conv.cu); the dense kernels here still
+// take its slabs (the case S > 1 below), which K5 computed with before.
 // Both compute four stride-1 (2, 2) taps over 2x2 pixel cells, each an
 // (M, K) x (K, N) product with f32 accumulation:
 //   y[r, h, w, s*N + j] = sum_{dh, dw, k} x[r, h+dh, w+dw, s*Ks + k]

@@ -7,7 +7,13 @@ here, as `cvad_tpu` leaves the bias to the caller of its kernels.  Its
 convolution runs by one of two routes, which the model picks
 (`models/family_d.py::conv1_route`):
 
-- ``'tfold'``: the K1 kernel (`cvad_tpu_torch.ops.pallas_conv.tfold_conv1`);
+- ``'tfold'``: the K1 kernel (`cvad_tpu_torch.ops.pallas_conv.tfold_conv1`)
+  at its widths, 3 -> 16; any other width (grayscale clips, a wider conv1)
+  runs ``F.conv3d``, chosen by `pallas_conv.kernel_takes` from the
+  weight's shape before any launch, as `cvad_tpu` runs XLA's conv at every
+  width (pallas_conv.py:254-259).  On the card that is cuDNN's conv, in
+  float32 without TF32 under the train step's and the scorers' cuDNN
+  settings (`train/tasks.py::card_numerics`, `evaluation/scoring.py`);
 - ``'s2d'``: the long-window route of `cvad_tpu`'s ``_TFoldConv`` with
   ``group_impl='s2d'`` (layers.py:177-200): space-to-depth and T-group fold
   of the input (`s2d_fold_groups`) and of the weight (`s2d_fold_kernel`,
@@ -25,9 +31,11 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from cvad_tpu_torch.ops.pallas_conv import fold_group_size, tfold_conv1
+from cvad_tpu_torch.ops.pallas_conv import (fold_group_size, kernel_takes,
+                                            tfold_conv1)
 from cvad_tpu_torch.ops.pallas_s2d import (s2d_fold_groups, s2d_fold_kernel,
                                            s2d_group_conv)
 
@@ -35,7 +43,8 @@ from cvad_tpu_torch.ops.pallas_s2d import (s2d_fold_groups, s2d_fold_kernel,
 class TFoldConv1(nn.Module):
     """Conv3d(in_channels -> out_channels, k=3, stride=(1,2,2), padding=1)
     over (B, C, T, H, W), computed in the input's dtype (parameters stay
-    float32).  On CUDA the kernel takes C=3 -> O=16 only."""
+    float32).  The 'tfold' route runs K1 at C=3 -> O=16 and ``F.conv3d`` at
+    every other width; the 's2d' route runs K5 at any width."""
 
     def __init__(self, in_channels: int = 3, out_channels: int = 16):
         super().__init__()
@@ -51,8 +60,10 @@ class TFoldConv1(nn.Module):
         """x (B, C, T, H, W) -> (B, O, T, Ho, Wo) by `route` ('tfold' or
         's2d', which needs even H and W and g = `fold_group_size` < T)."""
         w = self.weight.to(x.dtype)
-        if route == "tfold":
+        if route == "tfold" and kernel_takes(w.shape[1], w.shape[0]):
             y = tfold_conv1(x.contiguous(), w.contiguous())
+        elif route == "tfold":
+            y = F.conv3d(x, w, stride=(1, 2, 2), padding=1)
         elif route == "s2d":
             b, _, t, h, wd = x.shape
             o = w.shape[0]

@@ -18,9 +18,11 @@ Layout is `cvad_tpu`'s: q, k, v (B, H, T, Dh), float32 or bfloat16.
   logsumexp.  It computes what the library's kernels compute: float32
   sums, the scale applied after QK^T (:408-409), the causal mask, P (and
   dS in the backward) cast to the inputs' type before its products (:471,
-  :900, :918).  The kernels take Dh = 128 and T a positive multiple of 64
-  (every shape the route in `ops/attention.py` sends: T % 128 == 0) and
-  raise on anything else; there is no fallback.
+  :900, :918).  The kernels take Dh a positive multiple of 128 (the
+  library's rule, which `flash_eligible` in `ops/attention.py` copies; the
+  kernels loop over 128-wide chunks of the head dim) and T a positive
+  multiple of 64 (the route sends T % 128 == 0), and raise on anything
+  else; there is no fallback.
   ``flash_attention.launches``, ``.dq_launches`` and ``.dkv_launches``
   count kernel launches.
 """
@@ -34,8 +36,8 @@ import torch
 
 from cvad_tpu_torch.ops import _build
 
-KERNEL_HEAD_DIM = 128  # the kernels' head dim
-KERNEL_TILE = 64       # T must be a multiple of the kernels' tile rows
+KERNEL_HEAD_CHUNK = 128  # Dh must be a multiple of the kernels' chunk
+KERNEL_TILE = 64         # T must be a multiple of the kernels' tile rows
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -67,16 +69,17 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                          f"{v.device}")
 
 
-def _check_kernel_shape(q: torch.Tensor) -> Tuple[int, int]:
+def _check_kernel_shape(q: torch.Tensor) -> Tuple[int, int, int]:
     b, h, t, dh = q.shape
     bh = b * h
-    if dh != KERNEL_HEAD_DIM or t <= 0 or t % KERNEL_TILE or \
+    if dh <= 0 or dh % KERNEL_HEAD_CHUNK or t <= 0 or t % KERNEL_TILE or \
             not 0 < bh <= 65535:
         raise NotImplementedError(
-            f"the flash-attention kernel takes head dim {KERNEL_HEAD_DIM}, T "
-            f"a positive multiple of {KERNEL_TILE} and 1 <= B*H <= 65535; "
-            f"got (B, H, T, Dh) = {tuple(q.shape)}")
-    return bh, t
+            f"the flash-attention kernel takes a head dim that is a positive "
+            f"multiple of {KERNEL_HEAD_CHUNK}, T a positive multiple of "
+            f"{KERNEL_TILE} and 1 <= B*H <= 65535; got (B, H, T, Dh) = "
+            f"{tuple(q.shape)}")
+    return bh, t, dh
 
 
 def _library() -> ctypes.CDLL:
@@ -113,14 +116,14 @@ def _launch_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool, sm_scale: float
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """O (B, H, T, Dh) in q's type and the logsumexp (B, H, T) float32."""
-    bh, t = _check_kernel_shape(q)
+    bh, t, dh = _check_kernel_shape(q)
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     lib = _library()
     with torch.cuda.device(q.device):
         rc = lib.flash_attention_forward(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), bh, t, KERNEL_HEAD_DIM, float(sm_scale),
+            lse.data_ptr(), bh, t, dh, float(sm_scale),
             int(causal), int(q.dtype == torch.bfloat16), _stream(q))
     _raise_on(lib, rc, "forward")
     flash_attention.launches += 1
@@ -131,7 +134,7 @@ def _launch_dq(q, k, v, o, lse, do, causal: bool, sm_scale: float
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """dQ in q's type and D = rowsum(dO * O) (B, H, T) float32: the dQ
     kernel, on the current stream."""
-    bh, t = _check_kernel_shape(q)
+    bh, t, dh = _check_kernel_shape(q)
     dvec = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     dq = torch.empty_like(q)
     lib = _library()
@@ -139,7 +142,7 @@ def _launch_dq(q, k, v, o, lse, do, causal: bool, sm_scale: float
         rc = lib.flash_attention_backward_dq(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), dvec.data_ptr(), dq.data_ptr(),
-            bh, t, KERNEL_HEAD_DIM, float(sm_scale), int(causal),
+            bh, t, dh, float(sm_scale), int(causal),
             int(q.dtype == torch.bfloat16), _stream(q))
     _raise_on(lib, rc, "dQ")
     flash_attention.dq_launches += 1
@@ -150,14 +153,14 @@ def _launch_dkv(q, k, v, do, lse, dvec, causal: bool, sm_scale: float
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dK, dV) in q's type: the dK/dV kernel, on the current stream, after
     `_launch_dq` has written D."""
-    bh, t = _check_kernel_shape(q)
+    bh, t, dh = _check_kernel_shape(q)
     dk, dv = torch.empty_like(q), torch.empty_like(q)
     lib = _library()
     with torch.cuda.device(q.device):
         rc = lib.flash_attention_backward_dkv(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), dvec.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            bh, t, KERNEL_HEAD_DIM, float(sm_scale), int(causal),
+            bh, t, dh, float(sm_scale), int(causal),
             int(q.dtype == torch.bfloat16), _stream(q))
     _raise_on(lib, rc, "dK/dV")
     flash_attention.dkv_launches += 1
@@ -205,7 +208,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = False, sm_scale: float) -> torch.Tensor:
     """softmax(q k^T * sm_scale [causal]) v over (B, H, T, Dh) float32 or
     bfloat16 tensors, output in their type; differentiable w.r.t. q, k and
-    v.  On the card: Dh = 128 and T a multiple of 64, or it raises."""
+    v.  On the card: Dh a multiple of 128 and T a multiple of 64, or it
+    raises."""
     _check(q, k, v)
     return _FlashAttention.apply(q.contiguous(), k.contiguous(),
                                  v.contiguous(), bool(causal),

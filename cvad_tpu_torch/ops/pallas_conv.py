@@ -36,6 +36,14 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_CIN, KERNEL_COUT = 3, 16  # the one instantiation csrc/ builds
 
 
+def kernel_takes(cin: int, cout: int) -> bool:
+    """Whether K1 computes a conv1 of these widths: the kernel is built for
+    3 -> 16 only.  `models.layers.TFoldConv1` sends every other width to
+    cuDNN's Conv3d, decided by these shapes before any launch, as
+    `cvad_tpu` runs XLA's conv at every width (its pallas_conv.py:254-259)."""
+    return (cin, cout) == (KERNEL_CIN, KERNEL_COUT)
+
+
 def fold_group_size(t: int, cout: int) -> int:
     """Largest T-group size g dividing t with g*cout <= 128 (the TPU's lane
     width), as `cvad_tpu`'s (:35-45): g == t is the whole-T fold, g < t the

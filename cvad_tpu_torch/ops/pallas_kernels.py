@@ -18,7 +18,8 @@ score, out[b] = clamp(min_{j < fill} (1 - clip(q^_b . m^_j, -1, 1)), 0, 2)
   `_memory_xla` twin, as `cvad_tpu`'s custom VJP (:116-131) does; there is
   no backward kernel.  ``memory_min_cosine_distance.launches`` counts
   kernel launches.  The fill stays on the device: no call reads it on the
-  host.
+  host.  The kernel takes any D: it loops over 1,024-wide chunks of it,
+  as `cvad_tpu`'s kernel takes any D (:93-113).
 
 K2, `pairwise_l1_mean`: for flat (B, N) and mask (B,) in {0, 1} it returns
 (avg, n_pairs): the mean over unordered pairs i<j with both rows in the mask
@@ -32,6 +33,9 @@ of mean_k |f_ik - f_jk| (0 when there is no pair), and the pair count.
   backward, or raise; CPU tensors take the two plain versions.
   ``pairwise_l1_mean.launches`` and ``pairwise_l1_mean.backward_launches``
   count kernel launches (one forward launch runs the kernel's two passes).
+  The kernels take any N (the flattened adjacency, causal_dim^2 wide): the
+  forward loops over 8,192-wide chunks of it, as `cvad_tpu` computes any
+  width (:184-199).
 
 The mask and n_pairs get no gradient, as in `cvad_tpu`.  The derivative of
 |x| at 0 is taken as 0 (torch's convention; JAX's is +1), so at exact ties
@@ -49,8 +53,6 @@ import torch
 
 from cvad_tpu_torch.ops import _build
 
-KERNEL_MAX_N = 8192  # row width the kernel stages in shared memory
-KERNEL_MAX_D = 1024  # K3: feature width of the 8 query rows in shared memory
 _EPS = 1e-8
 
 
@@ -122,9 +124,9 @@ def _launch_memory(query: torch.Tensor, memory: torch.Tensor,
                    fill: torch.Tensor) -> torch.Tensor:
     b, d = query.shape
     m = memory.shape[0]
-    if b == 0 or m == 0 or not 0 < d <= KERNEL_MAX_D:
-        raise ValueError(f"the memory kernel takes B >= 1, M >= 1 and "
-                         f"1 <= D <= {KERNEL_MAX_D}, got B={b}, M={m}, D={d}")
+    if b == 0 or m == 0 or d == 0:
+        raise ValueError(f"the memory kernel takes B, M and D >= 1, got "
+                         f"B={b}, M={m}, D={d}")
     fill32 = fill.reshape(1).to(torch.int32)
     out = torch.empty(b, dtype=torch.float32, device=query.device)
     lib = _memory_library()
@@ -227,9 +229,9 @@ def _check(flat: torch.Tensor, mask: torch.Tensor) -> None:
     if mask.device != flat.device:
         raise ValueError(f"mask on {mask.device}, flat on {flat.device}")
     b, n = flat.shape
-    if b == 0 or not 0 < n <= KERNEL_MAX_N:
-        raise ValueError(f"the kernel takes B >= 1 and 1 <= N <= "
-                         f"{KERNEL_MAX_N}, got {(b, n)}")
+    if b == 0 or n == 0:
+        raise ValueError(f"the kernel takes B >= 1 and N >= 1, got "
+                         f"{(b, n)}")
     if not (flat.is_contiguous() and mask.is_contiguous()):
         raise ValueError("pairwise_l1_mean takes contiguous flat and mask")
 

@@ -24,9 +24,11 @@ each an (M, K) x (K, N) product with K = (g+2)*4C and N = g*O.
 - `s2d_group_conv` (K5): the same core over the n group slabs of one
   (B, H/2+1, W/2+1, n*pad128(K)) input, each slab zero-padded to 128
   channels, writing the t-major (B, H/2, W/2, T*O) output.  Its forward and
-  weight gradient are kernels; its input gradient is autograd through the
-  plain version, as `cvad_tpu` takes ``jax.vjp`` of `_xla_slabs_core`
-  (:505-508): conv1 is the first layer, so a train step never asks for it.
+  weight gradient are kernels (`csrc/s2d_group_conv.cu`) that compute only
+  the band of the folded kernel (`s2d_band_mask`); its input gradient is
+  autograd through the plain version, as `cvad_tpu` takes ``jax.vjp`` of
+  `_xla_slabs_core` (:505-508): conv1 is the first layer, so a train step
+  never asks for it.
 
 CUDA tensors launch the kernels or raise; CPU tensors take the plain
 versions.  ``s2d_fold_matmul.launches``, ``.dgrad_launches`` and
@@ -122,6 +124,17 @@ def s2d_fold_groups(x: torch.Tensor, g: int) -> torch.Tensor:
     slabs = xt.unfold(3, kc, g * 4 * c)           # (b, h2, w2, n, kc)
     slabs = F.pad(slabs, (0, _slab_pad(kc) - kc))
     return slabs.reshape(*xt.shape[:3], -1)
+
+
+def s2d_band_mask(g: int, cin: int, cout: int, kp: int) -> torch.Tensor:
+    """(kp, g*cout) bool: True where `s2d_fold_kernel`'s padded output can be
+    nonzero in some tap, the band K5's kernels compute.  Output frame ti
+    (columns [ti*cout, (ti+1)*cout)) reads input frames ti..ti+2, rows
+    [ti*4*cin, (ti+3)*4*cin); the rows past (g+2)*4*cin are the slab's zero
+    pad."""
+    rows = torch.arange(kp)[:, None]
+    first = (torch.arange(g * cout) // cout * 4 * cin)[None, :]
+    return (rows >= first) & (rows < first + 12 * cin)
 
 
 def _pad_wd(wd: torch.Tensor) -> torch.Tensor:
@@ -241,6 +254,7 @@ def _library() -> ctypes.CDLL:
             fn.restype = i
         lib.s2d_conv_error_string.argtypes = [i]
         lib.s2d_conv_error_string.restype = ctypes.c_char_p
+        lib.error_string = lib.s2d_conv_error_string
         lib._typed = True
     return lib
 
@@ -256,14 +270,14 @@ def _check(what: str, x: torch.Tensor, other: torch.Tensor) -> None:
                          f"C) operands, got {tuple(x.shape)}")
 
 
-def _run(fn, name: str, device: torch.device, *args) -> None:
-    lib = _library()
+def _run(lib: ctypes.CDLL, fn: str, name: str, device: torch.device,
+         *args) -> None:
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = getattr(lib, fn)(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc} "
-                           f"({lib.s2d_conv_error_string(rc).decode()})")
+                           f"({lib.error_string(rc).decode()})")
 
 
 def _launch_forward(x: torch.Tensor, w4: torch.Tensor, nslab: int
@@ -280,9 +294,9 @@ def _launch_forward(x: torch.Tensor, w4: torch.Tensor, nslab: int
     y = torch.empty((rows, hc - 1, wc - 1, nslab * n), dtype=x.dtype,
                     device=x.device)
     if y.numel():
-        _run("s2d_conv_forward", "s2d_conv forward", x.device, x.data_ptr(),
-             w4.data_ptr(), y.data_ptr(), rows, hc, wc, ktot, k, k, n, nslab,
-             _DTYPE_CODES[x.dtype])
+        _run(_library(), "s2d_conv_forward", "s2d_conv forward", x.device,
+             x.data_ptr(), w4.data_ptr(), y.data_ptr(), rows, hc, wc, ktot,
+             k, k, n, nslab, _DTYPE_CODES[x.dtype])
     return y
 
 
@@ -297,8 +311,8 @@ def _launch_dgrad(ct: torch.Tensor, w4: torch.Tensor) -> torch.Tensor:
     dx = torch.empty((rows, ho + 1, wo + 1, k), dtype=ct.dtype,
                      device=ct.device)
     if dx.numel():
-        _run("s2d_conv_dgrad", "s2d_conv dgrad", ct.device, ct.data_ptr(),
-             w4.data_ptr(), dx.data_ptr(), rows, ho, wo, k, n,
+        _run(_library(), "s2d_conv_dgrad", "s2d_conv dgrad", ct.device,
+             ct.data_ptr(), w4.data_ptr(), dx.data_ptr(), rows, ho, wo, k, n,
              _DTYPE_CODES[ct.dtype])
     return dx
 
@@ -322,9 +336,82 @@ def _launch_wgrad(x: torch.Tensor, ct: torch.Tensor, k: int, nslab: int
     chunks = nslab * -(-m // WGRAD_CHUNK)
     partial = torch.empty((chunks, 4, k, n), dtype=torch.float32,
                           device=x.device)
-    _run("s2d_conv_wgrad", "s2d_conv wgrad", x.device, x.data_ptr(),
-         ct.data_ptr(), partial.data_ptr(), out.data_ptr(), rows, hc, wc,
-         ktot, k, k, n, nslab, _DTYPE_CODES[x.dtype], WGRAD_CHUNK, chunks)
+    _run(_library(), "s2d_conv_wgrad", "s2d_conv wgrad", x.device,
+         x.data_ptr(), ct.data_ptr(), partial.data_ptr(), out.data_ptr(),
+         rows, hc, wc, ktot, k, k, n, nslab, _DTYPE_CODES[x.dtype],
+         WGRAD_CHUNK, chunks)
+    return out
+
+
+def _group_library() -> ctypes.CDLL:
+    lib = _build.library("s2d_group_conv")
+    if not getattr(lib, "_typed", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.s2d_group_conv_forward.argtypes = [p, p, p] + [i] * 9 + [p]
+        lib.s2d_group_conv_wgrad.argtypes = [p, p, p, p] + [i] * 9 + [p]
+        lib.s2d_group_conv_wgrad_scratch.argtypes = [i] * 9
+        lib.s2d_group_conv_wgrad_scratch.restype = ctypes.c_longlong
+        for fn in (lib.s2d_group_conv_forward, lib.s2d_group_conv_wgrad):
+            fn.restype = i
+        lib.s2d_group_conv_error_string.argtypes = [i]
+        lib.s2d_group_conv_error_string.restype = ctypes.c_char_p
+        lib.error_string = lib.s2d_group_conv_error_string
+        lib._typed = True
+    return lib
+
+
+def _group_geometry(xg: torch.Tensor, kp: int, g: int, cin: int, cout: int
+                    ) -> list:
+    """The kernels' shape arguments (rows, Hc, Wc, kp, nslab, g, C, O,
+    dtype) for xg (rows, Hc, Wc, nslab*kp)."""
+    rows, hc, wc, ktot = xg.shape
+    if ktot % kp or (g + 2) * 4 * cin > kp or hc < 2 or wc < 2:
+        raise ValueError(f"s2d_group_conv: xg {tuple(xg.shape)} does not "
+                         f"hold slabs of {kp} >= {(g + 2) * 4 * cin} "
+                         f"channels (g={g}, C={cin})")
+    return [rows, hc, wc, kp, ktot // kp, g, cin, cout,
+            _DTYPE_CODES[xg.dtype]]
+
+
+def _launch_group_forward(xg: torch.Tensor, wdp: torch.Tensor, g: int,
+                          cin: int, cout: int) -> torch.Tensor:
+    """K5's forward: xg (rows, Hc, Wc, nslab*kp) x wdp (4, kp, g*cout) ->
+    (rows, Hc-1, Wc-1, nslab*g*cout), reading wdp inside its band only."""
+    _check("s2d_group_conv forward", xg, wdp)
+    kp = wdp.shape[1]
+    if wdp.shape != (4, kp, g * cout):
+        raise ValueError(f"s2d_group_conv forward: weights "
+                         f"{tuple(wdp.shape)}, not (4, kp, {g * cout})")
+    geo = _group_geometry(xg, kp, g, cin, cout)
+    rows, hc, wc, nslab = geo[0], geo[1], geo[2], geo[4]
+    y = torch.empty((rows, hc - 1, wc - 1, nslab * g * cout), dtype=xg.dtype,
+                    device=xg.device)
+    _run(_group_library(), "s2d_group_conv_forward", "s2d_group_conv forward",
+         xg.device, xg.data_ptr(), wdp.data_ptr(), y.data_ptr(), *geo)
+    return y
+
+
+def _launch_group_wgrad(xg: torch.Tensor, ct: torch.Tensor, g: int,
+                        cin: int, cout: int, kp: int) -> torch.Tensor:
+    """K5's weight gradient: (4, kp, g*cout) float32, the band entries summed
+    over rows, pixels and slabs (band-sized partials, then a pass that adds
+    them in a fixed order: no float atomics), exact zeros elsewhere."""
+    _check("s2d_group_conv wgrad", xg, ct)
+    geo = _group_geometry(xg, kp, g, cin, cout)
+    rows, hc, wc, nslab = geo[0], geo[1], geo[2], geo[4]
+    if ct.shape != (rows, hc - 1, wc - 1, nslab * g * cout):
+        raise ValueError(f"s2d_group_conv wgrad: cotangent "
+                         f"{tuple(ct.shape)} for xg {tuple(xg.shape)}")
+    out = torch.empty((4, kp, g * cout), dtype=torch.float32,
+                      device=xg.device)
+    size = _group_library().s2d_group_conv_wgrad_scratch(*geo)
+    if size < 0:
+        raise ValueError(f"s2d_group_conv wgrad does not take xg "
+                         f"{tuple(xg.shape)} with g={g}, C={cin}, O={cout}")
+    partial = torch.empty(size, dtype=torch.float32, device=xg.device)
+    _run(_group_library(), "s2d_group_conv_wgrad", "s2d_group_conv wgrad",
+         xg.device, xg.data_ptr(), ct.data_ptr(), partial.data_ptr(),
+         out.data_ptr(), *geo)
     return out
 
 
@@ -393,12 +480,13 @@ s2d_fold_matmul.wgrad_launches = 0
 
 class _S2DGroupConv(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, xg, wdp):
+    def forward(ctx, xg, wdp, g, cin, cout):
         ctx.save_for_backward(xg, wdp)
+        ctx.geo = (g, cin, cout)
         n = xg.shape[-1] // wdp.shape[1]
         if _device(xg, "s2d_group_conv") == "cpu":
             return _xla_slabs_core(xg, wdp, n)
-        y = _launch_forward(xg, wdp, n)
+        y = _launch_group_forward(xg, wdp, g, cin, cout)
         s2d_group_conv.launches += 1
         return y
 
@@ -412,7 +500,7 @@ class _S2DGroupConv(torch.autograd.Function):
             if xg.device.type == "cpu":
                 dw = s2d_group_wgrad_reference(xg, ct, kp)
             else:
-                dw = _launch_wgrad(xg, ct, kp, xg.shape[-1] // kp)
+                dw = _launch_group_wgrad(xg, ct, *ctx.geo, kp)
                 s2d_group_conv.backward_launches += 1
             dw = dw.to(wdp.dtype)
         if ctx.needs_input_grad[0]:
@@ -423,22 +511,33 @@ class _S2DGroupConv(torch.autograd.Function):
                 (dx,) = torch.autograd.grad(
                     _xla_slabs_core(a, wdp.detach(), xg.shape[-1] // kp),
                     a, ct)
-        return dx, dw
+        return dx, dw, None, None, None
 
 
 def s2d_group_conv(xg: torch.Tensor, wd: torch.Tensor, g: int
                    ) -> torch.Tensor:
     """K5, the whole-T grouped s2d-fold conv1: xg = `s2d_fold_groups`
     output (B, H/2+1, W/2+1, n*kp), wd = `s2d_fold_kernel` output (2, 2, kc,
-    g*O) -> (B, H/2, W/2, T*O) in xg's dtype, t-major folded channels.  CUDA
-    tensors launch the Hopper kernels (forward; weight gradient in the
-    backward) or raise; CPU tensors take the plain versions.  `g` is the
-    group size that built both (the shapes carry it)."""
+    g*O) -> (B, H/2, W/2, T*O) in xg's dtype, t-major folded channels.  `g`
+    is the group size that built both; with it wd's shape fixes C and O.
+
+    CUDA tensors launch the Hopper kernels (forward; weight gradient in the
+    backward) or raise; CPU tensors take the plain versions.  The kernels
+    hold wd to `cvad_tpu`'s contract, the "group-invariant banded kernel"
+    of `cvad_tpu/ops/pallas_s2d.py:522-523`: `s2d_band_mask` marks the
+    entries that `s2d_fold_kernel` can make nonzero.  The forward reads wd
+    inside that band only, so it is exact for every wd the contract admits;
+    the weight gradient computes the band entries and writes exact zeros
+    at the others, which `s2d_fold_kernel`'s backward never reads, so the
+    gradient that reaches conv1's weight is the same."""
     wdp = _pad_wd(wd)
-    if xg.shape[-1] % wdp.shape[1] or wd.shape[3] % g:
+    kc, no = wd.shape[2], wd.shape[3]
+    if xg.shape[-1] % wdp.shape[1] or no % g or kc % (4 * (g + 2)):
         raise ValueError(f"xg {tuple(xg.shape)} does not hold slabs of "
-                         f"{wdp.shape[1]} channels for wd {tuple(wd.shape)}")
-    return _S2DGroupConv.apply(xg.contiguous(), wdp.contiguous())
+                         f"{wdp.shape[1]} channels for wd {tuple(wd.shape)}"
+                         f" folded with g={g}")
+    return _S2DGroupConv.apply(xg.contiguous(), wdp.contiguous(), g,
+                               kc // (4 * (g + 2)), no // g)
 
 
 s2d_group_conv.launches = 0

@@ -261,7 +261,8 @@ def _card():
         pytest.skip("needs a CUDA card")
 
 
-CARD_SHAPES = [(2, 1, 128, 128), (16, 1, 128, 128), (4, 2, 256, 128)]
+CARD_SHAPES = [(2, 1, 128, 128), (16, 1, 128, 128), (4, 2, 256, 128),
+               (2, 1, 128, 256), (2, 1, 128, 512)]  # head dim: 1, 2, 4 chunks
 
 
 def _card_case(shape, dtype, seed=0):

@@ -271,6 +271,20 @@ def test_k5_plain_bf16_accumulates_in_f32():
     torch.testing.assert_close(got.float(), ref, rtol=2 ** -8, atol=1e-5)
 
 
+@pytest.mark.parametrize("cin,cout,g", [(3, 16, 8), (1, 16, 8), (3, 32, 4)])
+def test_band_mask_is_the_fold_kernels_nonzero_pattern(cin, cout, g):
+    """`s2d_band_mask` is exactly where `s2d_fold_kernel` (padded) of a
+    kernel with no zero entry is nonzero in some tap: the entries K5's
+    kernels compute."""
+    k = torch.from_numpy(np.random.default_rng(0).uniform(
+        0.5, 1.5, (3, 3, 3, cin, cout)).astype(np.float32))
+    wdp = ps._pad_wd(ps.s2d_fold_kernel(k, g))
+    mask = ps.s2d_band_mask(g, cin, cout, wdp.shape[1])
+    assert mask.shape == wdp.shape[1:] and mask.dtype == torch.bool
+    assert torch.equal(mask, (wdp != 0).any(0))
+    assert int(mask.sum()) == g * 12 * cin * cout
+
+
 def test_k5_rejects_mismatched_slabs():
     x, k = _case()
     xg = ps.s2d_fold_groups(torch.from_numpy(x), G)
@@ -293,11 +307,11 @@ def _card():
 CARD_CASES = [(2, 16, 16, 16, 4), (3, 64, 64, 64, 8), (1, 16, 10, 14, 8)]
 
 
-def _card_inputs(b, t, h, w, g, dtype, seed=0):
+def _card_inputs(b, t, h, w, g, dtype, seed=0, cin=C, cout=O):
     rng = np.random.default_rng(seed)
-    x = torch.from_numpy(rng.uniform(0, 1, (b, t, h, w, C))
+    x = torch.from_numpy(rng.uniform(0, 1, (b, t, h, w, cin))
                          .astype(np.float32)).cuda().to(dtype)
-    k = torch.from_numpy(rng.normal(0, 0.2, (3, 3, 3, C, O))
+    k = torch.from_numpy(rng.normal(0, 0.2, (3, 3, 3, cin, cout))
                          .astype(np.float32)).cuda().to(dtype)
     return x, k
 
@@ -351,27 +365,34 @@ def test_k4_kernels_match_plain_on_card(dtype, b, t, h, w, g):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout", [(C, O), (1, 16), (3, 32)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,t,h,w,g", CARD_CASES)
-def test_k5_kernels_match_plain_on_card(dtype, b, t, h, w, g):
+def test_k5_kernels_match_plain_on_card(dtype, b, t, h, w, g, cin, cout):
+    """The band kernels against the plain versions (RGB, grayscale, and 32
+    output channels): the forward at `_close`'s tolerances; the weight
+    gradient's band entries (`s2d_band_mask`) at `_wgrad_close`'s, its
+    other entries exact zeros; a second call bit-identical."""
     flags = _card()
-    x, k = _card_inputs(b, t, h, w, g, dtype)
+    x, k = _card_inputs(b, t, h, w, g, dtype, cin=cin, cout=cout)
     xg = ps.s2d_fold_groups(x, g).contiguous()
     wdp = ps._pad_wd(ps.s2d_fold_kernel(k, g)).contiguous()
     kp, n = wdp.shape[1], xg.shape[-1] // wdp.shape[1]
-    ct = torch.randn((b, xg.shape[1] - 1, xg.shape[2] - 1, t * O),
+    ct = torch.randn((b, xg.shape[1] - 1, xg.shape[2] - 1, t * cout),
                      generator=torch.Generator("cuda").manual_seed(2),
                      device="cuda").to(dtype)
     with flags:
-        y = ps._launch_forward(xg, wdp, n)
-        dw = ps._launch_wgrad(xg, ct, kp, n)
-        again = (ps._launch_forward(xg, wdp, n),
-                 ps._launch_wgrad(xg, ct, kp, n))
+        y = ps._launch_group_forward(xg, wdp, g, cin, cout)
+        dw = ps._launch_group_wgrad(xg, ct, g, cin, cout, kp)
+        again = (ps._launch_group_forward(xg, wdp, g, cin, cout),
+                 ps._launch_group_wgrad(xg, ct, g, cin, cout, kp))
         ref_y = ps._xla_slabs_core(xg.float(), wdp.float(), n)
         ref_dw = ps.s2d_group_wgrad_reference(xg.float(), ct.float(), kp)
     torch.cuda.synchronize()
+    band = ps.s2d_band_mask(g, cin, cout, kp).cuda().expand_as(dw)
     _close(y, ref_y, dtype, "K5 forward")
-    _wgrad_close(dw, ref_dw, "K5 wgrad")
+    _wgrad_close(dw[band], ref_dw[band], "K5 wgrad, band")
+    assert not dw[~band].any(), "K5 wgrad off the band"
     assert torch.equal(y, again[0]) and torch.equal(dw, again[1])
 
 
@@ -417,3 +438,10 @@ def test_kernels_reject_what_they_do_not_take():
         ps._launch_forward(xg, wdp, 3)
     with pytest.raises(ValueError):
         ps._launch_forward(xg.transpose(1, 2), wdp, 2)
+    # K5's band kernels
+    with pytest.raises(TypeError):
+        ps._launch_group_forward(xg.half(), wdp.half(), 8, C, O)
+    with pytest.raises(ValueError):
+        ps._launch_group_forward(xg[..., :-8].contiguous(), wdp, 8, C, O)
+    with pytest.raises(ValueError):
+        ps._launch_group_forward(xg, wdp, 4, C, O)
