@@ -24,8 +24,9 @@ Phases:
            no K1 launch, output and weight gradient against the plain
            folded conv;
            pairwise_l1 forward and backward at B in {1, 2, 33, 256}, N in
-           {1, 7, 256}, and at (B, N) = (64, 16384) (two 8,192-wide
-           chunks), masks all zero / single / random / all one: avg
+           {1, 7, 256}, and at (B, N) = (64, 16384) and (33, 9000) (many
+           512-wide chunks, ragged 16-row tiles), masks all zero / single /
+           random / all one: avg
            within rtol 1e-5 (atol 1e-7), n_pairs exact, gradient within
            atol 1e-6, and a second call bit-identical;
            memory_min_cosine at B x M x D over {1..1024} x {1..4096} x
@@ -114,7 +115,9 @@ Phases:
            clips/s, the train step of both families at B=256, the
            long-window step at T=64, B=128 and the attention step at
            B=16, T=128, in f32 and bf16 (median of 20), with device time by
-           kernel (torch.profiler); K4 and K5 at the main shape, K1 and
+           kernel (torch.profiler); K4 (with its route) and K5 at the
+           main shape, K2 and torch.cdist at (256, 256), (64, 16384) and
+           (33, 9000) by CUDA events and on the card alone, K1 and
            F.conv3d on the same conv, the two layout copies around K5; K6
            forward, dQ and dK/dV at (B, H, T, Dh) = (16, 1, 128, 128) and
            (8, 1, 2048, 128) against its plain version and
@@ -125,7 +128,12 @@ K5 (forward, weight gradient), called through their wrappers and
 autograd, against their plain versions at B=2, T=16, 16x16 (RGB with g=4,
 grayscale with g=8, 32 output channels with g=4) and at the main shape
 B=128, T=64, 64x64, f32 and bf16, a second call bit-identical, each
-wrapper counter one higher a call.  K5 computes only the band of the
+wrapper counter one higher a call, and each K4 case reports its route
+(`k4_route`: bf16 on the tensor cores, f32 on the CUDA cores).  K4 is
+also held on a dense N(0, 1) weight at each of those shapes and at one
+with N = 20 (bf16 on the CUDA cores), its weight gradient in full, at
+those tolerances plus 2^-20 times each output's sum of |terms|; both routes
+must be taken.  K5 computes only the band of the
 folded kernel: its weight gradient's band entries are held against the
 plain version's, its other entries must be exactly 0, and conv1's
 (3, 3, 3, C, O) kernel gradient through the fold's autograd against the
@@ -175,6 +183,8 @@ MEM_SHAPES = ((256, 500, 64), (1024, 4096, 128))  # K3 timing (B, M, D)
 # of N: checked against the plain versions and timed
 MEM_WIDE = ((16, 500, 2048), (8, 64, 4096))
 PAIR_WIDE = (64, 16384)
+# K2 at a B that is no multiple of its 16-row tiles, at a wide N
+PAIR_ODD = (33, 9000)
 # conv1 widths K1 does not take (TFoldConv1 runs F.conv3d there), (C, O)
 CONV1_WIDTHS = ((1, 16), (3, 32))
 # family B with the attention encoder at head dim 256 (K6 over two chunks)
@@ -187,6 +197,13 @@ LONG_TRAIN_CLIPS, LONG_EVAL_CLIPS, LONG_PARITY_BATCH = 512, 128, 8
 # the main path's shape
 S2D_CASES = ((2, 16, 16, 16, 4, 3, 16), (2, 16, 16, 16, 8, 1, 16),
              (2, 16, 16, 16, 4, 3, 32), (LONG_BATCH, 64, 64, 64, LONG_G, 3, 16))
+# K4 on dense weights: N of an extra case beside S2D_CASES' shapes, no
+# multiple of 8, so that bf16 takes the CUDA cores (k4_route)
+K4_ODD_N = 20
+# the checks of K4 on dense weights and of K2 at PAIR_ODD draw from their
+# own generator, so that adding them left every other phase's data as it
+# was
+LATER_CHECKS_SEED = 8
 # family B with the attention encoder (main path 6): bench.py's flash
 # configuration (measure_flash_attention), (T, H, W, C) of one clip
 ATTN_MODEL = dict(temporal_encoder="attention", latent_dim=128, attn_heads=1)
@@ -200,7 +217,7 @@ FLASH_TIMES = ((16, 1, 128, 128), (8, 1, 2048, 128), (16, 1, 128, 256))
 # the port's CUDA kernels by symbol name (cvad_tpu_torch/csrc/*.cu), picked
 # out of the profiler's rows
 PORT_KERNELS = ("tfold_conv1_kernel", "pairwise_", "memory_min_cosine_kernel",
-                "s2d_gemm_kernel", "s2d_wgrad_", "s2d_group_",
+                "s2d_conv_", "s2d_wgrad_", "s2d_group_",
                 "flash_fwd_kernel",
                 "flash_bwd_")
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and FLOP/s by type
@@ -465,6 +482,23 @@ def s2d_inputs(rng: np.random.Generator, b: int, t: int, h: int, w: int,
                                device="cuda").to(dtype)}
 
 
+def k4_wrapper_grads(xf: torch.Tensor, wd: torch.Tensor,
+                     ct: torch.Tensor) -> dict:
+    """K4 through `s2d_fold_matmul` and autograd (x and the weight), each
+    wrapper counter one higher a call."""
+    from cvad_tpu_torch.ops import pallas_s2d as ps
+
+    k4 = ps.s2d_fold_matmul
+    names = ("launches", "dgrad_launches", "wgrad_launches")
+    before = [getattr(k4, a) for a in names]
+    xr, wr = xf.detach().requires_grad_(True), wd.detach().requires_grad_(True)
+    y = k4(xr, wr)
+    dx, dw = torch.autograd.grad(y, (xr, wr), ct)
+    rose = [getattr(k4, a) - b for a, b in zip(names, before)]
+    check(rose == [1, 1, 1], f"K4 wrapper counters rose by {rose}")
+    return {"k4_forward": y.detach(), "k4_dgrad": dx, "k4_wgrad": dw}
+
+
 def s2d_wrapper_grads(d: dict, g: int) -> dict:
     """K4 and K5 through their wrappers, as a model calls them: the outputs
     of `s2d_fold_matmul(xf, wd)` and `s2d_group_conv(xg, s2d_fold_kernel(k,
@@ -475,26 +509,17 @@ def s2d_wrapper_grads(d: dict, g: int) -> dict:
     wrapper counter rose by one."""
     from cvad_tpu_torch.ops import pallas_s2d as ps
 
-    k4, k5 = ps.s2d_fold_matmul, ps.s2d_group_conv
-    counters = {"k4_forward": (k4, "launches"),
-                "k4_dgrad": (k4, "dgrad_launches"),
-                "k4_wgrad": (k4, "wgrad_launches"),
-                "k5_forward": (k5, "launches"),
-                "k5_wgrad": (k5, "backward_launches")}
-    before = {k: getattr(f, a) for k, (f, a) in counters.items()}
-    xf = d["xf"].detach().requires_grad_(True)
-    wd4 = d["wd"].detach().requires_grad_(True)
-    y4 = k4(xf, wd4)
-    dx4, dw4 = torch.autograd.grad(y4, (xf, wd4), d["ct4"])
+    out = k4_wrapper_grads(d["xf"], d["wd"], d["ct4"])
+    k5 = ps.s2d_group_conv
+    before = (k5.launches, k5.backward_launches)
     kk = d["k"].detach().requires_grad_(True)
     wd5 = ps.s2d_fold_kernel(kk, g)
     y5 = k5(d["xg"], wd5, g)
     dw5, dk5 = torch.autograd.grad(y5, (wd5, kk), d["ct5"])
-    rose = {k: getattr(f, a) - before[k] for k, (f, a) in counters.items()}
-    check(all(v == 1 for v in rose.values()),
-          f"K4/K5 wrapper counters rose by {rose}, not 1 each")
-    return {"k4_forward": y4.detach(), "k4_dgrad": dx4, "k4_wgrad": dw4,
-            "k5_forward": y5.detach(), "k5_wgrad": dw5, "k5_conv1_wgrad": dk5}
+    rose = (k5.launches - before[0], k5.backward_launches - before[1])
+    check(rose == (1, 1), f"K5 wrapper counters rose by {rose}, not 1 each")
+    return out | {"k5_forward": y5.detach(), "k5_wgrad": dw5,
+                  "k5_conv1_wgrad": dk5}
 
 
 def s2d_plain_conv1_wgrad(d: dict, ref_dw: torch.Tensor) -> tuple:
@@ -530,7 +555,8 @@ def check_s2d(rng: np.random.Generator) -> dict:
     conv1's (3, 3, 3, C, O) kernel gradient through `s2d_fold_kernel`'s
     autograd against the plain route's in the same dtype, within 1e-5 of
     its largest |ref| entry, plus in bf16 2^-8 times the sum of the |terms|
-    the fold's backward adds (each rounded once to bf16)."""
+    the fold's backward adds (each rounded once to bf16) and one bf16 ulp of
+    the result (2^-7 |ref|: both routes round their sum to bf16 once)."""
     from cvad_tpu_torch.ops import pallas_s2d as ps
 
     errs, cases = {}, []
@@ -554,7 +580,9 @@ def check_s2d(rng: np.random.Generator) -> dict:
                 d["wd"].shape)
             torch.cuda.synchronize()
             case = {"B": b, "T": t, "H": h, "W": w, "g": g, "C": cin,
-                    "O": cout, "dtype": str(dtype).replace("torch.", "")}
+                    "O": cout, "dtype": str(dtype).replace("torch.", ""),
+                    "k4_route": ps.k4_route(kc, d["wd"].shape[3],
+                                            d["xf"].shape[2], dtype)}
             for name, r in ref.items():
                 y = got[name]
                 where = f"{name} at {case}"
@@ -592,16 +620,100 @@ def check_s2d(rng: np.random.Generator) -> dict:
                 tol = tol + 2.0 ** -8 * mag
             err = e.max().item()
             case["k5_conv1_wgrad"] = err
+            worst = int((e - tol).argmax()) if torch.is_tensor(tol) else 0
+            if dtype == torch.bfloat16:  # the entry nearest its bound
+                case["k5_conv1_wgrad_worst"] = {
+                    "got": dk.flatten()[worst].item(),
+                    "plain": ref_dk.flatten()[worst].item(),
+                    "sum_abs_terms": mag.flatten()[worst].item()}
             check(bool((e <= tol).all()),
                   f"k5_conv1_wgrad at {case}: max abs err {err} beyond "
-                  f"tolerance")
+                  f"tolerance (worst entry: got "
+                  f"{dk.flatten()[worst].item()}, plain "
+                  f"{ref_dk.flatten()[worst].item()}, sum of |terms| "
+                  f"{mag.flatten()[worst].item()})")
             key = f"k5_conv1_wgrad_{case['dtype']}"
             errs[key] = max(errs.get(key, 0.0), err)
             cases.append(case)
             del d, got, again, f, ref
-    return {"cases": cases, "max_abs_err": errs,
+    dense = check_k4_dense(np.random.default_rng(LATER_CHECKS_SEED + 1), errs)
+    routes = {c["k4_route"] for c in cases + dense}
+    check(routes == {"tensor_cores", "cuda_cores"},
+          f"K4's checks took the routes {routes}, not both")
+    return {"cases": cases, "k4_dense_cases": dense, "max_abs_err": errs,
             "off_band_entries_zero": True,
             "bit_identical_second_call": True}
+
+
+def check_k4_dense(rng: np.random.Generator, errs: dict) -> list:
+    """K4 (forward, input and weight gradient) through its wrapper and
+    autograd on a dense random wd, N(0, 1) in every entry (not
+    `s2d_fold_kernel`'s banded output: a K4 that skipped the band's zeros
+    would pass the folded cases), at each S2D_CASES shape and at one with
+    N = K4_ODD_N, float32 and bfloat16, each case on the route `k4_route`
+    gives; a second call bit-identical; the weight gradient compared in
+    full.  Tolerances are check_s2d's, whose absolute 1e-4 for outputs
+    stood for float32 sums of terms near 1 in another order: at N(0, 1)
+    weights the outputs reach ~100, where float32 rounding alone passes
+    1e-4 for some of the 1.3e8 outputs of the main shape in any summation
+    order, so outputs also get 2^-20 times their sum of |terms| (the plain
+    version on |operands|), as K5's conv1 check gets 2^-8 of it in bf16."""
+    from cvad_tpu_torch.ops import pallas_s2d as ps
+
+    shapes = list(S2D_CASES) + [S2D_CASES[0][:6] + (None,)]  # N = K4_ODD_N
+    cases = []
+    for b, t, h, w, g, cin, cout in shapes:
+        for dtype in (torch.float32, torch.bfloat16):
+            d = s2d_inputs(rng, b, t, h, w, g, dtype, cin, cout or 16)
+            xf, kc = d["xf"], d["wd"].shape[2]
+            n = g * cout if cout else K4_ODD_N
+            gen = torch.Generator("cuda").manual_seed(
+                int(rng.integers(1 << 30)))
+            wd = torch.randn((2, 2, kc, n), generator=gen,
+                             device="cuda").to(dtype)
+            ct = torch.randn((xf.shape[0], xf.shape[1] - 1, xf.shape[2] - 1,
+                              n), generator=gen, device="cuda").to(dtype)
+            del d
+            got, again = (k4_wrapper_grads(xf, wd, ct),
+                          k4_wrapper_grads(xf, wd, ct))
+            x32, w32, c32 = xf.float(), wd.float(), ct.float()
+            ref = {"k4_forward": ps._xla_dot_core(x32, w32),
+                   "k4_dgrad": ps.s2d_matmul_dgrad_reference(c32, w32),
+                   "k4_wgrad": ps.s2d_matmul_wgrad_reference(x32, c32)}
+            terms = {"k4_forward": ps._xla_dot_core(x32.abs(), w32.abs()),
+                     "k4_dgrad": ps.s2d_matmul_dgrad_reference(c32.abs(),
+                                                               w32.abs())}
+            torch.cuda.synchronize()
+            case = {"rows": xf.shape[0], "Hc": xf.shape[1],
+                    "Wc": xf.shape[2], "K": kc, "N": n,
+                    "dtype": str(dtype).replace("torch.", ""),
+                    "k4_route": ps.k4_route(kc, n, xf.shape[2], dtype)}
+            for name, r in ref.items():
+                y = got[name]
+                where = f"{name} on dense weights at {case}"
+                check(tuple(y.shape) == tuple(r.shape), f"shape of {where}")
+                check(y.dtype == dtype, f"dtype of {where}")
+                check(torch.equal(y, again[name]),
+                      f"{where}: a second call is not bit-identical")
+                e = (y.float() - r).abs()
+                if name == "k4_wgrad":
+                    tol = 1e-5 * r.abs().max().item()
+                    if dtype == torch.bfloat16:
+                        tol = tol + 2.0 ** -8 * r.abs()
+                elif dtype == torch.float32:
+                    tol = 1e-4 + 2.0 ** -20 * terms[name]
+                else:
+                    tol = 1e-2 * r.abs() + 1e-4 + 2.0 ** -20 * terms[name]
+                err = e.max().item()
+                case[name] = err
+                check(bool((e <= tol).all()),
+                      f"{where}: max abs err {err} beyond tolerance")
+                key = f"{name}_dense_{case['dtype']}"
+                errs[key] = max(errs.get(key, 0.0), err)
+            cases.append(case)
+            del xf, wd, ct, got, again, ref, terms, x32, w32, c32
+            torch.cuda.empty_cache()
+    return cases
 
 
 def memory_inputs(rng: np.random.Generator, b: int, m: int, d: int):
@@ -770,10 +882,13 @@ def check_pairwise(rng: np.random.Generator) -> dict:
     err_avg = err_grad = 0.0
     n_cases = 0
     shapes = [(b, n) for b in (1, 2, 33, 256) for n in (1, 7, 256)]
-    shapes.append(PAIR_WIDE)  # more than one 8,192-wide chunk of N
+    shapes.append(PAIR_WIDE)  # many 512-wide chunks of N
+    shapes.append(PAIR_ODD)  # and ragged 16-row tiles, from its own stream
+    later = np.random.default_rng(LATER_CHECKS_SEED)
     for b, n in shapes:
         for mask in ("zero", "single", "random", "one"):
-            flat, m = pair_inputs(rng, b, n, mask)
+            flat, m = pair_inputs(later if (b, n) == PAIR_ODD else rng, b, n,
+                                  mask)
             f = flat.clone().requires_grad_(True)
             avg, n_pairs = pairwise_l1_mean(f, m)
             (g,) = torch.autograd.grad(avg, f)
@@ -1894,7 +2009,7 @@ def s2d_times(rng: np.random.Generator) -> dict:
                     **bound((xg.numel() + ct5.numel()) * size
                             + wdp.numel() * 4, flops5, peak)},
                 "k4_forward": {
-                    "ms": cuda_ms(lambda: ps._launch_forward(xf, w4, 1), 10),
+                    "ms": cuda_ms(lambda: ps._launch_forward(xf, w4), 10),
                     "plain_ms": cuda_ms(lambda: ps._xla_dot_core(xf, wd), 3),
                     "library_ms": cuda_ms(lambda: F.conv2d(xf_lib, wd_lib),
                                           5),
@@ -1909,8 +2024,7 @@ def s2d_times(rng: np.random.Generator) -> dict:
                     **bound((ct4.numel() + wd.numel() + xf.numel()) * size,
                             flops4, peak)},
                 "k4_wgrad": {
-                    "ms": cuda_ms(lambda: ps._launch_wgrad(xf, ct4, kc, 1),
-                                  10),
+                    "ms": cuda_ms(lambda: ps._launch_wgrad(xf, ct4), 10),
                     "plain_ms": cuda_ms(lambda: ps.s2d_matmul_wgrad_reference(
                         xf, ct4), 3),
                     "library_ms": cuda_ms(lambda: conv_bwd(
@@ -1926,8 +2040,11 @@ def s2d_times(rng: np.random.Generator) -> dict:
         # the conv's own work, without the fold's pad channels and banded
         # zeros: 81 MACs (C x 27 taps) an output element, as K1's bound
         conv_ops = 2 * 81 * ct5.numel()
+        route = ps.k4_route(kc, wd.shape[3], xf.shape[2], dtype)
         for key, r in rows.items():
             r["share_of_bound"] = r["bound_ms"] / r["ms"]
+            if key.startswith("k4_"):
+                r["route"] = route
             if key != "k1_same_conv":
                 conv = bound(r["bytes"], conv_ops, peak)["bound_ms"]
                 r["conv_bound_ms"] = conv
@@ -2073,8 +2190,18 @@ def pairwise_times(rng: np.random.Generator, b: int = 256,
                lib_loss, fr, retain_graph=True), iters=50),
            **bound((2 * b * n + b + 2) * 4, 3 * s * s * n,
                    PEAK_FLOPS[torch.float32])}
+    # the card's time alone beside the events, which over these short
+    # launches time the host as much as the card
+    fwd["device_ms"] = device_ms(lambda: _launch_forward(flat, m), iters)
+    fwd["library_device_ms"] = device_ms(
+        lambda: torch.cdist(flat, flat, p=1), iters)
+    bwd["device_ms"] = device_ms(
+        lambda: _launch_backward(flat, m, n_pairs, ct), iters)
+    bwd["library_device_ms"] = device_ms(lambda: torch.autograd.grad(
+        lib_loss, fr, retain_graph=True), 50)
     for t in (fwd, bwd):
         t["share_of_bound"] = t["bound_ms"] / t["ms"]
+        t["device_share_of_bound"] = t["bound_ms"] / t["device_ms"]
     return {"B": b, "N": n, "mask_rows": s, "n_pairs": pairs,
             "forward": fwd, "backward": bwd}
 
@@ -2366,6 +2493,9 @@ def main() -> int:
     pair_t = timed("pairwise_l1", pairwise_times, rng)
     pair_t["wide"] = timed("pairwise_l1_wide", pairwise_times, rng,
                            *PAIR_WIDE)
+    pair_t["odd"] = timed("pairwise_l1_odd", pairwise_times,
+                          np.random.default_rng(LATER_CHECKS_SEED + 2),
+                          *PAIR_ODD)
     k1_bwd = timed("tfold_conv1_backward", tfold_backward_times, rng)
     mem_t = timed("memory_min_cosine", memory_times, rng)
     flash_t = timed("flash_attention", flash_times, rng)
@@ -2403,7 +2533,12 @@ def main() -> int:
 
         def s2d_row(dt: str) -> dict:
             t = s2d_t[dt][part]
-            return row(t, err[dt]) | {"conv_bound_ms": t["conv_bound_ms"]}
+            extra = {"conv_bound_ms": t["conv_bound_ms"]}
+            if part.startswith("k4"):  # on dense weights too, and its route
+                extra |= {"route_taken": t["route"],
+                          "max_abs_err_dense":
+                              errs["s2d"][f"{part}_dense_{dt}"]}
+            return row(t, err[dt]) | extra
 
         source = "s2d_group_conv" if part.startswith("k5") else "s2d_conv"
         return {"name": name, "route": "cuda",
@@ -2413,6 +2548,12 @@ def main() -> int:
                 "dtype": "float32", "B": LONG_BATCH,
                 "T": LONG_CLIP[0], **s2d_row("float32"),
                 "bfloat16": s2d_row("bfloat16"), "card": dev["card"]}
+
+    def pair_row(t: dict, part: str, err: float) -> dict:
+        """A K2 row: the event times, and the card's time alone beside
+        them."""
+        return row(t[part], err) | {key: t[part][key] for key in (
+            "device_ms", "library_device_ms")}
 
     def flash_entry(name: str, line: int, part: str, counter: str) -> dict:
         """K6 at the main path's shape (B, H, T, Dh) = (16, 1, 128, 128):
@@ -2458,18 +2599,20 @@ def main() -> int:
          "replaces": "cvad_tpu/ops/pallas_kernels.py:214",
          **launches("pairwise_l1_forward"),
          "dtype": "float32", "B": pair_t["B"], "N": pair_t["N"],
-         **row(pair_t["forward"], errs["pair_fwd"]),
+         **pair_row(pair_t, "forward", errs["pair_fwd"]),
          "wide": {"B": PAIR_WIDE[0], "N": PAIR_WIDE[1]}
-         | row(pair_t["wide"]["forward"], errs["pair_fwd"]),
+         | pair_row(pair_t["wide"], "forward", errs["pair_fwd"]),
+         "odd": {"B": PAIR_ODD[0], "N": PAIR_ODD[1]}
+         | pair_row(pair_t["odd"], "forward", errs["pair_fwd"]),
          "card": dev["card"]},
         {"name": "pairwise_l1_backward", "route": "cuda",
          "source": "cvad_tpu_torch/csrc/pairwise_l1.cu",
          "replaces": "cvad_tpu/ops/pallas_kernels.py:243",
          **launches("pairwise_l1_backward"),
          "dtype": "float32", "B": pair_t["B"], "N": pair_t["N"],
-         **row(pair_t["backward"], errs["pair_bwd"]),
+         **pair_row(pair_t, "backward", errs["pair_bwd"]),
          "wide": {"B": PAIR_WIDE[0], "N": PAIR_WIDE[1]}
-         | row(pair_t["wide"]["backward"], errs["pair_bwd"]),
+         | pair_row(pair_t["wide"], "backward", errs["pair_bwd"]),
          "card": dev["card"]},
         {"name": "memory_min_cosine", "route": "cuda",
          "source": "cvad_tpu_torch/csrc/memory_cosine.cu",

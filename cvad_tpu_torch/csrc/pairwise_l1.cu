@@ -30,17 +30,19 @@
 // deterministic and free of the (B, B, N) intermediate, not at the bound.
 //
 // Design:
-// - forward, pass 1: one block per row i.  N is cut into chunks of
-//   kChunk = 8192 columns (32 KB, under the 48 KB a block may take without
-//   opting in).  For each chunk in order, the chunk of row i is staged in
-//   shared memory and the block's threads stride over its k for every
-//   j > i with m_j != 0, each thread adding m_j times its own partial sum
-//   of |f_ik - f_jk| to its running total; a fixed-order block reduction
-//   writes partial[i] = sum_{j>i} m_j sum_k |f_ik - f_jk| into a (B,)
-//   scratch that the wrapper allocates.  With one chunk (N <= 8192) the
-//   sums are the ones the kernel took before it had chunks.
-// - forward, pass 2: one block sums m_i partial[i], sum m and sum m^2 in a
-//   fixed order and writes avg and n_pairs.
+// - forward, pass 1: the rows are cut into tiles of 16 and N into chunks
+//   of kChunk = 512 columns; block (tile pair I <= J, chunk) stages both
+//   tiles' columns of its chunk in shared memory, kPiece = 256 at a time,
+//   and thread (i, j) of its 16 x 16 sums |f_ik - f_jk| over the chunk's
+//   columns in order and writes m_i m_j times that sum (0 unless i < j and
+//   both rows are in the mask, so a masked-out row's values never reach
+//   the sum) to a scratch indexed [tile pair][chunk][i][j] (the wrapper
+//   sizes it).  Every block does the same work: at B = 64, N = 16384 that
+//   is 10 tile pairs x 32 chunks = 320 blocks, at the main path's 256 x 256
+//   136 x 1; rows past B are zeros.
+// - forward, pass 2: one block of 1,024 threads adds the scratch in a fixed
+//   order (thread t every 1,024th entry from t, then a fixed tree), sums m
+//   and m^2, and writes avg and n_pairs to the device: no host round trip.
 // - backward: one thread per (i, k), a loop over j; neighbouring threads
 //   read neighbouring k of row j, so the loads coalesce.  It stages nothing,
 //   so it takes any N as it is: the chunks of N are its blocks, in no
@@ -55,10 +57,12 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-// a chunk of row i in dynamic shared memory stays under the 48 KB a block
-// may take without opting in
-constexpr int kChunk = 8192;
+constexpr int kTileRows = 16;  // rows a tile; a block's 16 x 16 pairs
+constexpr int kChunk = 512;    // columns a forward block sums over
+constexpr int kPiece = 256;    // columns staged at a time
+constexpr int kPad = kPiece + 1;  // a staged row: thread (i, j) reads row
+                                  // j at stride kPad, on 16 banks
+static_assert(kThreads == kTileRows * kTileRows, "a thread a pair");
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -68,59 +72,80 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // Sum of `v` over the block in a fixed order; the result is valid in
-// thread 0.  `scratch` holds kWarps floats.
+// thread 0.  `scratch` holds a float for each warp.
 __device__ __forceinline__ float block_sum(float v, float* scratch) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   v = warp_sum(v);
   if (lane == 0) scratch[warp] = v;
   __syncthreads();
-  v = threadIdx.x < kWarps ? scratch[threadIdx.x] : 0.f;
+  v = threadIdx.x < (blockDim.x >> 5) ? scratch[threadIdx.x] : 0.f;
   if (warp == 0) v = warp_sum(v);
   __syncthreads();
   return v;
 }
 
-__global__ void __launch_bounds__(kThreads)
-pairwise_rows_kernel(const float* __restrict__ f, const float* __restrict__ m,
-                     float* __restrict__ partial, int batch, int n) {
-  extern __shared__ float row[];  // a chunk of row i, up to kChunk floats
-  __shared__ float scratch[kWarps];
-  const int i = blockIdx.x;
-  if (m[i] == 0.f) {  // uniform over the block
-    if (threadIdx.x == 0) partial[i] = 0.f;
-    return;
+// tile pair p (I <= J, row-major over the upper triangle of T tiles)
+__device__ __forceinline__ void tile_pair(int p, int tiles, int& ti,
+                                          int& tj) {
+  ti = 0;
+  while (p >= tiles - ti) {
+    p -= tiles - ti;
+    ++ti;
   }
-  const float* fi = f + (long long)i * n;
-  float acc = 0.f;
-  for (int k0 = 0; k0 < n; k0 += kChunk) {
-    const int kn = min(kChunk, n - k0);
-    if (k0 > 0) __syncthreads();  // the previous chunk is read
-    for (int k = threadIdx.x; k < kn; k += blockDim.x) row[k] = fi[k0 + k];
-    __syncthreads();
-    for (int j = i + 1; j < batch; ++j) {
-      const float mj = m[j];
-      if (mj == 0.f) continue;  // uniform over the block
-      const float* fj = f + (long long)j * n + k0;
-      float s = 0.f;
-      for (int k = threadIdx.x; k < kn; k += blockDim.x)
-        s += fabsf(row[k] - fj[k]);
-      acc = fmaf(mj, s, acc);
-    }
-  }
-  acc = block_sum(acc, scratch);
-  if (threadIdx.x == 0) partial[i] = acc;
+  tj = ti + p;
 }
 
+// pass 1: block (tile pair, chunk); thread (i, j) = (tid / 16, tid % 16)
 __global__ void __launch_bounds__(kThreads)
+pairwise_tiles_kernel(const float* __restrict__ f, const float* __restrict__ m,
+                      float* __restrict__ partial, int batch, int n,
+                      int tiles) {
+  __shared__ float rows_i[kTileRows][kPad], rows_j[kTileRows][kPad];
+  int ti, tj;
+  tile_pair(blockIdx.x, tiles, ti, tj);
+  const int k0 = blockIdx.y * kChunk;
+  const int k1 = min(k0 + kChunk, n);
+  const int i = threadIdx.x / kTileRows, j = threadIdx.x % kTileRows;
+  float acc = 0.f;
+  for (int p0 = k0; p0 < k1; p0 += kPiece) {
+    const int kn = min(kPiece, k1 - p0);
+    if (p0 > k0) __syncthreads();  // the previous piece is read
+    for (int e = threadIdx.x; e < kTileRows * kPiece; e += kThreads) {
+      const int r = e / kPiece, k = e % kPiece;
+      const int ri = ti * kTileRows + r, rj = tj * kTileRows + r;
+      const bool in = k < kn;
+      rows_i[r][k] = in && ri < batch ? f[(long long)ri * n + p0 + k] : 0.f;
+      rows_j[r][k] = in && rj < batch ? f[(long long)rj * n + p0 + k] : 0.f;
+    }
+    __syncthreads();
+    const float* a = rows_i[i];
+    const float* b = rows_j[j];
+#pragma unroll 8
+    for (int k = 0; k < kn; ++k) acc += fabsf(a[k] - b[k]);
+  }
+  const int ri = ti * kTileRows + i, rj = tj * kTileRows + j;
+  const float w = ri < rj && rj < batch ? m[ri] * m[rj] : 0.f;
+  partial[((long long)blockIdx.x * gridDim.y + blockIdx.y) * kThreads
+          + threadIdx.x] = w != 0.f ? w * acc : 0.f;
+}
+
+// pass 2: thread t adds entries t, t + kFinal, ... of the scratch in order,
+// then the block adds the threads' sums in a fixed tree
+constexpr int kFinal = 1024;
+
+__global__ void __launch_bounds__(kFinal)
 pairwise_finalize_kernel(const float* __restrict__ partial,
                          const float* __restrict__ m, float* __restrict__ avg,
-                         float* __restrict__ n_pairs, int batch, int n) {
-  __shared__ float scratch[kWarps];
-  float total = 0.f, s = 0.f, s2 = 0.f;
-  for (int i = threadIdx.x; i < batch; i += blockDim.x) {
+                         float* __restrict__ n_pairs, int batch, int n,
+                         long long entries) {
+  __shared__ float scratch[kFinal / 32];
+  float total = 0.f;
+#pragma unroll 8
+  for (long long e = threadIdx.x; e < entries; e += kFinal) total += partial[e];
+  float s = 0.f, s2 = 0.f;
+  for (int i = threadIdx.x; i < batch; i += kFinal) {
     const float mi = m[i];
-    total = fmaf(mi, partial[i], total);
     s += mi;
     s2 = fmaf(mi, mi, s2);
   }
@@ -163,26 +188,37 @@ pairwise_backward_kernel(const float* __restrict__ f,
 
 }  // namespace
 
+// Scratch of the forward: the float32 partials of pass 1 for (B, N).
+extern "C" long long pairwise_l1_forward_scratch(int batch, int n) {
+  if (batch <= 0 || n <= 0) return -1;
+  const long long tiles = (batch + kTileRows - 1) / kTileRows;
+  const long long chunks = (n + kChunk - 1) / kChunk;
+  return tiles * (tiles + 1) / 2 * chunks * kThreads;
+}
+
 // Forward: flat (B, N) and mask (B,) float32, contiguous, on the device;
-// partial is a (B,) scratch; avg and n_pairs are one float each.  Launches
-// both passes on `stream` and returns cudaGetLastError() (0 on success);
-// shapes the kernel does not take return cudaErrorInvalidValue without
-// launching.
+// partial is a scratch of pairwise_l1_forward_scratch() floats; avg and
+// n_pairs are one float each.  Launches both passes on `stream` and returns
+// cudaGetLastError() (0 on success); shapes the kernel does not take
+// return cudaErrorInvalidValue without launching.
 extern "C" int pairwise_l1_forward(const void* flat, const void* mask,
                                    void* partial, void* avg, void* n_pairs,
                                    int batch, int n, void* stream) {
   if (batch <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
+  const int tiles = (batch + kTileRows - 1) / kTileRows;
+  const int chunks = (n + kChunk - 1) / kChunk;
+  const long long pairs_t = (long long)tiles * (tiles + 1) / 2;
+  if (pairs_t > INT_MAX || chunks > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* f = static_cast<const float*>(flat);
   const float* m = static_cast<const float*>(mask);
-  const size_t smem = (size_t)(n < kChunk ? n : kChunk) * sizeof(float);
-  pairwise_rows_kernel<<<batch, kThreads, smem, s>>>(
-      f, m, static_cast<float*>(partial), batch, n);
+  pairwise_tiles_kernel<<<dim3((unsigned)pairs_t, chunks), kThreads, 0, s>>>(
+      f, m, static_cast<float*>(partial), batch, n, tiles);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  pairwise_finalize_kernel<<<1, kThreads, 0, s>>>(
+  pairwise_finalize_kernel<<<1, kFinal, 0, s>>>(
       static_cast<const float*>(partial), m, static_cast<float*>(avg),
-      static_cast<float*>(n_pairs), batch, n);
+      static_cast<float*>(n_pairs), batch, n, pairs_t * chunks * kThreads);
   return (int)cudaGetLastError();
 }
 

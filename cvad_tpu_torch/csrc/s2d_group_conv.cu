@@ -84,8 +84,9 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include <atomic>
 #include <climits>
+
+#include "hopper_mma.cuh"
 
 namespace {
 
@@ -94,7 +95,6 @@ constexpr int kXR = kTH + 1, kXC = kTW + 1;  // its halo of x cells
 constexpr int kCells = 169;  // >= kXR * kXC; 4 * 169 = 4 (mod 32) banks
 constexpr int kTilePix = kTH * kTW;
 constexpr int kMaxThreads = 512;
-constexpr int kMaxSmem = 227 * 1024;
 constexpr int kWgradBlocks = 512;  // blocks the weight gradient aims at
 
 static_assert(kCells >= kXR * kXC, "a channel's halo fits its stride");
@@ -169,22 +169,6 @@ __device__ __forceinline__ void item_coords(const Geo& p, long long item,
   s = (int)(item % p.nslab);
   tile_coords(p, item / p.nslab, b, h0, w0);
 }
-
-// i / d and i % d by a multiply (exact for i * d < 2^32): the staging loops
-// split a flat index by runtime extents, which a hardware division would
-// make cost more than the loads
-struct Div {
-  unsigned d;
-  unsigned long long m;
-  __device__ explicit Div(int dd)
-      : d((unsigned)dd), m((0x100000000ull + dd - 1) / (unsigned)dd) {}
-  __device__ __forceinline__ int div(int i) const {
-    return (int)(((unsigned long long)(unsigned)i * m) >> 32);
-  }
-  __device__ __forceinline__ int mod(int i, int q) const {
-    return i - q * (int)d;
-  }
-};
 
 // Fill dst for i < total, the block's threads striding over i: item(i, at,
 // v) gives the element's place in dst and its value.  Each thread issues
@@ -430,7 +414,6 @@ s2d_group_wgrad_kernel(const T* __restrict__ x, const T* __restrict__ ct,
 // behind the current one's products.
 // ---------------------------------------------------------------------------
 
-typedef __nv_bfloat16 bf16;
 constexpr int kTcMaxKs = 9;      // forward k-steps: 3C for C <= 3
 constexpr int kTcMaxNtt = 5;     // wgrad n-tiles a tap and frame: C <= 3
 // the weight gradient's blocks: a constant, so that the partials' sum has
@@ -448,57 +431,10 @@ __host__ __device__ constexpr int tc_stride(int n) {
   return s;
 }
 
-// a row of n bf16 staged by 16-byte copies: an odd number of 16-byte
-// chunks, so that 8 rows of an ldmatrix (and a fragment load's 8 rows x 4
-// words) fall on distinct banks
-__host__ __device__ constexpr int tc_row(int n) {
-  const int chunks = (n + 7) / 8;
-  return 8 * (chunks % 2 ? chunks : chunks + 1);
-}
-
-__device__ __forceinline__ uint32_t lds32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// c += a b for one 16 x 8 tile, k = 16 (the PTX fragment layouts: a0..a3
-// rows g, g+8 and columns 2t, 2t+8; b0, b1 rows 2t, 2t+8 and column g;
-// c0, c1 row g and c2, c3 row g+8, columns 2t, 2t+1; g = lane / 4,
-// t = lane % 4)
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// four 8 x 8 bf16 matrices, transposed: lane 8j + i gives the address of
-// row i of matrix j; r[j] holds, for lane (g, t), matrix j's elements
-// (2t, g) and (2t+1, g)
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4], const bf16* p) {
-  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-// 16 bytes global -> shared, asynchronously; zeros where !valid
-__device__ __forceinline__ void cp_async16(bf16* dst, const bf16* src,
-                                           bool valid) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
 // wait until at most kStages - 1 groups are pending: with a group
 // committed an item, ahead by kStages - 1, the current item's has landed
 __device__ __forceinline__ void cp_async_wait_current() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 1));
+  cp_async_wait<kStages - 1>();
 }
 
 // Copy the halo of x of item (slab, tile) -- the first ceil(Kc/8) 16-byte
@@ -805,28 +741,6 @@ s2d_group_wgrad_reduce_kernel(const float* __restrict__ partial,
   out[i] = sum;
 }
 
-// The dynamic shared-memory limit is raised once per kernel, device and
-// size (a size above every earlier one raises it again): each launcher
-// keeps the largest size it set, one per device.
-constexpr int kMaxDevices = 64;
-using SmemSet = std::atomic<int>[kMaxDevices];
-
-template <typename Kernel>
-cudaError_t allow_smem(SmemSet& set, Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (set[dev].load(std::memory_order_acquire) >= (int)bytes)
-    return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)bytes);
-  if (err == cudaSuccess) set[dev].store((int)bytes, std::memory_order_release);
-  return err;
-}
-
 // The geometry of a call, or false for shapes the kernels do not take.
 bool make_geo(Geo& p, int rows, int hc, int wc, int kp, int nslab, int g,
               int cin, int cout, int elem) {
@@ -891,21 +805,6 @@ size_t wgrad_tc_smem(const Geo& p) {
 bool tensor_cores(const Geo& p) {
   return (p.o == 16 || p.o == 32) && p.c4 <= 12 && p.g * p.o <= 128
          && forward_tc_smem(p) <= kMaxSmem && wgrad_tc_smem(p) <= kMaxSmem;
-}
-
-// blocks of `kernel` the card runs at once, for a grid-stride loop
-template <typename Kernel>
-cudaError_t resident_blocks(Kernel kernel, int threads, size_t smem,
-                            int& blocks) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        threads, smem);
-  blocks = sms * (per_sm > 0 ? per_sm : 1);
-  return err;
 }
 
 template <int NT>

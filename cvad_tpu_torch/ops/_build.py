@@ -3,9 +3,10 @@
 Every ``csrc/<name>.cu`` is compiled on its own by ``nvcc`` for ``sm_90a``
 into a shared library with a plain C interface, at first use, under
 ``cvad_tpu_torch/build/`` (listed in ``.gitignore``), and loaded with
-`ctypes`.  A library's file name carries a hash of its source, so an edited
-source is rebuilt and an unchanged one is reused.  Nothing here runs when the
-module is imported.
+`ctypes`.  A library's file name carries a hash of its source, of every
+``csrc/*.cuh`` header (the sources include them) and of the flags, so an
+edited source or header is rebuilt and an unchanged one is reused.  Nothing
+here runs when the module is imported.
 """
 
 from __future__ import annotations
@@ -48,10 +49,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-                            ).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names: List[str]) -> Dict[str, str]:

@@ -33,9 +33,10 @@ of mean_k |f_ik - f_jk| (0 when there is no pair), and the pair count.
   backward, or raise; CPU tensors take the two plain versions.
   ``pairwise_l1_mean.launches`` and ``pairwise_l1_mean.backward_launches``
   count kernel launches (one forward launch runs the kernel's two passes).
-  The kernels take any N (the flattened adjacency, causal_dim^2 wide): the
-  forward loops over 8,192-wide chunks of it, as `cvad_tpu` computes any
-  width (:184-199).
+  The kernels take any N (the flattened adjacency, causal_dim^2 wide), as
+  `cvad_tpu` computes any width (:184-199): the forward's blocks each take
+  a pair of 16-row tiles and a 512-wide chunk of N, and a second pass adds
+  their partials in a fixed order.
 
 The mask and n_pairs get no gradient, as in `cvad_tpu`.  The derivative of
 |x| at 0 is taken as 0 (torch's convention; JAX's is +1), so at exact ties
@@ -242,6 +243,8 @@ def _library() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.pairwise_l1_forward.argtypes = [p, p, p, p, p, i, i, p]
         lib.pairwise_l1_forward.restype = i
+        lib.pairwise_l1_forward_scratch.argtypes = [i, i]
+        lib.pairwise_l1_forward_scratch.restype = ctypes.c_longlong
         lib.pairwise_l1_backward.argtypes = [p, p, p, p, p, i, i, p]
         lib.pairwise_l1_backward.restype = i
         lib.pairwise_l1_error_string.argtypes = [i]
@@ -261,10 +264,11 @@ def _launch_forward(flat: torch.Tensor, mask: torch.Tensor
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     _check(flat, mask)
     b, n = flat.shape
-    partial = torch.empty(b, dtype=torch.float32, device=flat.device)
+    lib = _library()
+    partial = torch.empty(lib.pairwise_l1_forward_scratch(b, n),
+                          dtype=torch.float32, device=flat.device)
     avg = torch.empty((), dtype=torch.float32, device=flat.device)
     n_pairs = torch.empty((), dtype=torch.float32, device=flat.device)
-    lib = _library()
     with torch.cuda.device(flat.device):
         stream = torch.cuda.current_stream(flat.device).cuda_stream
         rc = lib.pairwise_l1_forward(flat.data_ptr(), mask.data_ptr(),

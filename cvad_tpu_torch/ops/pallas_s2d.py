@@ -18,9 +18,12 @@ each an (M, K) x (K, N) product with K = (g+2)*4C and N = g*O.
   `s2d_matmul_wgrad_reference`) and K5's plain weight gradient
   (`s2d_group_wgrad_reference`);
 - `s2d_fold_matmul` (K4): the core over (B*n, H/2+1, W/2+1, K) per-group
-  inputs, a `torch.autograd.Function` whose forward, input gradient and
-  weight gradient are hand-written Hopper kernels (`csrc/s2d_conv.cu`).
-  No model calls it; it shares K5's source;
+  inputs and any (2, 2, K, N) weights, a `torch.autograd.Function` whose
+  forward, input gradient and weight gradient are hand-written Hopper
+  kernels (`csrc/s2d_conv.cu`) on one of two routes that `k4_route` picks
+  from the shapes before any launch: bfloat16 on the tensor cores where K
+  and N are multiples of 8 (at most 128) and Wc at most K4_TC_MAX_WC, the
+  CUDA cores otherwise and in float32.  No model calls it;
 - `s2d_group_conv` (K5): the same core over the n group slabs of one
   (B, H/2+1, W/2+1, n*pad128(K)) input, each slab zero-padded to 128
   channels, writing the t-major (B, H/2, W/2, T*O) output.  Its forward and
@@ -48,7 +51,7 @@ import torch.nn.functional as F
 from cvad_tpu_torch.ops import _build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-WGRAD_CHUNK = 4096  # output pixels per partial weight-gradient block
+K4_ROUTES = ("cuda_cores", "tensor_cores")  # the kernels' route codes 0, 1
 TAPS = ((0, 0), (0, 1), (1, 0), (1, 1))  # (dh, dw), tap index 2*dh + dw
 
 
@@ -242,13 +245,39 @@ def s2d_group_wgrad_reference(xg: torch.Tensor, ct: torch.Tensor, kp: int
 # ---------------------------------------------------------------------------
 
 
+# K4's tensor-core kernels stage all of w beside two halos of 128 + Wc + 1
+# cells (csrc/s2d_conv.cu::tc_conv_smem); at K = N = 128, the widest, the
+# input gradient's fits in 227 KB up to this Wc (the card tests launch it
+# there)
+K4_TC_MAX_WC = 38
+
+
+def k4_route(k: int, n: int, wc: int, dtype: torch.dtype) -> str:
+    """K4's route for xf (R, Hc, Wc=wc, K=k) and wd (2, 2, k, n) in `dtype`,
+    the same for its forward, input and weight gradient: "tensor_cores"
+    (bf16 `mma.sync`) for bfloat16 where K and N are multiples of 8 (whole
+    16-byte rows, 8-wide n-tiles), at most 128 each (one block's warps),
+    and Wc is at most K4_TC_MAX_WC (the shared memory); "cuda_cores" (f32
+    FMAs) otherwise and for float32, where TF32 would break the port's
+    1e-4 card-against-CPU parity.  A model's fold with O % 8 == 0 takes the
+    tensor cores in bfloat16 at 64x64 clips wherever (g+2)*4C is a multiple
+    of 8 (g or C even).  This is the only place a route is chosen, before
+    any launch; a launch raises for a route its kernels cannot run."""
+    if (dtype == torch.bfloat16 and k % 8 == 0 and n % 8 == 0
+            and 0 < k <= 128 and 0 < n <= 128 and wc <= K4_TC_MAX_WC):
+        return "tensor_cores"
+    return "cuda_cores"
+
+
 def _library() -> ctypes.CDLL:
     lib = _build.library("s2d_conv")
     if not getattr(lib, "_typed", False):
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.s2d_conv_forward.argtypes = [p, p, p] + [i] * 9 + [p]
-        lib.s2d_conv_dgrad.argtypes = [p, p, p] + [i] * 6 + [p]
-        lib.s2d_conv_wgrad.argtypes = [p, p, p, p] + [i] * 9 + [ll, i, p]
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.s2d_conv_forward.argtypes = [p, p, p] + [i] * 7 + [p]
+        lib.s2d_conv_dgrad.argtypes = [p, p, p] + [i] * 7 + [p]
+        lib.s2d_conv_wgrad.argtypes = [p, p, p, p] + [i] * 7 + [p]
+        lib.s2d_conv_wgrad_scratch.argtypes = [i] * 7
+        lib.s2d_conv_wgrad_scratch.restype = ctypes.c_longlong
         for fn in (lib.s2d_conv_forward, lib.s2d_conv_dgrad,
                    lib.s2d_conv_wgrad):
             fn.restype = i
@@ -270,6 +299,12 @@ def _check(what: str, x: torch.Tensor, other: torch.Tensor) -> None:
                          f"C) operands, got {tuple(x.shape)}")
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t itself, or a copy where its data does not start on 16 bytes (a
+    view into a larger tensor): the kernels copy whole 16-byte rows."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _run(lib: ctypes.CDLL, fn: str, name: str, device: torch.device,
          *args) -> None:
     with torch.cuda.device(device):
@@ -280,66 +315,73 @@ def _run(lib: ctypes.CDLL, fn: str, name: str, device: torch.device,
                            f"({lib.error_string(rc).decode()})")
 
 
-def _launch_forward(x: torch.Tensor, w4: torch.Tensor, nslab: int
-                    ) -> torch.Tensor:
-    """x (R, Hc, Wc, nslab*K) x w4 (4, K, N) -> (R, Hc-1, Wc-1, nslab*N):
-    slab s contracts x's channels [s*K, (s+1)*K) into output channels
-    [s*N, (s+1)*N)."""
+def _launch_forward(x: torch.Tensor, w4: torch.Tensor) -> torch.Tensor:
+    """K4's forward: x (R, Hc, Wc, K) x w4 (4, K, N) -> (R, Hc-1, Wc-1, N),
+    on `k4_route`'s route."""
     _check("s2d_conv forward", x, w4)
-    rows, hc, wc, ktot = x.shape
-    k, n = w4.shape[1], w4.shape[2]
-    if w4.shape[0] != 4 or ktot != nslab * k or hc < 2 or wc < 2:
+    rows, hc, wc, k = x.shape
+    n = w4.shape[-1]
+    if w4.dim() != 3 or w4.shape[:2] != (4, k) or hc < 2 or wc < 2:
         raise ValueError(f"s2d_conv forward: x {tuple(x.shape)}, weights "
-                         f"{tuple(w4.shape)}, {nslab} slabs")
-    y = torch.empty((rows, hc - 1, wc - 1, nslab * n), dtype=x.dtype,
+                         f"{tuple(w4.shape)}")
+    y = torch.empty((rows, hc - 1, wc - 1, n), dtype=x.dtype,
                     device=x.device)
     if y.numel():
+        x, w4 = _aligned(x), _aligned(w4)
+        route = K4_ROUTES.index(k4_route(k, n, wc, x.dtype))
         _run(_library(), "s2d_conv_forward", "s2d_conv forward", x.device,
-             x.data_ptr(), w4.data_ptr(), y.data_ptr(), rows, hc, wc, ktot,
-             k, k, n, nslab, _DTYPE_CODES[x.dtype])
+             x.data_ptr(), w4.data_ptr(), y.data_ptr(), rows, hc, wc, k, n,
+             route, _DTYPE_CODES[x.dtype])
     return y
 
 
 def _launch_dgrad(ct: torch.Tensor, w4: torch.Tensor) -> torch.Tensor:
-    """ct (R, Ho, Wo, N) x w4 (4, K, N) -> dx (R, Ho+1, Wo+1, K)."""
+    """K4's input gradient: ct (R, Ho, Wo, N) x w4 (4, K, N) -> dx (R, Ho+1,
+    Wo+1, K): the kernel reads the taps flipped and transposed, w4[3 - t]^T
+    (4, N, K), a copy of w made here."""
     _check("s2d_conv dgrad", ct, w4)
     rows, ho, wo, n = ct.shape
-    k = w4.shape[1]
-    if w4.shape[0] != 4 or w4.shape[2] != n:
+    k = w4.shape[1] if w4.dim() == 3 else -1
+    if w4.dim() != 3 or w4.shape[0] != 4 or w4.shape[2] != n:
         raise ValueError(f"s2d_conv dgrad: cotangent {tuple(ct.shape)}, "
                          f"weights {tuple(w4.shape)}")
     dx = torch.empty((rows, ho + 1, wo + 1, k), dtype=ct.dtype,
                      device=ct.device)
     if dx.numel():
+        ct = _aligned(ct)
+        wflip = w4.flip(0).transpose(1, 2).contiguous()
+        route = K4_ROUTES.index(k4_route(k, n, wo + 1, ct.dtype))
         _run(_library(), "s2d_conv_dgrad", "s2d_conv dgrad", ct.device,
-             ct.data_ptr(), w4.data_ptr(), dx.data_ptr(), rows, ho, wo, k, n,
-             _DTYPE_CODES[ct.dtype])
+             ct.data_ptr(), wflip.data_ptr(), dx.data_ptr(), rows, ho, wo, k,
+             n, route, _DTYPE_CODES[ct.dtype])
     return dx
 
 
-def _launch_wgrad(x: torch.Tensor, ct: torch.Tensor, k: int, nslab: int
-                  ) -> torch.Tensor:
-    """x (R, Hc, Wc, nslab*k), ct (R, Hc-1, Wc-1, nslab*N) -> (4, k, N)
-    float32, summed over rows, pixels and slabs: per-block partial sums,
-    then one pass that adds them in a fixed order (no float atomics)."""
+def _launch_wgrad(x: torch.Tensor, ct: torch.Tensor) -> torch.Tensor:
+    """K4's weight gradient: x (R, Hc, Wc, K), ct (R, Hc-1, Wc-1, N) ->
+    (4, K, N) float32, summed over rows and pixels: per-block partial
+    sums over a grid fixed by the shapes, then one pass that adds them in a
+    fixed order (no float atomics)."""
     _check("s2d_conv wgrad", x, ct)
-    rows, hc, wc, ktot = x.shape
-    if (ct.shape[:3] != (rows, hc - 1, wc - 1) or ktot != nslab * k
-            or ct.shape[3] % nslab):
+    rows, hc, wc, k = x.shape
+    if ct.shape[:3] != (rows, hc - 1, wc - 1):
         raise ValueError(f"s2d_conv wgrad: x {tuple(x.shape)}, cotangent "
-                         f"{tuple(ct.shape)}, {nslab} slabs of {k}")
-    n = ct.shape[3] // nslab
+                         f"{tuple(ct.shape)}")
+    n = ct.shape[3]
     out = torch.empty((4, k, n), dtype=torch.float32, device=x.device)
-    m = rows * (hc - 1) * (wc - 1)
-    if m == 0:
+    if rows * (hc - 1) * (wc - 1) == 0 or out.numel() == 0:
         return out.zero_()
-    chunks = nslab * -(-m // WGRAD_CHUNK)
-    partial = torch.empty((chunks, 4, k, n), dtype=torch.float32,
-                          device=x.device)
-    _run(_library(), "s2d_conv_wgrad", "s2d_conv wgrad", x.device,
-         x.data_ptr(), ct.data_ptr(), partial.data_ptr(), out.data_ptr(),
-         rows, hc, wc, ktot, k, k, n, nslab, _DTYPE_CODES[x.dtype],
-         WGRAD_CHUNK, chunks)
+    x, ct = _aligned(x), _aligned(ct)
+    lib = _library()
+    geo = [rows, hc, wc, k, n, K4_ROUTES.index(k4_route(k, n, wc, x.dtype)),
+           _DTYPE_CODES[x.dtype]]
+    size = lib.s2d_conv_wgrad_scratch(*geo)
+    if size < 0:
+        raise ValueError(f"s2d_conv wgrad does not take x {tuple(x.shape)}, "
+                         f"cotangent {tuple(ct.shape)}")
+    partial = torch.empty(size, dtype=torch.float32, device=x.device)
+    _run(lib, "s2d_conv_wgrad", "s2d_conv wgrad", x.device, x.data_ptr(),
+         ct.data_ptr(), partial.data_ptr(), out.data_ptr(), *geo)
     return out
 
 
@@ -432,7 +474,7 @@ class _S2DFoldMatmul(torch.autograd.Function):
         ctx.save_for_backward(xf, wd)
         if _device(xf, "s2d_fold_matmul") == "cpu":
             return _xla_dot_core(xf, wd)
-        y = _launch_forward(xf, wd.reshape(4, wd.shape[2], wd.shape[3]), 1)
+        y = _launch_forward(xf, wd.reshape(4, wd.shape[2], wd.shape[3]))
         s2d_fold_matmul.launches += 1
         return y
 
@@ -453,7 +495,7 @@ class _S2DFoldMatmul(torch.autograd.Function):
             if on_cpu:
                 dw = s2d_matmul_wgrad_reference(xf, ct)
             else:
-                dw = _launch_wgrad(xf, ct, wd.shape[2], 1)
+                dw = _launch_wgrad(xf, ct)
                 s2d_fold_matmul.wgrad_launches += 1
             dw = dw.reshape(wd.shape).to(wd.dtype)
         return dx, dw
@@ -461,10 +503,11 @@ class _S2DFoldMatmul(torch.autograd.Function):
 
 def s2d_fold_matmul(xf: torch.Tensor, wd: torch.Tensor) -> torch.Tensor:
     """K4: xf (B*n, H/2+1, W/2+1, (g+2)*4C) x wd (2, 2, (g+2)*4C, g*O) ->
-    (B*n, H/2, W/2, g*O) in xf's dtype, float32 accumulation.  CUDA tensors
-    launch the Hopper kernels (forward; input and weight gradient in the
-    backward, each where autograd asks for it) or raise; CPU tensors take
-    the plain versions."""
+    (B*n, H/2, W/2, g*O) in xf's dtype, float32 accumulation; wd may hold
+    any values (the dense contract of `cvad_tpu`'s, :319-337).  CUDA
+    tensors launch the Hopper kernels on `k4_route`'s route (forward; input
+    and weight gradient in the backward, each where autograd asks for it)
+    or raise; CPU tensors take the plain versions."""
     return _S2DFoldMatmul.apply(xf.contiguous(), wd.contiguous())
 
 

@@ -133,7 +133,8 @@ def test_cpu_path_launches_nothing():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("mask", MASKS)
-@pytest.mark.parametrize("b,n", [(1, 7), (2, 256), (33, 1), (256, 256)])
+@pytest.mark.parametrize("b,n", [(1, 7), (2, 256), (33, 1), (256, 256),
+                                 (64, 16384), (33, 9000)])
 def test_kernels_match_plain_on_card(b, n, mask):
     """Forward within rtol 1e-5, backward within atol 1e-6 of the plain
     versions; a second call is bit-identical (no float atomics)."""

@@ -177,6 +177,94 @@ def test_k4_plain_backward_matches_pallas_kernel(part):
     np.testing.assert_allclose(_np(got), np.asarray(want), **tol)
 
 
+def _dense_k4(seed=9):
+    """K4's operands with a dense random wd, 0.1 N(0, 1) in every entry (the
+    scale of `_case`'s kernel, so the sums stay near the folded case's and
+    the file's absolute tolerances hold for float32 sums in another order):
+    the general contract of `s2d_fold_matmul` (any (2, 2, K, N) weights),
+    where the folded wd of the cases above is block-banded."""
+    rng = np.random.default_rng(seed)
+    x, _ = _case()
+    xf = _np(ps.s2d_fold_input(torch.from_numpy(x), G))
+    wd = (0.1 * rng.normal(size=(2, 2, xf.shape[-1], G * O))).astype(
+        np.float32)
+    ct = rng.normal(size=xf.shape[:1] + (H // 2, W // 2, G * O)).astype(
+        np.float32)
+    return xf, wd, ct
+
+
+@pytest.mark.parametrize("part", ["forward", "dgrad", "wgrad"])
+def test_k4_plain_matches_pallas_on_dense_weights(part):
+    """The port's plain K4 (the CPU route of `s2d_fold_matmul`, its
+    backward through the Function) against `cvad_tpu`'s K4 in interpret
+    mode on a dense random wd, at the file's K4 tolerances."""
+    import jax.numpy as jnp
+
+    from cvad_tpu.ops import pallas_s2d as jps
+
+    xf, wd, ct = _dense_k4()
+    if part == "forward":
+        got = _np(ps.s2d_fold_matmul(torch.from_numpy(xf),
+                                     torch.from_numpy(wd)))
+        want = jps.s2d_fold_matmul(jnp.asarray(xf), jnp.asarray(wd),
+                                   interpret=True)
+        tol = dict(atol=5e-6)
+    else:
+        xt = torch.from_numpy(xf).requires_grad_(True)
+        wt = torch.from_numpy(wd).requires_grad_(True)
+        gx, gw = torch.autograd.grad(ps.s2d_fold_matmul(xt, wt), (xt, wt),
+                                     torch.from_numpy(ct))
+        if part == "dgrad":
+            got = _np(gx)
+            want = jps._make_dgrad(True)(jnp.asarray(ct), jnp.asarray(wd),
+                                         jnp.float32)
+            tol = dict(atol=1e-5)
+        else:
+            got = _np(gw)
+            want = jps._make_wgrad(True)(jnp.asarray(xf), jnp.asarray(ct),
+                                         jnp.float32).reshape(wd.shape)
+            tol = dict(atol=1e-3, rtol=1e-5)
+    want = np.asarray(want)
+    assert got.shape == want.shape
+    assert (np.abs(want) > 1e-3).mean() > 0.99  # dense: no banded zeros
+    np.testing.assert_allclose(got, want, **tol)
+
+
+@pytest.mark.parametrize("k,n,wc,dtype,route", [
+    (120, 128, 33, torch.bfloat16, "tensor_cores"),  # g=8, C=3, O=16, 64x64
+    (120, 128, 33, torch.float32, "cuda_cores"),     # f32: never TF32
+    (40, 128, 33, torch.bfloat16, "tensor_cores"),   # grayscale, g=8
+    (72, 128, 9, torch.bfloat16, "tensor_cores"),    # O=32, g=4
+    (72, 64, 9, torch.bfloat16, "tensor_cores"),     # the small case
+    (72, 20, 9, torch.bfloat16, "cuda_cores"),       # N % 8 != 0
+    (36, 64, 9, torch.bfloat16, "cuda_cores"),       # K % 8 != 0
+    (136, 64, 9, torch.bfloat16, "cuda_cores"),      # K > 128
+    (72, 136, 9, torch.bfloat16, "cuda_cores"),      # N > 128
+    (128, 128, 38, torch.bfloat16, "tensor_cores"),  # the widest, at the
+    (128, 128, 39, torch.bfloat16, "cuda_cores"),    # Wc cap and past it
+    (120, 128, 65, torch.bfloat16, "cuda_cores"),    # 128x128 frames
+])
+def test_k4_route_by_shape(k, n, wc, dtype, route):
+    """`k4_route` chooses from the shapes alone, before any launch: the
+    tensor cores for bf16 with K, N multiples of 8 up to 128 at Wc up to
+    K4_TC_MAX_WC (where the shared memory fits), the CUDA cores otherwise
+    and for every float32 call."""
+    assert ps.k4_route(k, n, wc, dtype) == route
+
+
+@pytest.mark.parametrize("g,cin,cout,route", [
+    (8, 3, 16, "tensor_cores"), (4, 3, 32, "tensor_cores"),
+    (8, 1, 16, "tensor_cores"), (2, 3, 64, "tensor_cores"),
+    (1, 2, 128, "tensor_cores"),
+    (1, 3, 128, "cuda_cores")])  # K = 36: g and C odd
+def test_k4_route_for_model_widths(g, cin, cout, route):
+    """The folds a model builds (g*O <= 128, the fold's rule) with O % 8 ==
+    0 take the tensor cores in bfloat16 at 64x64 clips wherever K =
+    (g+2)*4C is a multiple of 8, that is where g or C is even."""
+    k, n = (g + 2) * 4 * cin, g * cout
+    assert ps.k4_route(k, n, 33, torch.bfloat16) == route
+
+
 # -- K5 ------------------------------------------------------------------------
 
 
@@ -305,6 +393,13 @@ def _card():
 
 
 CARD_CASES = [(2, 16, 16, 16, 4), (3, 64, 64, 64, 8), (1, 16, 10, 14, 8)]
+# K4 on dense random weights, (rows, Hc, Wc, K, N, the route in bf16): one
+# shape a route (N % 8 != 0 takes the CUDA cores), the main shape's width,
+# and the widest K and N at Wc = K4_TC_MAX_WC and one past it
+K4_DENSE = [(8, 9, 9, 72, 64, "tensor_cores"), (8, 9, 9, 72, 20, "cuda_cores"),
+            (6, 33, 33, 120, 128, "tensor_cores"),
+            (2, 9, ps.K4_TC_MAX_WC, 128, 128, "tensor_cores"),
+            (2, 9, ps.K4_TC_MAX_WC + 1, 128, 128, "cuda_cores")]
 
 
 def _card_inputs(b, t, h, w, g, dtype, seed=0, cin=C, cout=O):
@@ -335,22 +430,38 @@ def _wgrad_close(got, ref, what):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,t,h,w,g", CARD_CASES)
-def test_k4_kernels_match_plain_on_card(dtype, b, t, h, w, g):
+@pytest.mark.parametrize("case", CARD_CASES + K4_DENSE)
+def test_k4_kernels_match_plain_on_card(dtype, case):
+    """Forward, input and weight gradient against the plain versions, on
+    the folded kernel of CARD_CASES and on dense N(0, 1) weights at
+    K4_DENSE (the weight gradient compared in full), on the route
+    `k4_route` gives; a second call bit-identical."""
     flags = _card()
-    x, k = _card_inputs(b, t, h, w, g, dtype)
-    xf = ps.s2d_fold_input(x, g).contiguous()
-    wd = ps.s2d_fold_kernel(k, g).contiguous()
+    gen = torch.Generator("cuda").manual_seed(1)
+    if case in CARD_CASES:
+        b, t, h, w, g = case
+        bf16_route = "tensor_cores"
+        x, k = _card_inputs(b, t, h, w, g, dtype)
+        xf = ps.s2d_fold_input(x, g).contiguous()
+        wd = ps.s2d_fold_kernel(k, g).contiguous()
+    else:
+        rows, hc, wc, kc, n, bf16_route = case
+        xf = torch.rand((rows, hc, wc, kc), generator=gen,
+                        device="cuda").to(dtype)
+        wd = torch.randn((2, 2, kc, n), generator=gen,
+                         device="cuda").to(dtype)
     w4 = wd.reshape(4, wd.shape[2], wd.shape[3])
     ct = torch.randn((xf.shape[0], xf.shape[1] - 1, xf.shape[2] - 1,
-                      wd.shape[3]), generator=torch.Generator(
-                          "cuda").manual_seed(1), device="cuda").to(dtype)
+                      wd.shape[3]), generator=gen, device="cuda").to(dtype)
+    route = ps.k4_route(wd.shape[2], wd.shape[3], xf.shape[2], dtype)
+    assert route == (bf16_route if dtype == torch.bfloat16
+                     else "cuda_cores")
     with flags:
-        y = ps._launch_forward(xf, w4, 1)
+        y = ps._launch_forward(xf, w4)
         dx = ps._launch_dgrad(ct, w4)
-        dw = ps._launch_wgrad(xf, ct, wd.shape[2], 1)
-        again = (ps._launch_forward(xf, w4, 1), ps._launch_dgrad(ct, w4),
-                 ps._launch_wgrad(xf, ct, wd.shape[2], 1))
+        dw = ps._launch_wgrad(xf, ct)
+        again = (ps._launch_forward(xf, w4), ps._launch_dgrad(ct, w4),
+                 ps._launch_wgrad(xf, ct))
         xf32, wd32, ct32 = xf.float(), wd.float(), ct.float()
         ref_y = ps._xla_dot_core(xf32, wd32)
         ref_dx = ps.s2d_matmul_dgrad_reference(ct32, wd32)
@@ -430,14 +541,20 @@ def test_kernels_reject_what_they_do_not_take():
     x, k = _card_inputs(1, 16, 16, 16, 8, torch.float32)
     xg = ps.s2d_fold_groups(x, 8).contiguous()
     wdp = ps._pad_wd(ps.s2d_fold_kernel(k, 8)).contiguous()
+    # K4's kernels
+    xf = ps.s2d_fold_input(x, 8).contiguous()
+    w4 = ps.s2d_fold_kernel(k, 8).contiguous().reshape(4, xf.shape[-1], -1)
     with pytest.raises(TypeError):
-        ps._launch_forward(xg.half(), wdp.half(), 2)
+        ps._launch_forward(xf.half(), w4.half())
     with pytest.raises(TypeError):
-        ps._launch_forward(xg, wdp.bfloat16(), 2)
+        ps._launch_forward(xf, w4.bfloat16())
     with pytest.raises(ValueError):
-        ps._launch_forward(xg, wdp, 3)
+        ps._launch_forward(xf[..., :-8].contiguous(), w4)
     with pytest.raises(ValueError):
-        ps._launch_forward(xg.transpose(1, 2), wdp, 2)
+        ps._launch_forward(xf.transpose(1, 2), w4)
+    with pytest.raises(ValueError):
+        ps._launch_wgrad(xf, xf[:, 1:].contiguous())  # ct must be one
+                                                      # row and column less
     # K5's band kernels
     with pytest.raises(TypeError):
         ps._launch_group_forward(xg.half(), wdp.half(), 8, C, O)
