@@ -79,9 +79,12 @@ Phases:
            default lowering on the card (K1) and the K5 route's plain
            version on the CPU: within 1e-4
   long_train_parity  3 float32 steps at T=64, B=8 from seed 0 on the card
-           and on the CPU, both on the K5 route: tolerances as
-           train_parity's; each card step launches K5 forward and weight
-           gradient and K2 forward and backward once
+           and on the CPU, both on the K5 route: metrics within rtol 1e-4,
+           the parameters after 3 steps reported; at each step the card's
+           gradient at the CPU run's parameters on that step's batch, every
+           leaf within 1e-5 of its largest |CPU| entry; each card step and
+           gradient launches K5 forward and weight gradient and K2 forward
+           and backward once
   long_train  (main path 5) `Trainer.fit` at T=64, B=128, float32, 512
            synthetic train and 128 eval clips, uint8 transfer, 3 epochs,
            conv1 on K5; 2 epochs + restore + epoch 3 bit-identical to the
@@ -119,10 +122,12 @@ Phases:
            main shape, K2 and torch.cdist at (256, 256), (64, 16384) and
            (33, 9000) by CUDA events and on the card alone, K1 and
            F.conv3d on the same conv, the two layout copies around K5; K6
-           forward, dQ and dK/dV at (B, H, T, Dh) = (16, 1, 128, 128) and
-           (8, 1, 2048, 128) against its plain version and
-           F.scaled_dot_product_attention (backward alone for the
-           gradients), by CUDA events and on the card alone
+           forward, dQ and dK/dV at (B, H, T, Dh) = (16, 1, 128, 128),
+           (8, 1, 2048, 128) and (16, 1, 128, 256) against its plain
+           version and F.scaled_dot_product_attention (backward alone for
+           the gradients, the names of the kernels SDPA ran beside), by
+           CUDA events and on the card alone, with bounds at the 3xTF32
+           rate in float32 and the CUDA cores' beside them
 The kernels phase also holds K4 (forward, input and weight gradient) and
 K5 (forward, weight gradient), called through their wrappers and
 autograd, against their plain versions at B=2, T=16, 16x16 (RGB with g=4,
@@ -140,8 +145,9 @@ plain version's, its other entries must be exactly 0, and conv1's
 plain route's.  K6 (forward, dQ, dK, dV) is held through its autograd
 Function against autograd through its plain version at (B, H, T, Dh) in
 {(2, 1, 128, 128), (16, 1, 128, 128), (4, 2, 256, 128), (2, 1, 128, 256),
-(2, 1, 128, 512)}, causal and not, f32 and bf16 (TF32 off): forward f32
-within 1e-5,
+(2, 1, 128, 512)} and at its tile edges {(1, 1, 64, 128), (2, 1, 192,
+128), (5, 7, 256, 128), (3, 1, 192, 256), (1, 3, 64, 384), (1, 1, 64,
+640)}, causal and not, f32 and bf16 (TF32 off): forward f32 within 1e-5,
 gradients within 1e-5 of the largest entry in f32 and 2e-2 of it in bf16
 (bf16 forward too), a second call bit-identical, each counter one higher a
 call.
@@ -214,6 +220,11 @@ ATTN_PARITY_BATCH = 4
 FLASH_CASES = ((2, 1, 128, 128), (16, 1, 128, 128), (4, 2, 256, 128),
                (2, 1, 128, 256), (2, 1, 128, 512))
 FLASH_TIMES = ((16, 1, 128, 128), (8, 1, 2048, 128), (16, 1, 128, 256))
+# K6 at its tile edges (T = 64, T = 192, B*H = 35 on 64-row blocks, head
+# dims 384 and 640, the latter streamed), checked from their own generator
+# (LATER_CHECKS_SEED + 3)
+FLASH_EDGE_CASES = ((1, 1, 64, 128), (2, 1, 192, 128), (5, 7, 256, 128),
+                    (3, 1, 192, 256), (1, 3, 64, 384), (1, 1, 64, 640))
 # the port's CUDA kernels by symbol name (cvad_tpu_torch/csrc/*.cu), picked
 # out of the profiler's rows
 PORT_KERNELS = ("tfold_conv1_kernel", "pairwise_", "memory_min_cosine_kernel",
@@ -223,6 +234,8 @@ PORT_KERNELS = ("tfold_conv1_kernel", "pairwise_", "memory_min_cosine_kernel",
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and FLOP/s by type
 HBM_BYTES_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+# float32 products as 3xTF32 on the tensor cores: three TF32 products each
+TF32X3_FLOPS = 494.7e12 / 3
 
 
 _START = time.perf_counter()
@@ -404,8 +417,9 @@ def flash_grads(q, k, v, ct, causal: bool, fn=None) -> dict:
 def check_flash(rng: np.random.Generator) -> dict:
     """K6 forward, dQ and dK/dV through its autograd Function against
     autograd through `attention_reference` in float32 on the same (rounded)
-    inputs, TF32 off, at FLASH_CASES, causal and not, f32 and bf16; a
-    second call bit-identical and each counter one higher a call.  f32:
+    inputs, TF32 off, at FLASH_CASES and FLASH_EDGE_CASES, causal and
+    not, f32 and bf16; a second call bit-identical and each counter one
+    higher a call.  f32:
     forward within 1e-5, gradients within 1e-5 of the largest |ref| entry
     (float32 sums over T in another order); bf16: within 2e-2 of the
     largest entry (P and dS rounded to bf16 before their products, as the
@@ -416,9 +430,11 @@ def check_flash(rng: np.random.Generator) -> dict:
     check(not torch.backends.cuda.matmul.allow_tf32,
           "TF32 matmuls are on: the plain version would not be float32")
     errs, cases = {}, []
-    for shape in FLASH_CASES:
+    later = np.random.default_rng(LATER_CHECKS_SEED + 3)
+    for shape, gen in [(c, rng) for c in FLASH_CASES] + [
+            (c, later) for c in FLASH_EDGE_CASES]:
         for dtype in (torch.float32, torch.bfloat16):
-            q, k, v, ct = flash_inputs(rng, shape, dtype)
+            q, k, v, ct = flash_inputs(gen, shape, dtype)
             for causal in (False, True):
                 before = counts()
                 got = flash_grads(q, k, v, ct, causal)
@@ -1243,11 +1259,69 @@ def phase_long_model(state: dict, clips: np.ndarray) -> dict:
     return k5
 
 
+def step_grads(cfg, model, clips: np.ndarray, targets: np.ndarray,
+               step: int) -> dict:
+    """The gradient of one family-D train step at `model`'s parameters on
+    one batch: `train/tasks.py`'s train_step up to `autograd.grad`, without
+    the update (the same prep, generator seed, loss and cuDNN flags), on
+    the model's device; returned on the CPU by parameter name."""
+    from cvad_tpu_torch.ops.losses import improved_loss
+    from cvad_tpu_torch.train.tasks import card_numerics, prep_clips, step_seed
+
+    dev = next(model.parameters()).device
+    x = prep_clips(torch.from_numpy(clips).to(dev), cfg.data.normalize_clamp)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(step_seed(1, step))
+    names, params = zip(*model.named_parameters())
+    with card_numerics():
+        scores, adj, _ = model.train()(x, generator=gen)
+        total, _ = improved_loss(scores, adj, torch.from_numpy(targets).to(dev),
+                                 cfg.loss)
+        grads = torch.autograd.grad(total, params)
+    return {n: g.detach().cpu() for n, g in zip(names, grads)}
+
+
+def long_grad_parity(task, cfg, clips: np.ndarray, targets: np.ndarray
+                     ) -> tuple:
+    """Per-step gradients from the same parameters: the CPU runs the steps
+    from seed 0 and, before each, takes its gradient; the card takes the
+    gradient at the CPU's parameters of that step on the same batch.
+    Returns, for each step, every leaf's largest |card - CPU| over its
+    largest |CPU| entry; the card's launches over those gradient calls;
+    and the CPU run's metrics and final state."""
+    from cvad_tpu_torch.train.state import float_metrics
+
+    cpu = task.init_state(0, "cpu")
+    card = task.init_state(0, "cuda").model
+    before, steps, metrics = counts(), [], []
+    for i in range(clips.shape[0]):
+        want = step_grads(cfg, cpu.model, clips[i], targets[i], cpu.step)
+        card.load_state_dict(cpu.model.state_dict(), strict=True)
+        got = step_grads(cfg, card, clips[i], targets[i], cpu.step)
+        steps.append({n: (got[n] - g).abs().max().item()
+                      / max(g.abs().max().item(), 1e-30)
+                      for n, g in want.items()})
+        cpu, m = task.train_step(cpu, {
+            "clips": torch.from_numpy(clips[i]),
+            "pseudo_targets": torch.from_numpy(targets[i])}, 1)
+        metrics.append(float_metrics(m))
+    return (steps, {k: v - before[k] for k, v in counts().items()}, metrics,
+            cpu.model.state_dict())
+
+
 def phase_long_train_parity(rng: np.random.Generator) -> None:
     """3 float32 steps at T=64, B=8 from seed 0 on the card and on the CPU,
-    both on the K5 route, dropout 0 and injected pseudo-labels; tolerances
-    as train_parity's.  Each card step launches K5's forward and weight
-    gradient and K2's forward and backward once, K1 never."""
+    both on the K5 route, dropout 0 and injected pseudo-labels.  Metrics
+    within rtol 1e-4 over the two runs; each card step launches K5's
+    forward and weight gradient and K2's forward and backward once, K1
+    never.  The parameters after 3 Adam steps are reported, not bounded:
+    where a gradient is near 0, Adam's first steps (about lr * sign(g))
+    turn float32 rounding into differences of a good share of lr on some
+    data.  What is bounded is each step's gradient from the same
+    parameters: at each of the 3 steps the card computes the gradient at
+    the CPU run's parameters on that step's batch, and every leaf must lie
+    within 1e-5 of its largest |CPU| entry (float32 sums in another
+    order, the rule of the kernels' own checks)."""
     from cvad_tpu_torch.train.state import float_metrics
     from cvad_tpu_torch.train.tasks import build_task
 
@@ -1258,36 +1332,42 @@ def phase_long_train_parity(rng: np.random.Generator) -> None:
                          + LONG_CLIP, dtype=np.uint8)
     targets = (rng.uniform(size=(PARITY_STEPS, LONG_PARITY_BATCH)) < 0.25
                ).astype(np.float32)
-    runs = {}
-    for dev in ("cuda", "cpu"):
-        st = task.init_state(0, dev)
-        before, metrics = counts(), []
-        for i in range(PARITY_STEPS):
-            st, m = task.train_step(st, {
-                "clips": torch.from_numpy(clips[i]).to(dev),
-                "pseudo_targets": torch.from_numpy(targets[i]).to(dev)}, 1)
-            metrics.append(float_metrics(m))
-        rose = {k: v - before[k] for k, v in counts().items()}
-        runs[dev] = (metrics, {k: v.cpu() for k, v in
-                               st.model.state_dict().items()}, rose)
-    (mg, pg, rose), (mc, pc, cpu_rose) = runs["cuda"], runs["cpu"]
+    st = task.init_state(0, "cuda")
+    before, mg = counts(), []
+    for i in range(PARITY_STEPS):
+        st, m = task.train_step(st, {
+            "clips": torch.from_numpy(clips[i]).cuda(),
+            "pseudo_targets": torch.from_numpy(targets[i]).cuda()}, 1)
+        mg.append(float_metrics(m))
+    rose = {k: v - before[k] for k, v in counts().items()}
+    pg = {k: v.cpu() for k, v in st.model.state_dict().items()}
+    # the CPU steps, and the card's gradients at their parameters
+    grads, grad_rose, mc, pc = long_grad_parity(task, cfg, clips, targets)
     on_path = ("s2d_group_forward", "s2d_group_wgrad", "pairwise_l1_forward",
                "pairwise_l1_backward")
     check(all(v == (PARITY_STEPS if k in on_path else 0)
               for k, v in rose.items()),
           f"card launches over {PARITY_STEPS} long-window steps: {rose}")
-    check(not any(cpu_rose.values()), f"CPU steps launched {cpu_rose}")
+    check(all(v == (PARITY_STEPS if k in on_path else 0)
+              for k, v in grad_rose.items()),
+          f"card launches over {PARITY_STEPS} gradients and CPU steps: "
+          f"{grad_rose}")
     err_m = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-6)
                 for a, b in zip(mg, mc) for k in a)
     err_p = max((pg[k] - pc[k]).abs().max().item() for k in pg)
+    worst = [max(g.items(), key=lambda kv: kv[1]) for g in grads]
     emit({"phase": "long_train_parity", "batch": LONG_PARITY_BATCH,
           "clip": list(LONG_CLIP), "steps": PARITY_STEPS,
           "card_launches": rose, "loss_card": [m["loss"] for m in mg],
           "loss_cpu": [m["loss"] for m in mc],
-          "metrics_max_rel_err": err_m, "params_max_abs_err": err_p})
+          "metrics_max_rel_err": err_m, "params_max_abs_err": err_p,
+          "grad_worst_leaf_by_step": [{"leaf": n, "rel_err": e}
+                                      for n, e in worst]})
     check(err_m <= 1e-4, f"long-window card vs CPU metrics differ by {err_m}")
-    check(err_p <= 5e-5, f"long-window card vs CPU parameters differ by "
-                         f"{err_p}")
+    for i, (name, e) in enumerate(worst):
+        check(e <= 1e-5, f"long-window step {i + 1}: the card's gradient of "
+                         f"{name} differs from the CPU's by {e} of its "
+                         f"largest entry")
 
 
 def phase_long_train(workdir: Path) -> dict:
@@ -2072,7 +2152,11 @@ def flash_times(rng: np.random.Generator) -> list:
     three (QK^T recomputed, dO V^T, dS K), 6 B H T^2 Dh; the dK/dV kernel's
     four (QK^T and dO V^T recomputed, P^T dO, dS^T Q), 8 B H T^2 Dh; the
     backward as a whole needs at least 10 B H T^2 Dh
-    (`backward_bound_ms`)."""
+    (`backward_bound_ms`).  float32 products run as 3xTF32 on the tensor
+    cores, so the f32 bounds take that rate (TF32X3_FLOPS) and keep the
+    CUDA cores' beside them (`cuda_core_bound_ms`); bf16 takes the bf16
+    rate.  `library_kernels` names the kernels SDPA ran (the profiler's
+    busiest), which says which of its backends it took."""
     import torch.nn.functional as F
 
     from cvad_tpu_torch.ops import flash_attention as fa
@@ -2084,6 +2168,7 @@ def flash_times(rng: np.random.Generator) -> list:
         mm = 2 * b * h * t * t * dh  # one (T x Dh) x (Dh x T) product
         for dtype in (torch.float32, torch.bfloat16):
             size, peak = dtype.itemsize, PEAK_FLOPS[dtype]
+            tc_peak = TF32X3_FLOPS if dtype == torch.float32 else peak
             q, k, v, do = flash_inputs(rng, shape, dtype)
             o, lse = fa._launch_forward(q, k, v, False, scale)
             dq, dvec = fa._launch_dq(q, k, v, o, lse, do, False, scale)
@@ -2104,20 +2189,27 @@ def flash_times(rng: np.random.Generator) -> list:
                 return lambda: torch.autograd.grad(y, want, do,
                                                    retain_graph=True)
 
+            def bounds(nbytes: float, ops: float) -> dict:
+                """The bound at the kernel's product rate (float32: 3xTF32
+                on the tensor cores) and, beside it, at the CUDA cores'."""
+                b = bound(nbytes, ops, tc_peak)
+                return b | {"cuda_core_bound_ms":
+                            bound(nbytes, ops, peak)["bound_ms"]}
+
             calls = {
                 "forward": (
                     lambda: fa._launch_forward(q, k, v, False, scale),
                     lambda: plain(q, k, v), lambda: library(q, k, v),
-                    bound(4 * n * size + rows, 2 * mm, peak)),
+                    bounds(4 * n * size + rows, 2 * mm)),
                 "dq": (
                     lambda: fa._launch_dq(q, k, v, o, lse, do, False, scale),
                     backward_of(plain, (0,)), backward_of(library, (0,)),
-                    bound(6 * n * size + 2 * rows, 3 * mm, peak)),
+                    bounds(6 * n * size + 2 * rows, 3 * mm)),
                 "dkv": (
                     lambda: fa._launch_dkv(q, k, v, do, lse, dvec, False,
                                            scale),
                     backward_of(plain, (1, 2)), backward_of(library, (1, 2)),
-                    bound(6 * n * size + 2 * rows, 4 * mm, peak))}
+                    bounds(6 * n * size + 2 * rows, 4 * mm))}
             iters = 50 if t <= 128 else 5
             row = {"shape": list(shape),
                    "dtype": str(dtype).replace("torch.", "")}
@@ -2132,17 +2224,37 @@ def flash_times(rng: np.random.Generator) -> list:
                 r["share_of_bound"] = r["bound_ms"] / r["ms"]
                 r["device_share_of_bound"] = r["bound_ms"] / r["device_ms"]
                 row[part] = r
-            row["backward_bound_ms"] = bound(
-                8 * n * size + rows, 5 * mm, peak)["bound_ms"]
+            whole = bounds(8 * n * size + rows, 5 * mm)
+            row["backward_bound_ms"] = whole["bound_ms"]
+            row["backward_cuda_core_bound_ms"] = whole["cuda_core_bound_ms"]
             for key in ("ms", "device_ms"):
                 row[f"backward_{key}"] = row["dq"][key] + row["dkv"][key]
             library_bwd = backward_of(library, (0, 1, 2))
             row["library_backward_ms"] = cuda_ms(library_bwd, iters)
             row["library_backward_device_ms"] = device_ms(library_bwd, iters)
+            row["library_kernels"] = {
+                "forward": kernel_names(lambda: library(q, k, v)),
+                "backward": kernel_names(library_bwd)}
             out.append(row)
             del q, k, v, do, o, lse, dq, dvec, calls, library_bwd
     torch.cuda.empty_cache()
     return out
+
+
+def kernel_names(fn) -> list:
+    """The names of the CUDA kernels one call of `fn` runs (warm), busiest
+    first, from torch.profiler tracing the card alone."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = sorted(((e.device_time_total, e.key) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA), reverse=True)
+    return [key[:100] for _, key in rows]
 
 
 def bound(nbytes: float, ops: float, peak: float) -> dict:
@@ -2569,7 +2681,8 @@ def main() -> int:
             err = max(errs["flash"][f"{o}_{dt}"] for o in outs)
             return row(t[part], err) | {
                 key: t[part][key] for key in (
-                    "device_ms", "plain_device_ms", "library_device_ms")}
+                    "device_ms", "plain_device_ms", "library_device_ms",
+                    "cuda_core_bound_ms")}
 
         main, long, wide = FLASH_TIMES
         return {"name": name, "route": "cuda",

@@ -1,8 +1,9 @@
 // Helpers shared by the space-to-depth conv kernels (s2d_conv.cu, K4, and
-// s2d_group_conv.cu, K5) on Hopper (sm_90a): bf16 tensor-core products
-// through mma.sync, ldmatrix fragment loads, cp.async copies into shared
-// memory, division by a runtime constant, and the host's opt-in to more
-// than 48 KB of dynamic shared memory.  ops/_build.py hashes every
+// s2d_group_conv.cu, K5) and flash attention (flash_attention.cu, K6) on
+// Hopper (sm_90a): bf16 and TF32 tensor-core products through mma.sync,
+// the 3xTF32 split of a float32 operand, ldmatrix fragment loads, cp.async
+// copies into shared memory, division by a runtime constant, and the
+// host's opt-in to more than 48 KB of dynamic shared memory.  ops/_build.py hashes every
 // csrc/*.cuh into each library's name, so an edit here rebuilds both.
 
 #pragma once
@@ -40,6 +41,30 @@ __device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a b for one 16 x 8 tile, k = 8, TF32 operands in f32 registers
+// (a0..a3 rows g, g+8, g, g+8 and columns t, t, t+4, t+4; b0, b1 rows t,
+// t+4 and column g; c as in mma_bf16)
+__device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4],
+                                         const uint32_t b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// x = big + small: big = x rounded to TF32 (10 mantissa bits, to nearest,
+// ties away from zero: cvt.rna.tf32.f32's rounding, by integer ops), small
+// = x - big (exact), of which the tensor core reads the top 10 mantissa
+// bits (truncation).  A 3xTF32 product big.big + big.small + small.big
+// keeps about 21 bits of each operand, about float32's accuracy; one TF32
+// product keeps 10.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  small = __float_as_uint(x - __uint_as_float(big));
 }
 
 // four 8 x 8 bf16 matrices: lane 8j + i gives the address of row i of

@@ -22,6 +22,15 @@ from cvad_tpu_torch.runtime.checkpoint import (from_jax_temporal,
 # (B, H, T, Dh): the jnp path's shape in tests/test_attention.py, and the
 # flash configuration's (one 128-wide head over 128 frames)
 SHAPES = [(2, 2, 16, 32), (2, 1, 128, 128)]
+# the kernels' card cases (B, H, T, Dh)
+CARD_SHAPES = [(2, 1, 128, 128), (16, 1, 128, 128), (4, 2, 256, 128),
+               (2, 1, 128, 256), (2, 1, 128, 512)]  # head dim: 1, 2, 4 chunks
+# the kernels' tile edges: T = 64 (one tile) and T = 192 (no multiple of
+# 128); B*H = 35 with 140 blocks of 64 rows, enough to take the 64-row
+# blocks on a 132-SM card; head dim 384 (an output group of one chunk) and
+# 640 (5 chunks: the block's own rows stream instead of being staged)
+EDGE_SHAPES = [(1, 1, 64, 128), (2, 1, 192, 128), (5, 7, 256, 128),
+               (3, 1, 192, 256), (1, 3, 64, 384), (1, 1, 64, 640)]
 
 
 def _jax():
@@ -253,6 +262,78 @@ def test_temporal_tree_round_trips():
         np.testing.assert_array_equal(a, np.asarray(b))
 
 
+# -- why float32 takes three TF32 products ------------------------------------
+
+
+def _tf32(x: torch.Tensor, nearest: bool = True) -> torch.Tensor:
+    """float32 cut to TF32's 10 mantissa bits: to nearest with ties away
+    from zero (how the kernels round the large part, as
+    `cvt.rna.tf32.f32`), or toward zero (how the tensor cores read a float32
+    register, the small part)."""
+    bits = x.contiguous().view(torch.int32)
+    if nearest:
+        bits = bits + 0x1000
+    return (bits & ~0x1FFF).view(torch.float32)
+
+
+def _tc_product(a: torch.Tensor, b: torch.Tensor, terms: int
+                ) -> torch.Tensor:
+    """a @ b as the tensor cores take it from float32 operands: each split
+    into big = tf32(x) and small = x - big, of which the tensor cores read
+    10 bits; `terms` = 3 sums big.big + big.small + small.big, 1 only
+    big.big; products and sums exact (float64), the result float32."""
+    ab, bb = _tf32(a), _tf32(b)
+    out = ab.double() @ bb.double()
+    if terms == 3:
+        a_s, b_s = _tf32(a - ab, False), _tf32(b - bb, False)
+        out = out + ab.double() @ b_s.double() + a_s.double() @ bb.double()
+    return out.float()
+
+
+def _attention_tc(q, k, v, do, causal, terms):
+    """K6's forward and gradients with every product as `_tc_product`, the
+    rest in float32: (o, dq, dk, dv)."""
+    scale = q.shape[3] ** -0.5
+    s = _tc_product(q, k.transpose(-1, -2), terms) * scale
+    if causal:
+        t = q.shape[2]
+        s = s.masked_fill(~torch.tril(torch.ones(t, t, dtype=torch.bool)),
+                          float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    o = _tc_product(p, v, terms)
+    d = (do * o).sum(-1, keepdim=True)
+    ds = p * (_tc_product(do, v.transpose(-1, -2), terms) - d) * scale
+    return (o, _tc_product(ds, k, terms),
+            _tc_product(ds.transpose(-1, -2), q, terms),
+            _tc_product(p.transpose(-1, -2), do, terms))
+
+
+@pytest.mark.parametrize("shape", CARD_SHAPES)
+def test_three_tf32_products_meet_the_float32_tolerances(shape):
+    """The 3xTF32 split of K6's float32 products, emulated on the plain
+    version's products, stays within `check_flash`'s float32 tolerances
+    against the float32 plain version (forward within 1e-5, gradients
+    within 1e-5 of the largest entry), causal and not; one TF32 product
+    (big.big alone, TF32 as cuBLAS runs it) does not."""
+    rng = np.random.default_rng(4)
+    q, k, v, do = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+                   for _ in range(4))
+    for causal in (False, True):
+        xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        ref_o = fa.attention_reference(*xs, causal=causal,
+                                       sm_scale=shape[3] ** -0.5)
+        ref = (ref_o.detach(), *torch.autograd.grad(ref_o, xs, do))
+        tols = [1e-5] + [1e-5 * r.abs().max().item() for r in ref[1:]]
+        for terms in (3, 1):
+            got = _attention_tc(q, k, v, do, causal, terms)
+            errs = [(g - r).abs().max().item() for g, r in zip(got, ref)]
+            within = [e <= tol for e, tol in zip(errs, tols)]
+            if terms == 3:
+                assert all(within), (causal, errs, tols)
+            else:
+                assert not any(within), (causal, errs, tols)
+
+
 # -- the kernels on a card -------------------------------------------------
 
 
@@ -261,8 +342,6 @@ def _card():
         pytest.skip("needs a CUDA card")
 
 
-CARD_SHAPES = [(2, 1, 128, 128), (16, 1, 128, 128), (4, 2, 256, 128),
-               (2, 1, 128, 256), (2, 1, 128, 512)]  # head dim: 1, 2, 4 chunks
 
 
 def _card_case(shape, dtype, seed=0):
@@ -281,7 +360,7 @@ def _kernel_grads(q, k, v, ct, causal):
 @pytest.mark.cuda
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", CARD_SHAPES)
+@pytest.mark.parametrize("shape", CARD_SHAPES + EDGE_SHAPES)
 def test_kernels_match_plain_on_card(shape, dtype, causal):
     """Forward and dQ, dK, dV through the autograd Function against autograd
     through the plain version in float32 on the same (rounded) inputs:
