@@ -13,7 +13,9 @@ Phases:
   build    nvcc of every cvad_tpu_torch/csrc/*.cu (one process each, all
            started together), with the -Xptxas -v report
   kernels  each kernel against its plain PyTorch version on the card:
-           tfold_conv1 at B in {1, 3, 128, 256}, T=8, 64x64, C=3, O=16;
+           tfold_conv1 at B in {1, 3, 128, 256}, T=8, 64x64, C=3, O=16,
+           and at (B, T, H, W) in K1_EDGE (odd H and W, T=1, T=64, a
+           second call bit-identical);
            float32 within atol 1e-4, bfloat16 within |err| <= 1e-2*|ref|
            + 1e-5 against the plain version in float32 on the same
            bf16-rounded inputs;
@@ -30,9 +32,11 @@ Phases:
            within rtol 1e-5 (atol 1e-7), n_pairs exact, gradient within
            atol 1e-6, and a second call bit-identical;
            memory_min_cosine at B x M x D over {1..1024} x {1..4096} x
-           {64, 128} and at (16, 500, 2048), (8, 64, 4096) (2 and 4
-           1,024-wide chunks of D): within 1e-6, a second call
-           bit-identical
+           {64, 128}, at (16, 500, 2048), (8, 64, 4096), and at its tile
+           edges MEM_EDGE (B, M, D no multiple of a tile, D = 1025, 2048,
+           4096, fills inside a bank tile, a NaN query row each): within
+           1e-6, a second call bit-identical; every plan kind (tile,
+           split of D, 16- or 4-byte pieces) taken
   model    the family-D checkpoint scores 128 clips on the card (float32,
            TF32 off) and on the CPU: scores and adjacency within atol 1e-4
   serve    (main path 1) HTTP server on an ephemeral port, buckets
@@ -121,7 +125,11 @@ Phases:
            kernel (torch.profiler); K4 (with its route) and K5 at the
            main shape, K2 and torch.cdist at (256, 256), (64, 16384) and
            (33, 9000) by CUDA events and on the card alone, K1 and
-           F.conv3d on the same conv, the two layout copies around K5; K6
+           F.conv3d on the same conv at K1_TIMES (B, T) = (1, 8), (8, 8),
+           (256, 8), (128, 64) in f32 and bf16, K3 and its library
+           expression at MEM_SHAPES, MEM_WIDE and MEM_ATTN with each
+           launch's plan, both by CUDA events and on the card alone, the
+           two layout copies around K5; K6
            forward, dQ and dK/dV at (B, H, T, Dh) = (16, 1, 128, 128),
            (8, 1, 2048, 128) and (16, 1, 128, 256) against its plain
            version and F.scaled_dot_product_attention (backward alone for
@@ -188,6 +196,23 @@ MEM_SHAPES = ((256, 500, 64), (1024, 4096, 128))  # K3 timing (B, M, D)
 # K3 beyond one 1,024-wide chunk of D, and K2 beyond one 8,192-wide chunk
 # of N: checked against the plain versions and timed
 MEM_WIDE = ((16, 500, 2048), (8, 64, 4096))
+# K3 at the attention path's shape (train-b-attn-t128's eval: B=16, a bank
+# of 500 x 128), timed beside MEM_SHAPES and MEM_WIDE
+MEM_ATTN = (16, 500, 128)
+# K3 at its tile edges: B, M and D no multiple of any tile (64 x 64 or
+# 16 x 32, D in 32-wide steps), D = 1025 (4-byte pieces), 2048 and 4096,
+# each at fills {0, 1, a fill inside a bank tile, M}; with MEM_SHAPES they
+# take every (tile, split of D, piece width) the plan can pick.  Checked
+# from their own generator (LATER_CHECKS_SEED + 4).
+MEM_EDGE = ((33, 70, 100), (65, 65, 65), (17, 97, 1025), (130, 300, 1025),
+            (5, 33, 2048), (1, 500, 4096), (200, 700, 37), (600, 1500, 33),
+            (3, 7, 8))
+# K1 at odd shapes (B, T, H, W): odd H and W, T=1, the long window; f32
+# and bf16, from their own generator (LATER_CHECKS_SEED + 5)
+K1_EDGE = ((3, 5, 9, 7), (2, 1, 64, 64), (2, 64, 64, 64))
+# K1 timed at (B, T): serving buckets, the bulk and train batch, the long
+# window on the K1 route
+K1_TIMES = ((1, 8), (8, 8), (256, 8), (128, 64))
 PAIR_WIDE = (64, 16384)
 # K2 at a B that is no multiple of its 16-row tiles, at a wide N
 PAIR_ODD = (33, 9000)
@@ -227,7 +252,7 @@ FLASH_EDGE_CASES = ((1, 1, 64, 128), (2, 1, 192, 128), (5, 7, 256, 128),
                     (3, 1, 192, 256), (1, 3, 64, 384), (1, 1, 64, 640))
 # the port's CUDA kernels by symbol name (cvad_tpu_torch/csrc/*.cu), picked
 # out of the profiler's rows
-PORT_KERNELS = ("tfold_conv1_kernel", "pairwise_", "memory_min_cosine_kernel",
+PORT_KERNELS = ("tfold_conv1_", "pairwise_", "memory_min_cosine_",
                 "s2d_conv_", "s2d_wgrad_", "s2d_group_",
                 "flash_fwd_kernel",
                 "flash_bwd_")
@@ -376,6 +401,9 @@ def phase_kernels(rng: np.random.Generator) -> dict:
         check(within, f"tfold_conv1 bf16 B={b} beyond rtol 1e-2 "
                       f"(max abs err {e16})")
         err32, err16 = max(err32, e32), max(err16, e16)
+    edge = check_tfold_edges(np.random.default_rng(LATER_CHECKS_SEED + 5))
+    err32 = max(err32, max(c["f32_max_abs_err"] for c in edge))
+    err16 = max(err16, max(c["bf16_max_abs_err"] for c in edge))
     grad = check_tfold_grad(rng)
     widths = check_conv1_widths(rng)
     pair = check_pairwise(rng)
@@ -385,7 +413,8 @@ def phase_kernels(rng: np.random.Generator) -> dict:
     emit({"phase": "kernels", "s2d": s2d, "flash": flash, "kernels": [
         {"name": "tfold_conv1", "comparison_launches": tfold_conv1.launches,
          "max_abs_err_f32": err32, "max_abs_err_bf16": err16,
-         "cases": cases, "grad": grad, "other_widths": widths},
+         "cases": cases, "edges": edge, "grad": grad,
+         "other_widths": widths},
         {"name": "pairwise_l1", **pair},
         {"name": "memory_min_cosine", **mem}]})
     return {"f32": err32, "bf16": err16, "pair_fwd": pair["max_abs_err_avg"],
@@ -783,6 +812,9 @@ def check_memory(rng: np.random.Generator) -> dict:
         wide.append({"B": b, "M": m, "D": d, "max_abs_err": e})
         err = max(err, e)
         n_cases += 1
+    edges = check_memory_edges(np.random.default_rng(LATER_CHECKS_SEED + 4))
+    err = max(err, edges["max_abs_err"])
+    n_cases += edges["cases"]
     q, mem = memory_inputs(rng, 9, 500, 64)
     q[4, 7] = float("nan")
     got = memory_min_cosine_distance(q, mem, 500)
@@ -794,8 +826,95 @@ def check_memory(rng: np.random.Generator) -> dict:
           and bool(torch.isfinite(got[rest]).all()),
           f"memory_min_cosine NaN row: {got.tolist()}")
     return {"cases": n_cases, "max_abs_err": err, "nan_row_gives_nan": True,
-            "wide": wide,
+            "wide": wide, "edges": edges,
             "comparison_launches": memory_min_cosine_distance.launches}
+
+
+def check_memory_edges(rng: np.random.Generator) -> dict:
+    """K3 at MEM_EDGE, each at fills {0, 1, a fill inside a bank tile, M}:
+    within 1e-6 of the plain version, a second call bit-identical, and a
+    NaN query row giving NaN in that row alone; every plan kind (tile,
+    split of D or not, 16- or 4-byte pieces) that MEM_SHAPES, MEM_WIDE,
+    MEM_ATTN and these shapes give must have been taken."""
+    from cvad_tpu_torch.ops.pallas_kernels import (
+        memory_min_cosine_distance, memory_min_cosine_distance_reference,
+        memory_plan)
+    from cvad_tpu_torch.runtime.device import sm_count
+
+    sms = sm_count(torch.device("cuda", 0))
+    err, cases, kinds = 0.0, 0, set()
+    for b, m, d in MEM_EDGE + MEM_SHAPES + MEM_WIDE + (MEM_ATTN,):
+        plan = memory_plan(b, m, d, sms)
+        kinds.add((plan.tile, plan.splits > 1, d % 4 == 0))
+        if (b, m, d) not in MEM_EDGE:
+            continue  # checked at every fill in check_memory
+        q, mem = memory_inputs(rng, b, m, d)
+        q[b // 2, d // 3] = float("nan")
+        rest = [i for i in range(b) if i != b // 2]
+        for fill in sorted({0, 1, min(m, 37), m}):
+            f = torch.tensor(fill, dtype=torch.int32, device="cuda")
+            got = memory_min_cosine_distance(q, mem, f)
+            again = memory_min_cosine_distance(q, mem, f)
+            ref = memory_min_cosine_distance_reference(q, mem, f)
+            torch.cuda.synchronize()
+            case = f"B={b} M={m} D={d} fill={fill} plan={tuple(plan)}"
+            check(torch.equal(got.view(torch.int32),
+                              again.view(torch.int32)),
+                  f"memory_min_cosine not bit-identical at {case}")
+            check(fill == 0 or (bool(torch.isnan(got[b // 2]))
+                                and bool(torch.isfinite(got[rest]).all())),
+                  f"memory_min_cosine NaN row at {case}")
+            e = (got[rest] - ref[rest]).abs().max().item() if rest else 0.0
+            check(e <= 1e-6, f"memory_min_cosine err {e} at {case}")
+            err = max(err, e)
+            cases += 1
+    want = {(0, False, True), (0, False, False), (1, False, True),
+            (1, False, False), (1, True, True), (1, True, False)}
+    check(want <= kinds, f"K3 plan kinds taken: {sorted(kinds)}")
+    return {"cases": cases, "max_abs_err": err,
+            "plan_kinds": sorted(kinds)}
+
+
+def check_tfold_edges(rng: np.random.Generator) -> list:
+    """K1 at K1_EDGE (odd H and W, T=1, T=64) against its plain version on
+    the same inputs, f32 within atol 1e-4, bf16 within 1e-2 |ref| + 1e-5
+    of the plain version in float32 on the bf16-rounded inputs; a second
+    call bit-identical, each with the unit height (`k1_rows`) it took."""
+    from cvad_tpu_torch.ops.pallas_conv import (k1_rows, tfold_conv1,
+                                                tfold_conv1_reference)
+    from cvad_tpu_torch.runtime.device import sm_count
+
+    w = torch.from_numpy(rng.normal(0, 0.2, (16, 3, 3, 3, 3))
+                         .astype(np.float32)).cuda()
+    out = []
+    for b, t, h, wd in K1_EDGE:
+        x = torch.from_numpy(rng.uniform(0, 1, (b, 3, t, h, wd))
+                             .astype(np.float32)).cuda()
+        case = {"B": b, "T": t, "H": h, "W": wd,
+                "rows": k1_rows(b, t, h, wd, sm_count(x.device))}
+        for dtype in (torch.float32, torch.bfloat16):
+            xd, wdt = x.to(dtype), w.to(dtype)
+            with no_tf32():
+                ref = tfold_conv1_reference(xd.float(), wdt.float())
+            got = tfold_conv1(xd, wdt)
+            again = tfold_conv1(xd, wdt)
+            torch.cuda.synchronize()
+            name = str(dtype).replace("torch.", "")
+            check(got.shape == ref.shape and got.dtype == dtype,
+                  f"tfold_conv1 {name} shape at {case}")
+            check(torch.equal(got, again),
+                  f"tfold_conv1 {name} not bit-identical at {case}")
+            d = (got.float() - ref).abs()
+            if dtype == torch.float32:
+                e = d.max().item()
+                check(e <= 1e-4, f"tfold_conv1 f32 err {e} at {case}")
+                case["f32_max_abs_err"] = e
+            else:
+                check(bool((d <= 1e-2 * ref.abs() + 1e-5).all()),
+                      f"tfold_conv1 bf16 beyond rtol 1e-2 at {case}")
+                case["bf16_max_abs_err"] = d.max().item()
+        out.append(case)
+    return out
 
 
 def check_tfold_grad(rng: np.random.Generator) -> dict:
@@ -1939,15 +2058,21 @@ def phase_attn_train(workdir: Path) -> dict:
 
 
 def memory_times(rng: np.random.Generator) -> list:
-    """K3 at MEM_SHAPES and MEM_WIDE with a full bank: the kernel, the plain
-    version, and the library yardstick F.normalize + torch.mm + torch.where
-    + amin (which the port never calls), with the bound from this call's bytes
-    (each input read once, the output written once) and operations
+    """K3 at MEM_SHAPES, MEM_WIDE and MEM_ATTN with a full bank: the kernel,
+    the plain version, and the library yardstick F.normalize + torch.mm +
+    torch.where + amin (which the port never calls), by CUDA events (`ms`)
+    and, for the kernel and the library, on the card alone (`device_ms`,
+    `library_device_ms`: calls queued behind a spin kernel, since both are
+    host-bound at the small shapes), with the plan each launch took (tile,
+    split of D, grid of the tiles kernel) and the bound from this call's
+    bytes (each input read once, the output written once) and operations
     (2 B fill D at the float32 rate)."""
     import torch.nn.functional as F
 
     from cvad_tpu_torch.ops.pallas_kernels import (
-        _launch_memory, memory_min_cosine_distance_reference)
+        MEM_TILES, _launch_memory, memory_min_cosine_distance_reference,
+        memory_plan)
+    from cvad_tpu_torch.runtime.device import sm_count
 
     def library(q, mem, f):
         sims = torch.mm(F.normalize(q, dim=1, eps=1e-8),
@@ -1957,53 +2082,92 @@ def memory_times(rng: np.random.Generator) -> list:
                            3.0)
         return dist.amin(dim=1).clamp(0.0, 2.0) / 2.0
 
+    sms = sm_count(torch.device("cuda", 0))
     out = []
-    for b, m, d in MEM_SHAPES + MEM_WIDE:
+    for b, m, d in MEM_SHAPES + MEM_WIDE + (MEM_ATTN,):
         q, mem = memory_inputs(rng, b, m, d)
         f = torch.tensor(m, dtype=torch.int32, device="cuda")
         err = (library(q, mem, f) - _launch_memory(q, mem, f)).abs().max()
+        plan = memory_plan(b, m, d, sms)
+
+        def kernel():
+            return _launch_memory(q, mem, f)
+
         t = {"B": b, "M": m, "D": d, "fill": m,
-             "ms": cuda_ms(lambda: _launch_memory(q, mem, f), iters=200),
+             "ms": cuda_ms(kernel, iters=200),
+             "device_ms": device_ms(kernel, iters=200),
              "plain_ms": cuda_ms(lambda: memory_min_cosine_distance_reference(
                  q, mem, f), iters=50),
              "library_ms": cuda_ms(lambda: library(q, mem, f), iters=50),
+             "library_device_ms": device_ms(lambda: library(q, mem, f),
+                                            iters=50),
              "library_max_abs_diff": err.item(),
+             "plan": {"tile": MEM_TILES[plan.tile], "splits": plan.splits,
+                      "chunk": plan.chunk, "grid": plan.grid},
              **bound(((b + m) * d + b + 1) * 4, 2 * b * m * d,
                      PEAK_FLOPS[torch.float32])}
         t["share_of_bound"] = t["bound_ms"] / t["ms"]
+        t["device_share_of_bound"] = t["bound_ms"] / t["device_ms"]
         out.append(t)
     return out
 
 
 def kernel_times(rng: np.random.Generator, dtype: torch.dtype) -> dict:
-    """tfold_conv1 at the bulk shape (B=256): kernel, plain version and the
-    library conv, with the bound from this call's bytes and operations."""
+    """tfold_conv1 at K1_TIMES (B, T) on 64x64 clips: the kernel and the
+    library conv F.conv3d (which the port never calls), by CUDA events and
+    on the card alone, each with its bound from this call's bytes and
+    operations (81 MACs an output element); the plain version at the bulk
+    shape (B=256, T=8) only, whose row is returned at the top level."""
     import torch.nn.functional as F
 
-    from cvad_tpu_torch.ops.pallas_conv import (tfold_conv1,
+    from cvad_tpu_torch.ops.pallas_conv import (k1_rows, tfold_conv1,
                                                 tfold_conv1_reference)
+    from cvad_tpu_torch.runtime.device import sm_count
 
-    x = torch.from_numpy(rng.uniform(0, 1, (BULK_BATCH, 3) + CLIP[:3])
-                         .astype(np.float32)).cuda().to(dtype)
+    # the bulk shape's inputs from `rng`, as before the other shapes were
+    # added (so that every later phase's data stays as it was); theirs
+    # from a generator of their own
+    x_bulk = torch.from_numpy(rng.uniform(0, 1, (BULK_BATCH, 3) + CLIP[:3])
+                              .astype(np.float32)).cuda().to(dtype)
     w = torch.from_numpy(rng.normal(0, 0.2, (16, 3, 3, 3, 3))
                          .astype(np.float32)).cuda().to(dtype)
-    y = tfold_conv1(x, w)
-    with no_tf32():
-        ms = cuda_ms(lambda: tfold_conv1(x, w), iters=50)
-        plain_ms = cuda_ms(lambda: tfold_conv1_reference(x, w), iters=10)
-        library_ms = cuda_ms(lambda: F.conv3d(x, w, stride=(1, 2, 2),
-                                              padding=1), iters=50)
-    size = x.element_size()
-    nbytes = (x.numel() + w.numel() + y.numel()) * size
-    flops = 2 * 3 * 27 * y.numel()       # 81 MACs per output element
-    bytes_ms = nbytes / HBM_BYTES_S * 1e3
-    ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
-    bound = max(bytes_ms, ops_ms)
-    return {"dtype": str(dtype).replace("torch.", ""), "B": BULK_BATCH,
-            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound,
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "share_of_bound": bound / ms, "bytes": nbytes, "flops": flops}
+    gen = torch.Generator("cuda").manual_seed(LATER_CHECKS_SEED + 6)
+    sms = sm_count(torch.device("cuda", 0))
+    shapes = []
+    for b, t in K1_TIMES:
+        x = x_bulk if (b, t) == (BULK_BATCH, CLIP[0]) else torch.rand(
+            (b, 3, t) + CLIP[1:3], generator=gen, device="cuda").to(dtype)
+        y = tfold_conv1(x, w)
+        iters = 50 if b * t <= BULK_BATCH * CLIP[0] else 20
+
+        def kernel():
+            return tfold_conv1(x, w)
+
+        def library():
+            return F.conv3d(x, w, stride=(1, 2, 2), padding=1)
+
+        with no_tf32():
+            r = {"B": b, "T": t, "rows": k1_rows(b, t, *CLIP[1:3], sms),
+                 "ms": cuda_ms(kernel, iters),
+                 "device_ms": device_ms(kernel, iters),
+                 "library_ms": cuda_ms(library, iters),
+                 "library_device_ms": device_ms(library, iters),
+                 **bound((x.numel() + w.numel() + y.numel())
+                         * x.element_size(), 2 * 3 * 27 * y.numel(),
+                         PEAK_FLOPS[dtype])}
+            if (b, t) == (BULK_BATCH, CLIP[0]):
+                r["plain_ms"] = cuda_ms(lambda: tfold_conv1_reference(x, w),
+                                        iters=10)
+        r["share_of_bound"] = r["bound_ms"] / r["ms"]
+        r["device_share_of_bound"] = r["bound_ms"] / r["device_ms"]
+        shapes.append(r)
+        del x, y
+    del x_bulk
+    main = next(r for r in shapes if (r["B"], r["T"]) == (BULK_BATCH,
+                                                          CLIP[0]))
+    torch.cuda.empty_cache()
+    return {"dtype": str(dtype).replace("torch.", ""), **main,
+            "shapes": shapes}
 
 
 def s2d_times(rng: np.random.Generator) -> dict:
@@ -2661,6 +2825,13 @@ def main() -> int:
                 "T": LONG_CLIP[0], **s2d_row("float32"),
                 "bfloat16": s2d_row("bfloat16"), "card": dev["card"]}
 
+    def mem_row(t: dict) -> dict:
+        """A K3 row: the event times, the card's time alone beside them and
+        the launch's plan."""
+        return {k: t[k] for k in ("B", "M", "D")} | row(
+            t, errs["memory"]) | {k: t[k] for k in (
+                "device_ms", "library_device_ms", "plan")}
+
     def pair_row(t: dict, part: str, err: float) -> dict:
         """A K2 row: the event times, and the card's time alone beside
         them."""
@@ -2704,8 +2875,11 @@ def main() -> int:
          "replaces": "cvad_tpu/ops/pallas_conv.py:178",
          **launches("tfold_conv1"),
          "dtype": "float32", "B": BULK_BATCH,
-         **row(times32, errs["f32"]),
-         "bfloat16": row(times16, errs["bf16"]),
+         **row(times32, errs["f32"]), "device_ms": times32["device_ms"],
+         "bfloat16": row(times16, errs["bf16"])
+         | {"device_ms": times16["device_ms"]},
+         "shapes": {"float32": times32["shapes"],
+                    "bfloat16": times16["shapes"]},
          "backward_plain_ms": k1_bwd, "card": dev["card"]},
         {"name": "pairwise_l1_forward", "route": "cuda",
          "source": "cvad_tpu_torch/csrc/pairwise_l1.cu",
@@ -2731,13 +2905,10 @@ def main() -> int:
          "source": "cvad_tpu_torch/csrc/memory_cosine.cu",
          "replaces": "cvad_tpu/ops/pallas_kernels.py:102",
          **launches("memory_min_cosine"),
-         "dtype": "float32", "B": mem_t[0]["B"], "M": mem_t[0]["M"],
-         "D": mem_t[0]["D"], **row(mem_t[0], errs["memory"]),
-         "large": {k: mem_t[1][k] for k in ("B", "M", "D")}
-         | row(mem_t[1], errs["memory"]),
-         "wide": [{k: t[k] for k in ("B", "M", "D")}
-                  | row(t, errs["memory"]) for t in mem_t[2:]],
-         "card": dev["card"]},
+         "dtype": "float32", **mem_row(mem_t[0]),
+         "large": mem_row(mem_t[1]),
+         "wide": [mem_row(t) for t in mem_t[2:4]],
+         "attention": mem_row(mem_t[4]), "card": dev["card"]},
         *(s2d_entry(name, line, counter) for name, line, counter in (
             ("s2d_group_conv_forward", 418, "s2d_group_forward"),
             ("s2d_group_conv_wgrad", 468, "s2d_group_wgrad"),

@@ -31,9 +31,13 @@ import torch
 import torch.nn.functional as F
 
 from cvad_tpu_torch.ops import _build
+from cvad_tpu_torch.runtime.device import sm_count
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_CIN, KERNEL_COUT = 3, 16  # the one instantiation csrc/ builds
+# a unit of the kernel's work: 8 output frames (one warp each), 32 output
+# columns and K1_ROWS output rows (csrc/tfold_conv1.cu's kFrames, kCols)
+K1_FRAMES, K1_COLS, K1_ROWS = 8, 32, (4, 1)
 
 
 def kernel_takes(cin: int, cout: int) -> bool:
@@ -42,6 +46,22 @@ def kernel_takes(cin: int, cout: int) -> bool:
     cuDNN's Conv3d, decided by these shapes before any launch, as
     `cvad_tpu` runs XLA's conv at every width (its pallas_conv.py:254-259)."""
     return (cin, cout) == (KERNEL_CIN, KERNEL_COUT)
+
+
+def k1_units(b: int, t: int, h: int, w: int, rows: int) -> int:
+    """K1's units of work at `rows` output rows a unit: 32 output columns x
+    `rows` rows x 8 frames of one clip each.  The persistent kernels launch
+    as many blocks as the card holds at once, at most one a unit."""
+    ho, wo = (h - 1) // 2 + 1, (w - 1) // 2 + 1
+    return (-(-wo // K1_COLS) * -(-ho // rows) * -(-t // K1_FRAMES) * b)
+
+
+def k1_rows(b: int, t: int, h: int, w: int, sms: int) -> int:
+    """Output rows a unit of K1 covers: 4 where that gives each SM two
+    units or more, else 1 (small serving batches), so that more blocks
+    share the work."""
+    big = K1_ROWS[0]
+    return big if k1_units(b, t, h, w, big) >= 2 * sms else K1_ROWS[1]
 
 
 def fold_group_size(t: int, cout: int) -> int:
@@ -117,12 +137,14 @@ def _launch(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     fn = lib.tfold_conv1_forward
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    rows = k1_rows(b, t, h, w, sm_count(x.device))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(x.data_ptr(), weight.data_ptr(), y.data_ptr(), b, c, t, h, w,
-                KERNEL_COUT, _DTYPE_CODES[x.dtype], stream)
+                KERNEL_COUT, _DTYPE_CODES[x.dtype], rows, stream)
     if rc != 0:
         err = lib.tfold_conv1_error_string
         err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p

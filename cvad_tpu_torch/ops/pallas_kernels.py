@@ -17,9 +17,12 @@ score, out[b] = clamp(min_{j < fill} (1 - clip(q^_b . m^_j, -1, 1)), 0, 2)
   CPU tensors take the plain version.  Its backward is autograd through the
   `_memory_xla` twin, as `cvad_tpu`'s custom VJP (:116-131) does; there is
   no backward kernel.  ``memory_min_cosine_distance.launches`` counts
-  kernel launches.  The fill stays on the device: no call reads it on the
-  host.  The kernel takes any D: it loops over 1,024-wide chunks of it,
-  as `cvad_tpu`'s kernel takes any D (:93-113).
+  wrapper calls that launch (one call launches three kernels: the
+  inverse norms, the tiles and the combine; it counts once).  The fill
+  stays on the device: no call reads it on the host.  The kernels take
+  any B, M and D, as `cvad_tpu`'s kernel takes any D (:93-113);
+  `memory_plan` picks their tile and split of D from the shapes and the
+  card's SM count.
 
 K2, `pairwise_l1_mean`: for flat (B, N) and mask (B,) in {0, 1} it returns
 (avg, n_pairs): the mean over unordered pairs i<j with both rows in the mask
@@ -48,11 +51,12 @@ family-D path those are the adjacency's zero diagonal, which the model's
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
 from cvad_tpu_torch.ops import _build
+from cvad_tpu_torch.runtime.device import sm_count
 
 _EPS = 1e-8
 
@@ -109,11 +113,55 @@ def _check_memory(query: torch.Tensor, memory: torch.Tensor,
                          f"{tuple(fill.shape)}")
 
 
+# K3's tiles, by config: (query rows, bank rows) a block computes
+# (csrc/memory_cosine.cu's kTileQ / kTileM)
+MEM_TILES = ((64, 64), (16, 32))
+MEM_CHUNK_ALIGN = 16  # a chunk of a split D is a multiple of this
+
+
+class MemoryPlan(NamedTuple):
+    """K3's launch plan: tile config (an index into MEM_TILES), D cut into
+    `splits` chunks of `chunk` columns (the last may be shorter), the
+    tiles kernel's grid (bank tiles, query tiles, splits) and the float32
+    scratch it needs (inverse norms, then partial minima or, with a split
+    D, partial dot products)."""
+    tile: int
+    splits: int
+    chunk: int
+    grid: Tuple[int, int, int]
+    scratch: int
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def memory_plan(b: int, m: int, d: int, sms: int) -> MemoryPlan:
+    """The largest tile whose grid alone gives a block per SM; where no tile
+    does, the smallest, with D split into chunks (multiples of
+    MEM_CHUNK_ALIGN wide) until the grid does or the chunks are that
+    narrow."""
+    for tile, (bq, bm) in enumerate(MEM_TILES):
+        tiles = _ceil(b, bq) * _ceil(m, bm)
+        if tiles >= sms:
+            break
+    if tiles >= sms:
+        chunk = MEM_CHUNK_ALIGN * _ceil(d, MEM_CHUNK_ALIGN)
+    else:
+        chunk = MEM_CHUNK_ALIGN * max(
+            1, d // (MEM_CHUNK_ALIGN * _ceil(sms, tiles)))
+    splits = _ceil(d, chunk)
+    parts = splits * b * m if splits > 1 else _ceil(m, bm) * b
+    return MemoryPlan(tile, splits, chunk, (_ceil(m, bm), _ceil(b, bq),
+                                            splits), b + m + parts)
+
+
 def _memory_library() -> ctypes.CDLL:
     lib = _build.library("memory_cosine")
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.memory_min_cosine_forward.argtypes = [p, p, p, p, i, i, i, p]
+        lib.memory_min_cosine_forward.argtypes = [
+            p, p, p, p, ctypes.c_longlong, p, i, i, i, i, i, i, p]
         lib.memory_min_cosine_forward.restype = i
         lib.memory_min_cosine_error_string.argtypes = [i]
         lib.memory_min_cosine_error_string.restype = ctypes.c_char_p
@@ -129,14 +177,17 @@ def _launch_memory(query: torch.Tensor, memory: torch.Tensor,
         raise ValueError(f"the memory kernel takes B, M and D >= 1, got "
                          f"B={b}, M={m}, D={d}")
     fill32 = fill.reshape(1).to(torch.int32)
+    plan = memory_plan(b, m, d, sm_count(query.device))
+    scratch = torch.empty(plan.scratch, dtype=torch.float32,
+                          device=query.device)
     out = torch.empty(b, dtype=torch.float32, device=query.device)
     lib = _memory_library()
     with torch.cuda.device(query.device):
         stream = torch.cuda.current_stream(query.device).cuda_stream
-        rc = lib.memory_min_cosine_forward(query.data_ptr(),
-                                           memory.data_ptr(),
-                                           fill32.data_ptr(), out.data_ptr(),
-                                           b, m, d, stream)
+        rc = lib.memory_min_cosine_forward(
+            query.data_ptr(), memory.data_ptr(), fill32.data_ptr(),
+            scratch.data_ptr(), plan.scratch, out.data_ptr(), b, m, d,
+            plan.tile, plan.splits, plan.chunk, stream)
     if rc != 0:
         raise RuntimeError(
             f"memory_min_cosine kernel launch failed: CUDA error {rc} "

@@ -24,3 +24,17 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     if dev.type not in ("cuda", "cpu"):
         raise RuntimeError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev
+
+
+_SMS = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """The streaming multiprocessors of a CUDA device (the kernels' launch
+    plans size their grids by it), read once a device."""
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if index not in _SMS:
+        _SMS[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return _SMS[index]

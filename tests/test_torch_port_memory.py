@@ -1,7 +1,9 @@
 """K3, the memory-bank min cosine distance: the port's plain version (the
 CPU path of `memory_min_cosine_distance`) against `cvad_tpu`'s Pallas kernel
 in interpret mode and its XLA expression, the min-fill gate, the gradient
-against `jax.grad`, and the CUDA kernel against the plain version on a card.
+against `jax.grad`, the CUDA kernels' launch plan (`memory_plan`) and an
+emulation of what they compute under it, and the CUDA kernels against the
+plain version on a card.
 
 JAX and `cvad_tpu` are imported inside the tests that use them, so that the
 card tests run on a machine without flax.
@@ -16,8 +18,9 @@ import torch
 from cvad_tpu_torch.models.family_b import (MemoryBankState,
                                             memory_anomaly_score)
 from cvad_tpu_torch.ops.pallas_kernels import (
-    memory_distance_xla_reference, memory_min_cosine_distance,
-    memory_min_cosine_distance_reference)
+    MEM_CHUNK_ALIGN, MEM_TILES, memory_distance_xla_reference,
+    memory_min_cosine_distance, memory_min_cosine_distance_reference,
+    memory_plan)
 
 
 def _inputs(b, m, d, seed=0):
@@ -214,3 +217,129 @@ def test_kernel_nan_and_limits_on_card():
     with pytest.raises(ValueError):
         memory_min_cosine_distance(torch.zeros(2, 0, device="cuda"),
                                    torch.zeros(3, 0, device="cuda"), 1)
+
+
+# ---------------------------------------------------------------------------
+# the kernel's launch plan (pure Python) and an emulation of what the three
+# kernels compute under it
+# ---------------------------------------------------------------------------
+
+H100_SMS = 132
+# the shapes chip_smoke.py times (MEM_SHAPES, MEM_WIDE, MEM_ATTN)
+TIMED = [(256, 500, 64), (1024, 4096, 128), (16, 500, 2048), (8, 64, 4096),
+         (16, 500, 128)]
+PLANNED = TIMED + [(1, 1, 1), (1, 500, 64), (7, 10, 1025), (33, 70, 100),
+                   (65, 65, 65), (600, 1500, 33), (1024, 1, 64), (3, 7, 8)]
+
+
+@pytest.mark.parametrize("b,m,d", PLANNED)
+def test_memory_plan_covers_every_row_and_column(b, m, d):
+    """The tiles kernel's grid covers every query row, bank row and column
+    of D exactly once (chunks of a multiple of 16, the last no wider), the
+    scratch holds the inverse norms and the partials, and the grid fits
+    CUDA's limits."""
+    plan = memory_plan(b, m, d, H100_SMS)
+    bq, bm = MEM_TILES[plan.tile]
+    gm, gq, gz = plan.grid
+    assert (gm - 1) * bm < m <= gm * bm
+    assert (gq - 1) * bq < b <= gq * bq and gq <= 65535
+    assert gz == plan.splits and plan.chunk % MEM_CHUNK_ALIGN == 0
+    assert (plan.splits - 1) * plan.chunk < d <= plan.splits * plan.chunk
+    parts = plan.splits * b * m if plan.splits > 1 else gm * b
+    assert plan.scratch == b + m + parts
+
+
+@pytest.mark.parametrize("b,m,d", TIMED)
+def test_memory_plan_fills_the_card(b, m, d):
+    """At every timed shape the grid has a block per SM of the H100, or D
+    is already cut into the narrowest chunks; the main path's (256, 500,
+    64) and the large bank keep D whole."""
+    plan = memory_plan(b, m, d, H100_SMS)
+    blocks = plan.grid[0] * plan.grid[1] * plan.grid[2]
+    assert blocks >= H100_SMS or plan.chunk == MEM_CHUNK_ALIGN
+    assert blocks >= 0.9 * H100_SMS
+    if (b, m, d) in [(256, 500, 64), (1024, 4096, 128)]:
+        assert plan.splits == 1
+
+
+def _emulate(q, mem, fill, plan):
+    """What the norms, tiles and combine kernels compute under `plan`, in
+    float32 numpy: partial minima over the bank tiles below the fill, or
+    partial dot products over the chunks of D summed in split order."""
+    b, d = q.shape
+    m = mem.shape[0]
+    _, bm = MEM_TILES[plan.tile]
+    f = min(max(fill, 0), m)
+    inv_q = (1 / np.sqrt((q * q).sum(1) + np.float32(1e-8))).astype(
+        np.float32)
+    inv_m = (1 / np.sqrt((mem * mem).sum(1) + np.float32(1e-8))).astype(
+        np.float32)
+
+    def dist(dot, cols):
+        s = dot * inv_q[:, None] * inv_m[None, cols]
+        return 1 - np.clip(s, -1, 1)
+
+    best = np.full(b, 3.0, np.float32)
+    if plan.splits == 1:
+        for t in range(plan.grid[0]):
+            cols = np.arange(t * bm, min((t + 1) * bm, f))
+            if t * bm >= f:
+                continue  # the block exits at once
+            best = np.minimum(best, dist(q @ mem[cols].T, cols).min(1))
+    elif f:
+        dot = np.zeros((b, f), np.float32)
+        for z in range(plan.splits):
+            ks = slice(z * plan.chunk, (z + 1) * plan.chunk)
+            dot = dot + q[:, ks] @ mem[:f, ks].T
+        best = np.minimum(best, dist(dot, np.arange(f)).min(1))
+    return np.clip(best, 0, 2) / 2
+
+
+@pytest.mark.parametrize("b,m,d", [(33, 70, 100), (5, 33, 2048),
+                                   (65, 65, 65), (200, 150, 64)])
+@pytest.mark.parametrize("sms", [4, H100_SMS])
+def test_plan_emulation_matches_plain(b, m, d, sms):
+    """The plan's partials (minima by bank tile, or dot products by chunk
+    of D), combined as the kernels combine them, give the plain version
+    within 1e-6 at fills 0, 1, inside a bank tile and M: the plan drops
+    no row, column or chunk, and masks the fill where the kernels do."""
+    q, mem = _inputs(b, m, d, seed=b + m + d)
+    plan = memory_plan(b, m, d, sms)
+    for fill in sorted({0, 1, min(m, 37), m}):
+        ref = memory_min_cosine_distance_reference(
+            torch.from_numpy(q), torch.from_numpy(mem),
+            torch.tensor(fill)).numpy()
+        np.testing.assert_allclose(_emulate(q, mem, fill, plan), ref,
+                                   rtol=0, atol=1e-6, err_msg=f"{fill}")
+
+
+# K3 on the card at its tile edges: B, M and D no multiple of a tile, D =
+# 1025 (4-byte pieces), 2048 and 4096, a fill inside a bank tile, and every
+# plan kind (tile, split of D or not, piece width)
+CARD_EDGES = [(33, 70, 100), (65, 65, 65), (17, 97, 1025), (130, 300, 1025),
+              (5, 33, 2048), (1, 500, 4096), (200, 700, 37),
+              (600, 1500, 33), (3, 7, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,m,d", CARD_EDGES)
+def test_kernel_tile_edges_on_card(b, m, d):
+    """At fills {0, 1, 37, M}: within 1e-6 of the plain version, a second
+    call bit-identical, one count a call, and a NaN query row NaN alone."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    q, mem = (torch.from_numpy(a).cuda() for a in _inputs(b, m, d, seed=3))
+    q[b // 2, d // 3] = float("nan")
+    rest = [i for i in range(b) if i != b // 2]
+    for fill in sorted({0, 1, min(m, 37), m}):
+        f = torch.tensor(fill, dtype=torch.int32, device="cuda")
+        before = memory_min_cosine_distance.launches
+        got = memory_min_cosine_distance(q, mem, f)
+        again = memory_min_cosine_distance(q, mem, f)
+        torch.cuda.synchronize()
+        assert memory_min_cosine_distance.launches == before + 2
+        assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+        ref = memory_min_cosine_distance_reference(q, mem, f)
+        torch.testing.assert_close(got[rest], ref[rest], rtol=0, atol=1e-6)
+        if fill:
+            assert torch.isnan(got[b // 2]) and torch.isfinite(got[rest]).all()
