@@ -26,8 +26,9 @@
 // and column, ~25 M -> 0.37 us at 67 TFLOP/s float32: operations bound,
 // under 1 us.  The backward reads f and writes g (0.52 MB, 0.16 us) and does
 // ~3 operations per masked (i, j, k), ~45 M -> 0.7 us: operations bound.
-// Launch latency (a few us) dominates both; the design aims at being exact,
-// deterministic and free of the (B, B, N) intermediate, not at the bound.
+// Launch latency (a few us) dominates both at that shape; the designs aim
+// at filling the card with blocks that reuse what they load, at being
+// exact and deterministic, and at never forming the (B, B, N) intermediate.
 //
 // Design:
 // - forward, pass 1: the rows are cut into tiles of 16 and N into chunks
@@ -43,16 +44,40 @@
 // - forward, pass 2: one block of 1,024 threads adds the scratch in a fixed
 //   order (thread t every 1,024th entry from t, then a fixed tree), sums m
 //   and m^2, and writes avg and n_pairs to the device: no host round trip.
-// - backward: one thread per (i, k), a loop over j; neighbouring threads
-//   read neighbouring k of row j, so the loads coalesce.  It stages nothing,
-//   so it takes any N as it is: the chunks of N are its blocks, in no
-//   order, each output summed by one thread over j in order.  It reads
-//   n_pairs and the cotangent from device memory: no host round trip.
+// - backward: block (column chunk, row tile, j split) of 256 threads.  The
+//   plan (ops/pallas_kernels.py::pairwise_backward_plan, from B, N and the
+//   SM count) sets the chunk (cols = 32, 64, 128 or 256 columns: the
+//   narrowest whose row tile, 256 / cols x kBwdRows rows, B fills), the
+//   number S <= 8 of j splits (enough blocks for two a SM where 8 splits
+//   of whole 8-row pieces allow it) and the rows staged at a time.
+//   Thread t owns column t % cols of the chunk and kBwdRows = 8 rows i of
+//   the tile, their x = f_ik and sums in registers, so each staged f_jk
+//   serves 8 compare-and-add steps, not one.  The split's j rows are
+//   staged with their mask by cp.async (16-byte pieces where N % 4 == 0
+//   and f is 16-byte aligned, 4-byte ones otherwise; columns past N
+//   zero-filled) into one of two buffers, the next tile's copies in flight
+//   while this one is summed; a tile whose rows all lie out of the mask is
+//   not summed (a uniform branch on the staged mask).  sign(x - y) is
+//   set.gt - set.lt, which is 0 at ties and for NaN.  With S = 1 the block
+//   applies the scale and writes g.  With S > 1 the S blocks of a (chunk,
+//   tile) form one thread-block cluster (Hopper): each leaves its sums in
+//   its shared memory, and after a cluster barrier block z adds, for every
+//   S-th group of 256 outputs from the z-th on, the S blocks' sums in rank
+//   order through distributed shared memory and applies the scale: one
+//   launch, no scratch in device memory.  With m in {0, 1} every sum is an
+//   integer below 2^24, so g is exact and does not depend on S, and so not
+//   on the card's SM count.  The scale is c m_i / (n_pairs N) as the plain
+//   version rounds it; n_pairs and the cotangent are read from device
+//   memory: no host round trip.
 // No float atomics anywhere: repeated runs are bit-identical.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <climits>
+#include <cstdint>
+
+#include "hopper_mma.cuh"
 
 namespace {
 
@@ -159,31 +184,167 @@ pairwise_finalize_kernel(const float* __restrict__ partial,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-pairwise_backward_kernel(const float* __restrict__ f,
-                         const float* __restrict__ m,
-                         const float* __restrict__ n_pairs,
-                         const float* __restrict__ cotangent,
-                         float* __restrict__ g, int batch, int n) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long long)batch * n) return;
-  const int i = (int)(idx / n);
-  const int k = (int)(idx - (long long)i * n);
-  const float pairs = *n_pairs;
-  const float mi = m[i];
-  if (!(pairs > 0.f) || mi == 0.f) {
-    g[idx] = 0.f;
+// ---------------------------------------------------------------------------
+// backward
+
+constexpr int kBwdThreads = 256;
+constexpr int kBwdRows = 8;      // rows i a thread holds in registers (R)
+constexpr int kBwdStage = 4096;  // floats of one staged tile of j rows
+constexpr int kBwdMaxStageRows = kBwdStage / 32;  // at the narrowest chunk
+constexpr int kBwdMaxSplits = 8;  // a portable cluster's blocks
+constexpr int kBwdOutputs = kBwdThreads * kBwdRows;  // a block's outputs
+static_assert(kBwdOutputs <= kBwdStage, "a block's sums fit a stage buffer");
+
+// 4 bytes global -> shared, asynchronously; zero where !valid
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
+// 1.0f where a > b, else 0.0f (also for NaN): one FSET
+__device__ __forceinline__ float set_gt(float a, float b) {
+  float r;
+  asm("set.gt.f32.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+// c m_i / (n_pairs N) as the plain version rounds it; 0 without pairs or
+// out of the mask
+__device__ __forceinline__ float bwd_scale(float pairs, float c, float mi,
+                                           int n) {
+  return pairs > 0.f && mi != 0.f ? c * mi / (pairs * (float)n) : 0.f;
+}
+
+// rows [jt, jt + rows) of f, columns [k0, k0 + cols), into fs (row-major,
+// cols a row; columns past n zero-filled), and their mask into ms
+template <bool kVec>
+__device__ __forceinline__ void stage_tile(float* fs, float* ms,
+                                           const float* f, const float* m,
+                                           int jt, int rows, int k0,
+                                           int cols, int n) {
+  const int tid = threadIdx.x;
+  if (tid < rows) cp_async4(ms + tid, m + jt + tid, true);
+  if (kVec) {  // 16-byte pieces, cols / 4 a row
+    const int per_row = cols >> 2;
+    for (int p = tid; p < rows * per_row; p += kBwdThreads) {
+      const int r = p / per_row, c = (p - r * per_row) * 4;
+      const bool ok = k0 + c < n;
+      cp_async16(fs + r * cols + c,
+                 ok ? f + (long long)(jt + r) * n + k0 + c : f, ok);
+    }
+  } else {
+    for (int p = tid; p < rows * cols; p += kBwdThreads) {
+      const int r = p / cols, c = p - r * cols;
+      const bool ok = k0 + c < n;
+      cp_async4(fs + r * cols + c,
+                ok ? f + (long long)(jt + r) * n + k0 + c : f, ok);
+    }
+  }
+}
+
+// block (column chunk, row tile, j split), the splits of a (chunk, tile)
+// one cluster; see the header
+template <bool kVec>
+__global__ void __launch_bounds__(kBwdThreads)
+pairwise_backward_tiles_kernel(const float* __restrict__ f,
+                               const float* __restrict__ m,
+                               const float* __restrict__ n_pairs,
+                               const float* __restrict__ cotangent,
+                               float* __restrict__ out, int batch, int n,
+                               int cols, int span, int stage_rows) {
+  __shared__ __align__(16) float fs[2][kBwdStage];
+  __shared__ float ms[2][kBwdMaxStageRows];
+  const int tid = threadIdx.x;
+  const int col = tid & (cols - 1);
+  const int k0 = blockIdx.x * cols;
+  const int k = k0 + col;
+  const int i0 = blockIdx.y * (kBwdThreads / cols * kBwdRows)
+                 + tid / cols * kBwdRows;
+  const int j0 = blockIdx.z * span;
+  const int j1 = min(batch, j0 + span);
+  const int tiles = (j1 - j0 + stage_rows - 1) / stage_rows;
+
+  // what the epilogue scales by, read while the first tile is staged
+  const float pairs = __ldg(n_pairs), c = __ldg(cotangent);
+  float x[kBwdRows], acc[kBwdRows], mi[kBwdRows];
+#pragma unroll
+  for (int r = 0; r < kBwdRows; ++r) {
+    const int i = i0 + r;
+    x[r] = i < batch && k < n ? __ldg(f + (long long)i * n + k) : 0.f;
+    mi[r] = i < batch ? __ldg(m + i) : 0.f;
+    acc[r] = 0.f;
+  }
+
+  stage_tile<kVec>(fs[0], ms[0], f, m, j0, min(stage_rows, j1 - j0), k0,
+                   cols, n);
+  cp_async_commit();
+  for (int t = 0; t < tiles; ++t) {
+    if (t + 1 < tiles) {
+      const int jt = j0 + (t + 1) * stage_rows;
+      stage_tile<kVec>(fs[(t + 1) & 1], ms[(t + 1) & 1], f, m, jt,
+                       min(stage_rows, j1 - jt), k0, cols, n);
+    }
+    cp_async_commit();  // possibly empty: the wait below stays uniform
+    cp_async_wait<1>();
+    // thread r staged the mask of row r: after its wait it reads its own
+    // copy, and the barrier makes the whole tile visible to every thread
+    const int rows = min(stage_rows, j1 - (j0 + t * stage_rows));
+    if (__syncthreads_or(tid < rows && ms[t & 1][tid] != 0.f)) {
+      const float* fb = fs[t & 1] + col;
+      const float* mb = ms[t & 1];
+#pragma unroll 4
+      for (int jj = 0; jj < rows; ++jj) {
+        const float y = fb[jj * cols];
+        const float w = mb[jj];
+#pragma unroll
+        for (int r = 0; r < kBwdRows; ++r)
+          acc[r] = fmaf(w, set_gt(x[r], y) - set_gt(y, x[r]), acc[r]);
+      }
+    }
+    __syncthreads();  // the buffer is read before it is staged again
+  }
+
+  if (gridDim.z == 1) {  // the only split: scale and write g
+    if (k >= n) return;
+#pragma unroll
+    for (int r = 0; r < kBwdRows; ++r) {
+      const int i = i0 + r;
+      if (i < batch)
+        out[(long long)i * n + k] = acc[r] * bwd_scale(pairs, c, mi[r], n);
+    }
     return;
   }
-  const float x = f[idx];
-  float acc = 0.f;
-  for (int j = 0; j < batch; ++j) {
-    const float mj = m[j];
-    if (mj == 0.f) continue;  // uniform over the warp
-    const float d = x - f[(long long)j * n + k];
-    acc = fmaf(mj, (float)((d > 0.f) - (d < 0.f)), acc);
+  // S > 1: this block's sums into its (now idle) stage buffer, output e of
+  // the tile at e = row * cols + column; the cluster's blocks then add the
+  // S sums of each output in rank order
+  float* part = fs[0];
+#pragma unroll
+  for (int r = 0; r < kBwdRows; ++r)
+    part[(tid / cols * kBwdRows + r) * cols + col] = acc[r];
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const int splits = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int row0 = blockIdx.y * (kBwdOutputs / cols);
+  for (int e = rank * kBwdThreads + tid; e < kBwdOutputs;
+       e += splits * kBwdThreads) {
+    const int i = row0 + e / cols, kk = k0 + (e & (cols - 1));
+    const float scale = i < batch ? bwd_scale(pairs, c, __ldg(m + i), n)
+                                  : 0.f;
+    float v[kBwdMaxSplits];  // every block's sum in flight at once
+#pragma unroll
+    for (int s = 0; s < kBwdMaxSplits; ++s)
+      v[s] = s < splits ? cluster.map_shared_rank(part, s)[e] : 0.f;
+    float sum = 0.f;
+#pragma unroll
+    for (int s = 0; s < kBwdMaxSplits; ++s)
+      if (s < splits) sum += v[s];
+    if (i < batch && kk < n) out[(long long)i * n + kk] = sum * scale;
   }
-  g[idx] = acc * (*cotangent * mi / (pairs * (float)n));
+  cluster.sync();  // no block leaves while another still reads its sums
 }
 
 }  // namespace
@@ -223,21 +384,54 @@ extern "C" int pairwise_l1_forward(const void* flat, const void* mask,
 }
 
 // Backward: grad (B, N) = d avg / d flat times the cotangent, which is read
-// from device memory like n_pairs (the forward's output).
+// from device memory like n_pairs (the forward's output).  The plan comes
+// from ops/pallas_kernels.py::pairwise_backward_plan: `cols` columns a
+// block (32, 64, 128 or 256), `span` j rows a split (S = ceil(B / span)
+// splits, at most 8: one cluster), `stage_rows` j rows staged at a time.
+// Launches on `stream` and returns cudaGetLastError() (0 on success); a
+// plan or shape the kernel does not take returns cudaErrorInvalidValue
+// without launching.
 extern "C" int pairwise_l1_backward(const void* flat, const void* mask,
                                     const void* n_pairs,
                                     const void* cotangent, void* grad,
-                                    int batch, int n, void* stream) {
-  if (batch <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
-  const long long total = (long long)batch * n;
-  const long long blocks = (total + kThreads - 1) / kThreads;
-  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  pairwise_backward_kernel<<<(unsigned)blocks, kThreads, 0, s>>>(
-      static_cast<const float*>(flat), static_cast<const float*>(mask),
-      static_cast<const float*>(n_pairs),
-      static_cast<const float*>(cotangent), static_cast<float*>(grad), batch,
-      n);
+                                    int batch, int n, int cols, int span,
+                                    int stage_rows, void* stream) {
+  if (batch <= 0 || n <= 0 || span <= 0 || stage_rows <= 0 ||
+      stage_rows > span)
+    return (int)cudaErrorInvalidValue;
+  if (cols != 32 && cols != 64 && cols != 128 && cols != 256)
+    return (int)cudaErrorInvalidValue;
+  if (stage_rows * cols > kBwdStage) return (int)cudaErrorInvalidValue;
+  const long long chunks = ((long long)n + cols - 1) / cols;
+  const int tiles = (batch + kBwdOutputs / cols - 1) / (kBwdOutputs / cols);
+  const int splits = (batch + span - 1) / span;
+  if (chunks > INT_MAX || tiles > 65535 || splits > kBwdMaxSplits)
+    return (int)cudaErrorInvalidValue;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = 1;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = splits;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)chunks, tiles, splits);
+  cfg.blockDim = dim3(kBwdThreads);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = cluster;
+  cfg.numAttrs = 1;
+  const float* f = static_cast<const float*>(flat);
+  const float* m = static_cast<const float*>(mask);
+  const float* np = static_cast<const float*>(n_pairs);
+  const float* ct = static_cast<const float*>(cotangent);
+  float* g = static_cast<float*>(grad);
+  const cudaError_t err =
+      n % 4 == 0 && reinterpret_cast<uintptr_t>(flat) % 16 == 0
+          ? cudaLaunchKernelEx(&cfg, pairwise_backward_tiles_kernel<true>, f,
+                               m, np, ct, g, batch, n, cols, span,
+                               stage_rows)
+          : cudaLaunchKernelEx(&cfg, pairwise_backward_tiles_kernel<false>,
+                               f, m, np, ct, g, batch, n, cols, span,
+                               stage_rows);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

@@ -9,7 +9,9 @@ The layout inside is torch's (B, C, T, H, W).  Module names give the
 reference's state-dict keys, so a reference ``best_improved_model.pth``
 loads with ``load_state_dict(strict=True)``.  With ``cfg.dtype='bfloat16'``
 the conv stack and ``fc`` run in bf16 by explicit casts (parameters stay
-float32), and the heads run in float32, as in `cvad_tpu`.
+float32), and the heads run in float32, as in `cvad_tpu`.  Otherwise
+everything runs in the parameters' type: float32, or float64 for a model
+cast with ``.double()`` (a float64 reference on the CPU).
 
 Dropout (``cfg.dropout``, after ``fc`` and inside the graph encoder) applies
 in ``train()`` mode, the counterpart of flax's ``deterministic=False``, and
@@ -112,7 +114,8 @@ class CompactFeatureExtractor(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        x = x.to(self.dtype)
+        heads = self.fc.weight.dtype  # the parameters' type
+        x = x.to(self.dtype if self.dtype == torch.bfloat16 else heads)
         route = conv1_route(self.cfg, *x.shape[2:],
                             on_cpu=x.device.type == "cpu")
         x = F.relu(self.conv3d_1(x, route))
@@ -124,7 +127,7 @@ class CompactFeatureExtractor(nn.Module):
         # NCTHW flattens channel-major, the order the reference fc expects
         x = x.reshape(x.shape[0], -1)
         x = F.linear(x, self.fc.weight.to(x.dtype), self.fc.bias.to(x.dtype))
-        return dropout(x, self.p, self.training, generator).float()
+        return dropout(x, self.p, self.training, generator).to(heads)
 
 
 class DifferentiableCausalDiscovery(nn.Module):

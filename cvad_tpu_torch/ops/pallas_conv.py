@@ -98,11 +98,13 @@ def fold_kernel(weight: torch.Tensor, t: int) -> torch.Tensor:
 def tfold_conv1_reference(x: torch.Tensor, weight: torch.Tensor
                           ) -> torch.Tensor:
     """Plain version: Conv3d(k=3, stride=(1,2,2), padding=1, no bias) of
-    x (B, C, T, H, W) as the folded stride-2 conv, accumulated in float32,
-    returned as (B, O, T, Ho, Wo) in x's dtype."""
+    x (B, C, T, H, W) as the folded stride-2 conv, accumulated in float32
+    (float64 for float64 operands), returned as (B, O, T, Ho, Wo) in x's
+    dtype."""
     b, _, t, _, _ = x.shape
     o = weight.shape[0]
-    y = F.conv2d(fold_input(x.float()), fold_kernel(weight.float(), t),
+    acc = torch.promote_types(x.dtype, torch.float32)
+    y = F.conv2d(fold_input(x.to(acc)), fold_kernel(weight.to(acc), t),
                  stride=2)
     ho, wo = y.shape[-2:]
     return (y.view(b, t, o, ho, wo).transpose(1, 2).contiguous()

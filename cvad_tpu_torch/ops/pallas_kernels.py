@@ -36,10 +36,17 @@ of mean_k |f_ik - f_jk| (0 when there is no pair), and the pair count.
   backward, or raise; CPU tensors take the two plain versions.
   ``pairwise_l1_mean.launches`` and ``pairwise_l1_mean.backward_launches``
   count kernel launches (one forward launch runs the kernel's two passes).
-  The kernels take any N (the flattened adjacency, causal_dim^2 wide), as
-  `cvad_tpu` computes any width (:184-199): the forward's blocks each take
-  a pair of 16-row tiles and a 512-wide chunk of N, and a second pass adds
-  their partials in a fixed order.
+  The kernels take any B and N (the flattened adjacency, causal_dim^2
+  wide), as `cvad_tpu` computes any width (:184-199): the forward's blocks
+  each take a pair of 16-row tiles and a 512-wide chunk of N, and a second
+  pass adds their partials in a fixed order.  The backward's blocks each
+  take a chunk of columns, a tile of rows i (8 a thread, in registers) and
+  one of S <= 8 ranges of rows j, which they stage in shared memory;
+  `pairwise_backward_plan` picks the chunk, S and the staged rows from B,
+  N and the card's SM count.  Where S > 1 the S blocks of a chunk and row
+  tile form one thread-block cluster and add their partial sums in order
+  through distributed shared memory.  With a mask in {0, 1} the partials
+  are integers, so the gradient is exact and the same for every S.
 
 The mask and n_pairs get no gradient, as in `cvad_tpu`.  The derivative of
 |x| at 0 is taken as 0 (torch's convention; JAX's is +1), so at exact ties
@@ -243,8 +250,8 @@ memory_min_cosine_distance.launches = 0
 def pairwise_l1_reference(flat: torch.Tensor, mask: torch.Tensor
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version (`_pairwise_xla`): (avg, n_pairs) from the full
-    (B, B, N) broadcast."""
-    m = mask.float()
+    (B, B, N) broadcast, in float32 (float64 for float64 `flat`)."""
+    m = mask.to(torch.promote_types(flat.dtype, torch.float32))
     d = (flat[:, None, :] - flat[None, :, :]).abs().mean(-1)
     b = flat.shape[0]
     upper = torch.triu(torch.ones((b, b), dtype=d.dtype, device=d.device), 1)
@@ -260,8 +267,9 @@ def pairwise_l1_backward_reference(flat: torch.Tensor, mask: torch.Tensor,
                                    cotangent: torch.Tensor) -> torch.Tensor:
     """Closed-form gradient of `avg` w.r.t. `flat`, times `cotangent`:
     g_ik = c m_i / (n_pairs N) sum_j m_j sign(f_ik - f_jk), 0 when there is
-    no pair; sign(0) = 0, as autograd of |x| gives."""
-    m = mask.float()
+    no pair; sign(0) = 0, as autograd of |x| gives.  In float32 (float64
+    for float64 `flat`)."""
+    m = mask.to(torch.promote_types(flat.dtype, torch.float32))
     n = flat.shape[1]
     sgn = torch.sign(flat[:, None, :] - flat[None, :, :])  # (B, B, N)
     acc = (m[None, :, None] * sgn).sum(1)                  # (B, N)
@@ -288,6 +296,57 @@ def _check(flat: torch.Tensor, mask: torch.Tensor) -> None:
         raise ValueError("pairwise_l1_mean takes contiguous flat and mask")
 
 
+# K2's backward blocks (csrc/pairwise_l1.cu): threads a block, rows i a
+# thread holds, floats of one staged tile of rows j, the rows j of a split
+# come in multiples of PAIR_BWD_SPAN_ALIGN, and a (chunk, row tile) takes
+# at most PAIR_BWD_MAX_SPLITS splits (one portable cluster)
+PAIR_BWD_THREADS = 256
+PAIR_BWD_ROWS = 8
+PAIR_BWD_STAGE = 4096
+PAIR_BWD_SPAN_ALIGN = 8
+PAIR_BWD_MAX_SPLITS = 8
+PAIR_BWD_COLS = (32, 64, 128, 256)
+PAIR_BWD_BLOCKS_PER_SM = 2  # the splits of rows j aim at this many blocks
+
+
+class PairwiseBackwardPlan(NamedTuple):
+    """K2's backward launch plan: `cols` columns and `rows` rows i a block
+    (PAIR_BWD_THREADS // cols threads a column, PAIR_BWD_ROWS rows each),
+    rows j cut into `splits` ranges of `span` rows (the last may hold
+    fewer), `stage_rows` of them staged at a time; the grid (column
+    chunks, row tiles, splits), whose splits of one chunk and tile are one
+    cluster."""
+    cols: int
+    rows: int
+    splits: int
+    span: int
+    stage_rows: int
+    grid: Tuple[int, int, int]
+
+
+def pairwise_backward_plan(b: int, n: int, sms: int) -> PairwiseBackwardPlan:
+    """The narrowest column chunk whose row tile B fills (the widest for B
+    under 8), then rows j split into the widest ranges, each a multiple of
+    PAIR_BWD_SPAN_ALIGN rows and at most PAIR_BWD_MAX_SPLITS of them, that
+    give the grid PAIR_BWD_BLOCKS_PER_SM blocks a SM (the most splits
+    where none do)."""
+    for cols in PAIR_BWD_COLS:
+        rows = PAIR_BWD_THREADS // cols * PAIR_BWD_ROWS
+        if rows <= b:
+            break
+    base = _ceil(n, cols) * _ceil(b, rows)
+    want = min(PAIR_BWD_MAX_SPLITS,
+               _ceil(PAIR_BWD_BLOCKS_PER_SM * sms, base))
+    spans = [s for s in range(PAIR_BWD_SPAN_ALIGN * _ceil(
+        b, PAIR_BWD_SPAN_ALIGN), 0, -PAIR_BWD_SPAN_ALIGN)
+        if _ceil(b, s) <= PAIR_BWD_MAX_SPLITS]  # widest first
+    span = next((s for s in spans if _ceil(b, s) >= want), spans[-1])
+    splits = _ceil(b, span)
+    return PairwiseBackwardPlan(
+        cols, rows, splits, span, min(span, PAIR_BWD_STAGE // cols),
+        (_ceil(n, cols), _ceil(b, rows), splits))
+
+
 def _library() -> ctypes.CDLL:
     lib = _build.library("pairwise_l1")
     if not getattr(lib, "_typed", False):
@@ -296,7 +355,8 @@ def _library() -> ctypes.CDLL:
         lib.pairwise_l1_forward.restype = i
         lib.pairwise_l1_forward_scratch.argtypes = [i, i]
         lib.pairwise_l1_forward_scratch.restype = ctypes.c_longlong
-        lib.pairwise_l1_backward.argtypes = [p, p, p, p, p, i, i, p]
+        lib.pairwise_l1_backward.argtypes = [p, p, p, p, p, i, i, i, i, i,
+                                             p]
         lib.pairwise_l1_backward.restype = i
         lib.pairwise_l1_error_string.argtypes = [i]
         lib.pairwise_l1_error_string.restype = ctypes.c_char_p
@@ -339,13 +399,15 @@ def _launch_backward(flat: torch.Tensor, mask: torch.Tensor,
     if ct.numel() != 1 or ct.device != flat.device:
         raise ValueError("the cotangent of avg must be one float on "
                          f"{flat.device}")
+    plan = pairwise_backward_plan(b, n, sm_count(flat.device))
     grad = torch.empty_like(flat)
     lib = _library()
     with torch.cuda.device(flat.device):
         stream = torch.cuda.current_stream(flat.device).cuda_stream
-        rc = lib.pairwise_l1_backward(flat.data_ptr(), mask.data_ptr(),
-                                      n_pairs.data_ptr(), ct.data_ptr(),
-                                      grad.data_ptr(), b, n, stream)
+        rc = lib.pairwise_l1_backward(
+            flat.data_ptr(), mask.data_ptr(), n_pairs.data_ptr(),
+            ct.data_ptr(), grad.data_ptr(), b, n, plan.cols, plan.span,
+            plan.stage_rows, stream)
     _raise_on(lib, rc, "backward")
     pairwise_l1_mean.backward_launches += 1
     return grad

@@ -13,8 +13,8 @@ each an (M, K) x (K, N) product with K = (g+2)*4C and N = g*O.
 - fold transforms: `s2d_fold_input`, `s2d_fold_kernel`, `s2d_foldT_input`,
   `s2d_fold_groups`, `_pad_wd`;
 - plain versions: `_xla_core` (one `F.conv2d`), `_xla_dot_core` and
-  `_xla_slabs_core` (per-tap `torch.einsum` accumulated in float32),
-  `_xla_groups_core`; the plain backward of K4 (`s2d_matmul_dgrad_reference`,
+  `_xla_slabs_core` (per-tap `torch.einsum` accumulated in float32, or
+  float64 for float64 operands: `_acc`), `_xla_groups_core`; the plain backward of K4 (`s2d_matmul_dgrad_reference`,
   `s2d_matmul_wgrad_reference`) and K5's plain weight gradient
   (`s2d_group_wgrad_reference`);
 - `s2d_fold_matmul` (K4): the core over (B*n, H/2+1, W/2+1, K) per-group
@@ -38,7 +38,8 @@ versions.  ``s2d_fold_matmul.launches``, ``.dgrad_launches`` and
 ``.wgrad_launches``, and ``s2d_group_conv.launches`` and
 ``.backward_launches`` (its weight gradient) count kernel launches.  The
 weight gradients are summed in float32 and cast to the weight's dtype, as
-`cvad_tpu` does (:285, :482).
+`cvad_tpu` does (:285, :482); on the CPU, float64 operands keep float64
+throughout, so that a train step can be run as a float64 reference.
 """
 
 from __future__ import annotations
@@ -140,6 +141,12 @@ def s2d_band_mask(g: int, cin: int, cout: int, kp: int) -> torch.Tensor:
     return (rows >= first) & (rows < first + 12 * cin)
 
 
+def _acc(t: torch.Tensor) -> torch.dtype:
+    """The plain versions' accumulation type: float32, or float64 for
+    float64 operands."""
+    return torch.promote_types(t.dtype, torch.float32)
+
+
 def _pad_wd(wd: torch.Tensor) -> torch.Tensor:
     """(2, 2, kc, no) -> (4, pad128(kc), no): the zero rows meet the slab's
     zero pad channels."""
@@ -148,10 +155,11 @@ def _pad_wd(wd: torch.Tensor) -> torch.Tensor:
 
 
 def _xla_core(xf: torch.Tensor, wd: torch.Tensor) -> torch.Tensor:
-    """Reference lowering: one stride-1 VALID (2, 2) `F.conv2d` in float32,
+    """Reference lowering: one stride-1 VALID (2, 2) `F.conv2d` in `_acc`,
     (B, Hc, Wc, K) x (2, 2, K, N) -> (B, Hc-1, Wc-1, N) in xf's dtype."""
-    y = F.conv2d(xf.float().permute(0, 3, 1, 2),
-                 wd.float().permute(3, 2, 0, 1))
+    acc = _acc(xf)
+    y = F.conv2d(xf.to(acc).permute(0, 3, 1, 2),
+                 wd.to(acc).permute(3, 2, 0, 1))
     return y.permute(0, 2, 3, 1).to(xf.dtype)
 
 
@@ -162,12 +170,12 @@ def _taps(x32: torch.Tensor, ho: int, wo: int):
 
 def _xla_dot_core(xf: torch.Tensor, wd: torch.Tensor) -> torch.Tensor:
     """Plain version of K4's forward: four tap windows, each contracted
-    against its (K, N) slab with `torch.einsum`, accumulated in float32,
+    against its (K, N) slab with `torch.einsum`, accumulated in `_acc`,
     returned in xf's dtype."""
     _, hc, wc, kc = xf.shape
-    w32 = wd.float().reshape(4, kc, -1)
+    w32 = wd.to(_acc(xf)).reshape(4, kc, -1)
     acc = None
-    for tap, win in enumerate(_taps(xf.float(), hc - 1, wc - 1)):
+    for tap, win in enumerate(_taps(xf.to(_acc(xf)), hc - 1, wc - 1)):
         d = torch.einsum("bhwk,kn->bhwn", win, w32[tap])
         acc = d if acc is None else acc + d
     return acc.to(xf.dtype)
@@ -187,12 +195,12 @@ def _xla_slabs_core(xg: torch.Tensor, wdp: torch.Tensor, n: int
                     ) -> torch.Tensor:
     """Plain version of K5's forward on the gathered-slab layout: xg
     (B, Hc, Wc, n*kp) x wdp (4, kp, no) -> (B, Hc-1, Wc-1, n*no), per-tap
-    `torch.einsum` over all slabs at once, accumulated in float32, returned
+    `torch.einsum` over all slabs at once, accumulated in `_acc`, returned
     in xg's dtype.  Differentiable (K5's input gradient)."""
     b, hc, wc, _ = xg.shape
     kp, no = wdp.shape[1], wdp.shape[2]
-    x32 = xg.float().reshape(b, hc, wc, n, kp)
-    w32 = wdp.float()
+    x32 = xg.to(_acc(xg)).reshape(b, hc, wc, n, kp)
+    w32 = wdp.to(_acc(xg))
     acc = None
     for tap, win in enumerate(_taps(x32, hc - 1, wc - 1)):
         d = torch.einsum("bhwsk,kn->bhwsn", win, w32[tap])
@@ -204,10 +212,10 @@ def s2d_matmul_dgrad_reference(ct: torch.Tensor, wd: torch.Tensor
                                ) -> torch.Tensor:
     """Plain input gradient of K4: the full correlation of the cotangent
     (B, Ho, Wo, N) with the flipped taps of wd (2, 2, K, N) -> (B, Ho+1,
-    Wo+1, K), summed in float32, in ct's dtype."""
+    Wo+1, K), summed in `_acc`, in ct's dtype."""
     _, ho, wo, n = ct.shape
-    w32 = wd.float().reshape(4, -1, n)
-    ctp = F.pad(ct.float(), (0, 0, 1, 1, 1, 1))
+    w32 = wd.to(_acc(ct)).reshape(4, -1, n)
+    ctp = F.pad(ct.to(_acc(ct)), (0, 0, 1, 1, 1, 1))
     acc = None
     for tap, (dh, dw) in enumerate(TAPS):
         win = ctp[:, 1 - dh:2 - dh + ho, 1 - dw:2 - dw + wo]
@@ -219,23 +227,23 @@ def s2d_matmul_dgrad_reference(ct: torch.Tensor, wd: torch.Tensor
 def s2d_matmul_wgrad_reference(xf: torch.Tensor, ct: torch.Tensor
                                ) -> torch.Tensor:
     """Plain weight gradient of K4: per tap, x's window (M, K) transposed
-    times ct (M, N), summed over the batch in float32 -> (2, 2, K, N)
-    float32."""
+    times ct (M, N), summed over the batch in `_acc` -> (2, 2, K, N) in
+    that type."""
     _, ho, wo, n = ct.shape
-    c32 = ct.float()
+    c32 = ct.to(_acc(ct))
     taps = [torch.einsum("bhwk,bhwn->kn", win, c32)
-            for win in _taps(xf.float(), ho, wo)]
+            for win in _taps(xf.to(_acc(ct)), ho, wo)]
     return torch.stack(taps).reshape(2, 2, xf.shape[-1], n)
 
 
 def s2d_group_wgrad_reference(xg: torch.Tensor, ct: torch.Tensor, kp: int
                               ) -> torch.Tensor:
     """Plain weight gradient of K5: K4's, summed over the batch and the n
-    slabs -> (4, kp, no) float32."""
+    slabs -> (4, kp, no) in `_acc`."""
     b, hc, wc, ktot = xg.shape
     n = ktot // kp
-    x32 = xg.float().reshape(b, hc, wc, n, kp)
-    c32 = ct.float().reshape(b, hc - 1, wc - 1, n, -1)
+    x32 = xg.to(_acc(xg)).reshape(b, hc, wc, n, kp)
+    c32 = ct.to(_acc(xg)).reshape(b, hc - 1, wc - 1, n, -1)
     return torch.stack([torch.einsum("bhwsk,bhwsn->kn", win, c32)
                         for win in _taps(x32, hc - 1, wc - 1)])
 

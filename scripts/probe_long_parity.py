@@ -1,33 +1,39 @@
 #!/usr/bin/env python3
-"""Probe: chip_smoke.py's `long_train_parity` over several data seeds, and
-where the card and the CPU part.
+"""Probe: chip_smoke.py's `long_train_parity` gradient check over many data
+seeds, with each gradient held against float64.
 
     python scripts/probe_long_parity.py [SEED ...]
 
-For each seed (default 0 to 7) it draws the phase's uint8 clips and
-pseudo-labels from ``numpy.random.default_rng(seed)`` and runs the phase's
-3 float32 train steps of family D at T=64, B=8 on the K5 route (model seed
-0, dropout 0) on the CUDA card and on the CPU.  Prints one JSON line a
-seed, then the card's name and power limit: the largest parameter
-difference and the phase's bound (5e-5); the three leaves that differ
-most; and, at the worst entry, both values and Adam's state after the
-last step on each side: the bias-corrected first moment m and the square
-root of the second, s, whose ratio sets the update lr * m / (s + 1e-8),
-beside the median s of its leaf.  Adam moves an entry by about lr *
-sign(g) while g is steady, so where the gradient is near 0 (s small
-against its leaf's) a rounding-level difference in g can move the
-parameter by a good share of lr: the size of s tells whether that is
-what happens.  Two witnesses beside each seed: the CPU at one thread
-against the CPU at its default threads (float32 sums in another order,
-no card), and the card with conv1 on K1 (conv_group_impl 'stack')
-against the CPU on the same route (no K5).  Then the phase's bounded
-check (`chip_smoke.long_grad_parity`): at each of the 3 steps the card's
-gradient at the CPU run's parameters on that step's batch, each leaf's
-largest difference over its largest |CPU| entry, against 1e-5; the line
-gives each step's worst leaf and whether the seed passes, beside two
-witnesses at step 1 (the same parameters) measured the same way: the CPU
-at one thread against the CPU at its default threads, and the card with
-conv1 on K1 against the CPU on that route.  Imports
+For each seed (default 0 to 15) it draws the phase's uint8 clips and
+pseudo-labels from ``numpy.random.default_rng(seed)``, as the phase draws
+them from its own generator (`chip_smoke.LONG_PARITY_SEED`), and runs
+`chip_smoke.long_grad_parity`: family D at T=64, B=8 on the K5 route
+(model seed 0, dropout 0), 3 float32 steps on the CPU; before each step,
+at the CPU run's parameters on that step's batch, the CPU's float64
+gradient (the reference), the CPU's float32 gradient at its default
+thread count, the card's float32 gradient, and a witness: the card's
+float32 gradient with conv1 on K1 (conv_group_impl 'stack', no K5).  For
+every leaf at every step it reports
+
+    e_card = max|g_card - g64| / max|g64|,  e_cpu and e_k1 likewise,
+
+and whether the phase's rule holds: e_card <= GRAD_ABS + GRAD_KAPPA *
+e_cpu (1e-5 + 4 e_cpu).  Prints one JSON line a seed (each step's worst
+leaf, the share of its bound, e_card / e_cpu, and every leaf's three
+numbers), then the card's name and power limit.
+
+    python scripts/probe_long_parity.py --layers SEED ...
+
+locates where a seed's gradients part, layer by layer, at each step's
+parameters: the pre-activations of the four ReLUs of family D's
+`models/family_d.py` (conv1-3 and the graph encoder's first layer) on the
+card (K5 route), on the CPU in float32 and on the card on the K1 route,
+each against the CPU's float64 ones (largest difference over the largest
+float64 entry, and how many entries lie on the other side of 0 than in
+float64: where the ReLU passes a gradient in one and not in the other);
+then e_card, e_cpu and e_k1 as above, and again with those ReLUs' masks
+pinned to float64's (relu(x) = x * mask64), which takes the ReLU
+decisions out of the comparison and leaves the arithmetic.  Imports
 nothing of JAX.
 """
 
@@ -39,45 +45,93 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
-BOUND = 5e-5  # the parameter bound the phase held before its gradient check
-GRAD_BOUND = 1e-5  # chip_smoke.py::phase_long_train_parity's gradient bound
 
 
-def run(task, clips, targets, dev):
+class Relus:
+    """Stands in for `torch.nn.functional` inside `models/family_d.py`: its
+    `relu` records each call's input (`record`), or applies the next of
+    `masks` as relu(x) = x * mask (pinned); everything else is torch's."""
+
+    def __init__(self, masks=None):
+        self.masks, self.inputs = masks, []
+
+    def __getattr__(self, name):
+        import torch.nn.functional as F
+
+        return getattr(F, name)
+
+    def relu(self, x):
+        if self.masks is None:
+            self.inputs.append(x.detach().cpu().double())
+            import torch.nn.functional as F
+
+            return F.relu(x)
+        mask = self.masks[len(self.inputs)]
+        self.inputs.append(None)
+        return x * mask.to(x.device, x.dtype)
+
+
+def through(relus, fn):
+    """fn() with `models/family_d.py`'s ReLUs replaced by `relus`."""
+    from cvad_tpu_torch.models import family_d
+
+    real = family_d.F
+    family_d.F = relus
+    try:
+        return fn()
+    finally:
+        family_d.F = real
+
+
+def layers(task, cfg, k1_cfg, k1_model, clips, targets) -> list:
+    """The `--layers` report of one seed, a dict a step (see the module
+    docstring), along the CPU run's float32 steps."""
     import torch
 
-    st = task.init_state(0, dev)
+    import chip_smoke as cs
+
+    cpu = task.init_state(0, "cpu")
+    card = task.init_state(0, "cuda").model
+    out = []
     for i in range(clips.shape[0]):
-        st, _ = task.train_step(st, {
-            "clips": torch.from_numpy(clips[i]).to(dev),
-            "pseudo_targets": torch.from_numpy(targets[i]).to(dev)}, 1)
-    o = st.opt_state
-    c = int(o.count)
-    return ({k: v.detach().cpu() for k, v in st.model.named_parameters()},
-            o.mu.cpu() / (1 - 0.9 ** c),
-            (o.nu.cpu() / (1 - 0.999 ** c)).sqrt(), float(o.lr))
+        args = (clips[i], targets[i], cpu.step)
+        card.load_state_dict(cpu.model.state_dict(), strict=True)
+        k1_model.load_state_dict(cpu.model.state_dict(), strict=True)
+        runs = {"card": (cfg, card, torch.float32),
+                "cpu": (cfg, cpu.model, torch.float32),
+                "k1": (k1_cfg, k1_model, torch.float32),
+                "f64": (cfg, cpu.model, torch.float64)}
+        grads, pre = {}, {}
+        for name, (c, model, dt) in runs.items():
+            rec = Relus()
+            grads[name] = through(rec, lambda: cs.step_grads(
+                c, model, *args, dtype=dt))
+            pre[name] = rec.inputs
+        masks = [x > 0 for x in pre["f64"]]
+        pinned = {name: through(Relus(masks), lambda: cs.step_grads(
+            c, model, *args, dtype=dt))
+            for name, (c, model, dt) in runs.items() if name != "f64"}
+        g64 = grads["f64"]
 
+        def report(g: dict) -> dict:
+            return {f"e_{n}": cs.rel_errs(g[n], g64) for n in g
+                    if n != "f64"}
 
-def largest(pa: dict, pb: dict) -> list:
-    """(max |pa - pb|, leaf, flat index, flat offset, size) of each leaf,
-    largest first."""
-    leaves, off = [], 0
-    for name, p in pb.items():
-        d = (pa[name] - p).abs().flatten()
-        i = int(d.argmax())
-        leaves.append((d[i].item(), name, i, off, p.numel()))
-        off += p.numel()
-    return sorted(leaves, reverse=True)
-
-
-def worst_rel(ga: dict, gb: dict) -> dict:
-    """The leaf whose largest |ga - gb| is the largest share of its largest
-    |gb| entry, and that share."""
-    errs = {n: (ga[n] - g).abs().max().item() / max(g.abs().max().item(),
-                                                     1e-30)
-            for n, g in gb.items()}
-    name = max(errs, key=errs.get)
-    return {"leaf": name, "rel_err": errs[name]}
+        out.append({
+            "relu_inputs": [{
+                "shape": list(ref.shape),
+                **{f"{n}_rel_err": ((pre[n][j] - ref).abs().max()
+                                    / ref.abs().max()).item()
+                   for n in ("card", "cpu", "k1")},
+                **{f"{n}_sign_flips": int(((pre[n][j] > 0) != masks[j])
+                                          .sum()) for n in ("card", "cpu",
+                                                            "k1")}}
+                for j, ref in enumerate(pre["f64"])],
+            "grads": report(grads), "grads_relu_pinned": report(pinned)})
+        cpu, _ = task.train_step(cpu, {
+            "clips": torch.from_numpy(clips[i]),
+            "pseudo_targets": torch.from_numpy(targets[i])}, 1)
+    return out
 
 
 def main() -> int:
@@ -91,71 +145,37 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("probe_long_parity: no CUDA card", file=sys.stderr)
         return 1
-    seeds = [int(a) for a in sys.argv[1:]] or list(range(8))
+    args = sys.argv[1:]
+    by_layer = "--layers" in args
+    seeds = [int(a) for a in args if a != "--layers"] or list(range(16))
     cfg = cs.long_config(cs.LONG_PARITY_BATCH, conv1_mode="tfold")
     cfg = cfg.replace(model=cfg.model.replace(dropout=0.0))
-    assert (cfg.optim.b1, cfg.optim.b2) == (0.9, 0.999)
     task = build_task(cfg)
-    k1_task = build_task(cfg.replace(
-        model=cfg.model.replace(conv_group_impl="stack")))
-    threads = torch.get_num_threads()
+    k1_cfg = cfg.replace(model=cfg.model.replace(conv_group_impl="stack"))
+    k1_model = build_task(k1_cfg).init_state(0, "cuda").model
     for seed in seeds:
-        rng = np.random.default_rng(seed)
-        clips = rng.integers(0, 256, (cs.PARITY_STEPS, cs.LONG_PARITY_BATCH)
-                             + cs.LONG_CLIP, dtype=np.uint8)
-        targets = (rng.uniform(size=(cs.PARITY_STEPS, cs.LONG_PARITY_BATCH))
-                   < 0.25).astype(np.float32)
-        pg, mg, sg, lr = run(task, clips, targets, "cuda")
-        pc, mc, sc, _ = run(task, clips, targets, "cpu")
-        leaves = largest(pg, pc)
-        err, name, i, off, size = leaves[0]
-        j = off + i
-        torch.set_num_threads(1)
-        p1 = run(task, clips, targets, "cpu")[0]
-        torch.set_num_threads(threads)
-        cpu_threads = largest(p1, pc)[0]
-        k1 = largest(run(k1_task, clips, targets, "cuda")[0],
-                     run(k1_task, clips, targets, "cpu")[0])[0]
-        grads = cs.long_grad_parity(task, cfg, clips, targets)[0]
-        worst = [max(g.items(), key=lambda kv: kv[1]) for g in grads]
-        # witnesses at step 1, where the parameters are the same: the CPU at
-        # one thread against the CPU at its default threads, and the K1
-        # route's card gradient against the CPU's on the same route
-        st0 = task.init_state(0, "cpu")
-        g_cpu = cs.step_grads(cfg, st0.model, clips[0], targets[0], 0)
-        torch.set_num_threads(1)
-        g_cpu1 = cs.step_grads(cfg, st0.model, clips[0], targets[0], 0)
-        torch.set_num_threads(threads)
-        k1_cpu = k1_task.init_state(0, "cpu").model
-        k1_card = k1_task.init_state(0, "cuda").model
-        g_k1 = [cs.step_grads(cfg, m, clips[0], targets[0], 0)
-                for m in (k1_card, k1_cpu)]
+        clips, targets = cs.long_parity_data(np.random.default_rng(seed))
+        if by_layer:
+            print(json.dumps({"seed": seed, "steps": layers(
+                task, cfg, k1_cfg, k1_model, clips, targets)}), flush=True)
+            continue
+        steps = cs.long_grad_parity(task, cfg, clips, targets,
+                                    witness=(k1_cfg, k1_model))[0]
+        out = []
+        for step in steps:
+            leaves = {n: {"e_card": e["e_card"], "e_cpu": e["e_cpu"],
+                          "e_k1": e["e_witness"]} for n, e in step.items()}
+            worst = cs.worst_leaf(step)
+            worst["e_k1"] = worst.pop("e_witness")
+            out.append({"passes": worst["share_of_bound"] <= 1.0,
+                        "worst": worst, "leaves": leaves})
         print(json.dumps({
-            "seed": seed, "params_max_abs_err": err, "bound": BOUND,
-            "passes": err <= BOUND, "lr": lr,
-            "worst_leaves": [{"leaf": n, "max_abs_err": e}
-                             for e, n, *_ in leaves[:3]],
-            "worst_entry": {
-                "leaf": name, "index": i, "card": pg[name].flatten()[i].item(),
-                "cpu": pc[name].flatten()[i].item(),
-                "m_card": mg[j].item(), "m_cpu": mc[j].item(),
-                "s_card": sg[j].item(), "s_cpu": sc[j].item(),
-                "s_median_of_leaf": sc[off:off + size].median().item(),
-                "entries_past_bound": int(sum(
-                    ((pg[n] - pc[n]).abs() > BOUND).sum().item()
-                    for n in pc))},
-            "cpu_1_thread_vs_cpu_%d" % threads: {
-                "max_abs_err": cpu_threads[0], "leaf": cpu_threads[1]},
-            "k1_route_card_vs_cpu": {"max_abs_err": k1[0], "leaf": k1[1]},
-            "grad_parity": {
-                "bound": GRAD_BOUND,
-                "passes": all(e <= GRAD_BOUND for _, e in worst),
-                "worst_leaf_by_step": [{"leaf": n, "rel_err": e}
-                                       for n, e in worst],
-                "step1_cpu_1_thread_vs_cpu_%d" % threads:
-                    worst_rel(g_cpu1, g_cpu),
-                "step1_k1_route_card_vs_cpu": worst_rel(*g_k1)}}),
-            flush=True)
+            "seed": seed, "threads": torch.get_num_threads(),
+            "bound": {"abs": cs.GRAD_ABS, "kappa": cs.GRAD_KAPPA},
+            "passes": all(s["passes"] for s in out),
+            "max_share_of_bound": max(s["worst"]["share_of_bound"]
+                                      for s in out),
+            "steps": out}), flush=True)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -238,6 +238,85 @@ def test_train_steps_on_k5_route_match_jax(jax_run, k5_calls, steps):
     assert int(state.opt_state.count) == int(jopt.count) == steps
 
 
+# -- the float64 reference gradient --------------------------------------------
+
+
+def _chip_smoke():
+    """chip_smoke.py at the repo's root, whose `long_train_parity` holds the
+    card's gradient against the CPU's float64 one (`step_grads`)."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_float64_step_gradient_stays_float64(k5_calls):
+    """`chip_smoke.step_grads` with dtype=float64 at T=16, B=2 on the K5
+    route (the plain versions of K5 and K2 on the CPU): no operation of the
+    forward or the backward turns a float64 operand into a lower-precision
+    result (a dispatch-level audit), every leaf is float64 and within 1e-4
+    of its largest entry of the float32 gradient; the CUDA wrappers of K2
+    and K5 still refuse float64."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    from cvad_tpu_torch.ops import pallas_kernels, pallas_s2d
+
+    class Downcasts(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = set()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            ins = [t for t in tree_leaves((args, kwargs))
+                   if isinstance(t, torch.Tensor)]
+            if any(t.dtype == torch.float64 for t in ins) and any(
+                    isinstance(o, torch.Tensor) and o.is_floating_point()
+                    and o.dtype != torch.float64 for o in tree_leaves(out)):
+                self.seen.add(str(func))
+            return out
+
+    cs = _chip_smoke()
+    cfg = preset("family_d")
+    cfg = cfg.replace(model=cfg.model.replace(dropout=0.0, **S2D),
+                      data=cfg.data.replace(clip_len=16))
+    model = build_task(cfg).init_state(0, "cpu").model
+    rng = np.random.default_rng(5)
+    clips = rng.integers(0, 256, (2, 16, 32, 32, 3), dtype=np.uint8)
+    targets = np.array([0.0, 0.0], np.float32)  # one pair for K2
+    g32 = cs.step_grads(cfg, model, clips, targets, 0)
+    with Downcasts() as audit:
+        g64 = cs.step_grads(cfg, model, clips, targets, 0,
+                            dtype=torch.float64)
+    assert not audit.seen
+    assert len(k5_calls) == 2
+    assert next(model.parameters()).dtype == torch.float32
+    for name, g in g64.items():
+        assert g.dtype == torch.float64, name
+        ref = g.abs().max().item()
+        assert 0 < ref and (g32[name].double() - g).abs().max().item() \
+            <= 1e-4 * ref, name
+    flat = torch.rand(4, 8, dtype=torch.float64)
+    mask = torch.ones(4, dtype=torch.float64)
+    with pytest.raises(TypeError):
+        pallas_kernels._launch_forward(flat, mask)
+    with pytest.raises(TypeError):
+        pallas_kernels._launch_backward(flat, mask, torch.ones(()),
+                                        torch.ones(()))
+    xg = torch.zeros(2, 9, 9, 128, dtype=torch.float64)
+    wdp = torch.zeros(4, 128, 64, dtype=torch.float64)
+    with pytest.raises(TypeError):
+        pallas_s2d._launch_group_forward(xg, wdp, 4, 3, 16)
+    with pytest.raises(TypeError):
+        pallas_s2d._launch_group_wgrad(
+            xg, torch.zeros(2, 8, 8, 64, dtype=torch.float64), 4, 3, 16, 128)
+
+
 # -- the CLI -------------------------------------------------------------------
 
 

@@ -11,11 +11,18 @@ import numpy as np
 import pytest
 import torch
 
-from cvad_tpu_torch.ops.pallas_kernels import (pairwise_l1_backward_reference,
+from cvad_tpu_torch.ops import pallas_kernels as pk
+from cvad_tpu_torch.ops.pallas_kernels import (pairwise_backward_plan,
+                                               pairwise_l1_backward_reference,
                                                pairwise_l1_mean,
                                                pairwise_l1_reference)
 
 MASKS = ("zero", "single", "random", "one")
+# the backward plan's edges: row tiles of 8, 16, 32 and 64 rows, ragged ones,
+# one split (S = 1) and many, narrow and wide N
+PLAN_B = (1, 2, 16, 17, 33, 128, 256, 257)
+PLAN_N = (1, 7, 256, 9000)
+PLAN_SMS = (1, 132, 200)
 
 
 def _inputs(b, n, mask, seed=0, ties=True):
@@ -131,10 +138,97 @@ def test_cpu_path_launches_nothing():
             pairwise_l1_mean.backward_launches) == before
 
 
+def _covered_once(n: int, size: int, count: int) -> bool:
+    """`count` consecutive ranges of `size` (the last clipped at n) cover
+    [0, n) exactly once, none of them empty."""
+    seen = np.zeros(n, int)
+    for c in range(count):
+        if c * size >= n:
+            return False
+        seen[c * size:min(n, (c + 1) * size)] += 1
+    return bool((seen == 1).all())
+
+
+@pytest.mark.parametrize("n", PLAN_N)
+@pytest.mark.parametrize("b", PLAN_B)
+def test_backward_plan_partitions_every_triple_once(b, n):
+    """K2's backward plan at every SM count: the column chunks cover [0, N),
+    the row tiles [0, B) and the splits of rows j [0, B), each exactly once
+    and none empty, so every (i, k, j) is summed by one block; inside a
+    row tile, thread t's column t % cols and rows (t // cols) * 8 + r
+    (csrc/pairwise_l1.cu) cover the tile once; a staged tile fits its
+    buffer; at most PAIR_BWD_MAX_SPLITS splits (one cluster), and the
+    grid holds PAIR_BWD_BLOCKS_PER_SM blocks a SM unless the splits are at
+    their most or their narrowest."""
+    for sms in PLAN_SMS:
+        plan = pairwise_backward_plan(b, n, sms)
+        cx, ty, sz = plan.grid
+        assert plan.cols in pk.PAIR_BWD_COLS
+        assert plan.rows == pk.PAIR_BWD_THREADS // plan.cols * pk.PAIR_BWD_ROWS
+        assert _covered_once(n, plan.cols, cx)
+        assert _covered_once(b, plan.rows, ty)
+        assert sz == plan.splits and _covered_once(b, plan.span, sz)
+        assert plan.span % pk.PAIR_BWD_SPAN_ALIGN == 0
+        assert 1 <= plan.stage_rows <= plan.span
+        assert plan.stage_rows * plan.cols <= pk.PAIR_BWD_STAGE
+        t = np.arange(pk.PAIR_BWD_THREADS)[:, None]
+        r = np.arange(pk.PAIR_BWD_ROWS)[None, :]
+        cells = ((t // plan.cols * pk.PAIR_BWD_ROWS + r) * plan.cols
+                 + t % plan.cols).ravel()
+        assert sorted(cells) == list(range(plan.rows * plan.cols))
+        assert sz <= pk.PAIR_BWD_MAX_SPLITS
+        narrower = plan.span - pk.PAIR_BWD_SPAN_ALIGN
+        assert (cx * ty * sz >= pk.PAIR_BWD_BLOCKS_PER_SM * sms
+                or sz == pk.PAIR_BWD_MAX_SPLITS or narrower == 0
+                or -(-b // narrower) > pk.PAIR_BWD_MAX_SPLITS)
+
+
+def _emulate_backward(flat, mask, n_pairs, ct, plan):
+    """The backward kernels' arithmetic under `plan`: each split's sum of
+    m_j sign(f_ik - f_jk) over its rows j, the S partials added in split
+    order, then c m_i / (n_pairs N) as the kernels round it (0 without a
+    pair or out of the mask)."""
+    b, n = flat.shape
+    parts = [(mask[None, j0:j0 + plan.span, None] * torch.sign(
+        flat[:, None, :] - flat[None, j0:j0 + plan.span, :])).sum(1)
+        for j0 in range(0, b, plan.span)]
+    acc = parts[0]
+    for p in parts[1:]:
+        acc = acc + p
+    scale = torch.where((n_pairs > 0) & (mask != 0),
+                        ct * mask / (n_pairs * n), torch.zeros_like(mask))
+    return acc * scale[:, None]
+
+
+def _emulated_shapes():
+    # N = 9000 at B <= 33: the plain version's (B, B, N) broadcast at
+    # B = 128-257 would take gigabytes here; the card checks (33, 9000)
+    # and (64, 16384) against it
+    return [(b, n) for b in PLAN_B for n in PLAN_N if n < 9000 or b <= 33]
+
+
+@pytest.mark.parametrize("b,n", _emulated_shapes())
+def test_backward_emulation_matches_plain_exactly(b, n):
+    """With a mask in {0, 1} every partial is an integer, so the kernels'
+    split sums and scale give exactly the plain version's gradient, at
+    every SM count's plan (ties included: sign(0) = 0)."""
+    flat, m = _inputs(b, n, "random", seed=b + n)
+    f, mt = torch.from_numpy(flat), torch.from_numpy(m)
+    _, n_pairs = pairwise_l1_reference(f, mt)
+    ct = torch.tensor(0.37)
+    ref = pairwise_l1_backward_reference(f, mt, n_pairs, ct)
+    for sms in PLAN_SMS:
+        got = _emulate_backward(f, mt, n_pairs, ct,
+                                pairwise_backward_plan(b, n, sms))
+        assert torch.equal(got, ref), sms
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("mask", MASKS)
 @pytest.mark.parametrize("b,n", [(1, 7), (2, 256), (33, 1), (256, 256),
-                                 (64, 16384), (33, 9000)])
+                                 (64, 16384), (33, 9000), (8, 256),
+                                 (16, 256), (17, 256), (31, 256), (32, 256),
+                                 (128, 256), (257, 256), (37, 1001)])
 def test_kernels_match_plain_on_card(b, n, mask):
     """Forward within rtol 1e-5, backward within atol 1e-6 of the plain
     versions; a second call is bit-identical (no float atomics)."""
