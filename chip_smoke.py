@@ -92,9 +92,13 @@ Phases:
            CPU run's parameters on that step's batch, against the CPU's
            float64 gradient there: every leaf's largest difference, over
            its largest float64 entry (e_card), within 1e-5 + 4 times the
-           CPU's own float32 gradient's (e_cpu); each card step and
-           gradient launches K5 forward and weight gradient and K2 forward
-           and backward once
+           CPU's own float32 gradient's (e_cpu), both float32 gradients
+           taken with every ReLU's mask pinned to float64's (a ReLU
+           decision that float32 rounding flips is not arithmetic); the
+           flipped decisions of the unpinned float32 forwards, card and
+           CPU, counted by layer, each within 1e-5 of its layer's largest
+           |float64| pre-activation; each card step and gradient launches
+           K5 forward and weight gradient and K2 forward and backward once
   long_train  (main path 5) `Trainer.fit` at T=64, B=128, float32, 512
            synthetic train and 128 eval clips, uint8 transfer, 3 epochs,
            conv1 on K5; 2 epochs + restore + epoch 3 bit-identical to the
@@ -123,6 +127,27 @@ Phases:
            (parameters, Adam, BatchNorm statistics, bank rows, ptr, fill,
            history); the `best` checkpoint's scorer within 1e-5 of the eval
            step; K6 forward and backward launched
+  video    (main path 7) frame-folder video end to end: the port's
+           writer puts UCSD Ped2's test split at its layout and size in a
+           temporary directory (12 videos of 180 gray 240x360 PGM frames
+           with `_gt` mask folders, ~375 MB); the port's native decoder is
+           its own build of native/decoder.cpp and must load (no zero-frame
+           fallback), 8 frames decoded at their own size equal the written
+           bytes bit for bit, and every clip scored has a nonzero maximum;
+           VideoScorer + frame_level_auc over every video: video_score_d
+           (the fixture, RGB 8x64x64 stride 4, 44 windows a video; K1
+           only), video_score_b (seeded family B with 300 bank rows,
+           memory_ae's data: gray, stride 2, 87 windows; K3 only),
+           video_score_d64 (the fixture at clip_len 64, stride 16,
+           conv_group_impl='s2d', 8 windows; K5's forward only), the
+           counts set to 0 just before each path and read just after;
+           stream_d replays one video frame by frame through
+           StreamingScorer (B=1): windows equal the batched scorer's
+           within 1e-5; the port on the CPU scores the first 2 videos of
+           each path: windows and frames within 1e-4, per-video frame AUC
+           within 1e-3; a line a path with windows, frames, seconds
+           (decode apart from score), frames/s, windows/s, launches and
+           the frame AUCs
   times    kernel, plain-version and library times (CUDA events), the
            bounds, per-bucket request latency of both families, bulk
            clips/s, the train step of both families at B=256, the
@@ -167,8 +192,9 @@ gradients within 1e-5 of the largest entry in f32 and 2e-2 of it in bf16
 (bf16 forward too), a second call bit-identical, each counter one higher a
 call.
 Kernel launch counts are set to 0 just before each main path (serve + bulk,
-long_score, long_train, train, family_b_train, family_b_serve, attn_train)
-and read just after it.  The last lines are the kernels summary, the card's
+long_score, long_train, train, family_b_train, family_b_serve, attn_train,
+video_score_d, stream_d, video_score_b, video_score_d64) and read just
+after it.  The last lines are the kernels summary, the card's
 nvidia-smi name and power limit, and {"ok": true, "device": {...}}.
 """
 
@@ -245,6 +271,10 @@ LONG_TRAIN_CLIPS, LONG_EVAL_CLIPS, LONG_PARITY_BATCH = 512, 128, 8
 # e_cpu for every leaf at every step (phase_long_train_parity)
 LONG_PARITY_SEED = 11
 GRAD_ABS, GRAD_KAPPA = 1e-5, 4.0
+# ... with every ReLU's mask pinned to float64's; a ReLU decision that the
+# unpinned float32 forward flips must lie within FLIP_NEAR of its layer's
+# largest |float64| pre-activation (float32 rounding, not a wrong value)
+FLIP_NEAR = 1e-5
 # K4/K5 checks: (B, T, H, W, g, C, O): the small case of
 # tests/test_s2d_fold.py, grayscale and 32 output channels at its size, and
 # the main path's shape
@@ -272,6 +302,15 @@ FLASH_TIMES = ((16, 1, 128, 128), (8, 1, 2048, 128), (16, 1, 128, 256))
 # (LATER_CHECKS_SEED + 3)
 FLASH_EDGE_CASES = ((1, 1, 64, 128), (2, 1, 192, 128), (5, 7, 256, 128),
                     (3, 1, 192, 256), (1, 3, 64, 384), (1, 1, 64, 640))
+# phase video: UCSD Ped2's test split at its layout and size (12 videos of
+# 180 gray 240x360 PGM frames, `_gt` mask folders), written from its own
+# seed; the CPU scores the first VIDEO_CPU_VIDEOS of each path, and the
+# decoder is held to the written bytes on VIDEO_DECODED frames
+VIDEO_VIDEOS, VIDEO_FRAMES, VIDEO_HW, VIDEO_SEED = 12, 180, (240, 360), 12
+VIDEO_CPU_VIDEOS, VIDEO_DECODED = 2, 8
+# tolerances: card vs CPU per window and frame (f32), per-video frame AUC,
+# and the stream (B=1) against the batched scorer (B<=64) on the card
+VIDEO_CPU_TOL, VIDEO_AUC_TOL, STREAM_TOL = 1e-4, 1e-3, 1e-5
 # the port's CUDA kernels by symbol name (cvad_tpu_torch/csrc/*.cu), picked
 # out of the profiler's rows
 PORT_KERNELS = ("tfold_conv1_", "pairwise_", "memory_min_cosine_",
@@ -1413,6 +1452,69 @@ def phase_long_model(state: dict, clips: np.ndarray) -> dict:
     return k5
 
 
+class Relus:
+    """While active (``with``), `torch.nn.functional.relu`, which family D's
+    ReLUs call (and `nn.ReLU` too), records or replays each call's mask,
+    matched by call order.  Without `masks` it records, for each call, the
+    mask x > 0 and each entry's |x| over that layer's largest |x| (`rel`),
+    and returns relu(x).  With `masks` (a recording's
+    `masks`) it returns x * mask: the value and the gradient of a ReLU
+    that decides as the recording did, whatever x's own sign; a call past
+    the recording's count, a shape that differs, or fewer calls than
+    recorded fail the check.  No model code changes."""
+
+    def __init__(self, masks=None):
+        self.pinned = masks
+        self.masks, self.rel = [], []
+
+    def __enter__(self):
+        import torch.nn.functional as F
+
+        self._real = F.relu
+        F.relu = self._relu
+        return self
+
+    def __exit__(self, exc_type, *_):
+        import torch.nn.functional as F
+
+        F.relu = self._real
+        if exc_type is None and self.pinned is not None:
+            check(len(self.masks) == len(self.pinned),
+                  f"{len(self.masks)} ReLU calls replayed "
+                  f"{len(self.pinned)} recorded masks")
+
+    def _relu(self, x: torch.Tensor, inplace: bool = False) -> torch.Tensor:
+        if self.pinned is None:
+            a = x.detach().abs()
+            self.masks.append((x.detach() > 0).cpu())
+            self.rel.append((a / a.max()).cpu())
+            return self._real(x)
+        j = len(self.masks)
+        check(j < len(self.pinned) and self.pinned[j].shape == x.shape,
+              f"ReLU call {j} of shape {tuple(x.shape)} has no recorded "
+              f"mask of its shape")
+        self.masks.append(None)  # counts the calls
+        return x * self.pinned[j].to(x.device, x.dtype)
+
+
+def step_forward(cfg, model, clips: np.ndarray, step: int,
+                 dtype: torch.dtype = torch.float32) -> tuple:
+    """Family D's train-mode forward of one train step on `model`'s device
+    (`train/tasks.py`'s prep and generator seed), in `dtype`: a float64
+    copy of the model takes the prepped clips cast to float64.  Returns
+    the model that ran and its outputs."""
+    from cvad_tpu_torch.train.tasks import prep_clips, step_seed
+
+    dev = next(model.parameters()).device
+    if next(model.parameters()).dtype != dtype:
+        model = copy.deepcopy(model).to(dtype)
+    x = prep_clips(torch.from_numpy(clips).to(dev),
+                   cfg.data.normalize_clamp).to(dtype)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(step_seed(1, step))
+    return model, model.train()(x, generator=gen)
+
+
 def step_grads(cfg, model, clips: np.ndarray, targets: np.ndarray,
                step: int, dtype: torch.dtype = torch.float32) -> dict:
     """The gradient of one family-D train step at `model`'s parameters on
@@ -1423,23 +1525,42 @@ def step_grads(cfg, model, clips: np.ndarray, targets: np.ndarray,
     clips and the labels cast to float64: on the CPU the K5 route and K2
     then run their plain versions in float64."""
     from cvad_tpu_torch.ops.losses import improved_loss
-    from cvad_tpu_torch.train.tasks import card_numerics, prep_clips, step_seed
+    from cvad_tpu_torch.train.tasks import card_numerics
 
-    dev = next(model.parameters()).device
-    if next(model.parameters()).dtype != dtype:
-        model = copy.deepcopy(model).to(dtype)
-    x = prep_clips(torch.from_numpy(clips).to(dev),
-                   cfg.data.normalize_clamp).to(dtype)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(step_seed(1, step))
-    names, params = zip(*model.named_parameters())
     with card_numerics():
-        scores, adj, _ = model.train()(x, generator=gen)
+        model, (scores, adj, _) = step_forward(cfg, model, clips, step,
+                                               dtype)
+        dev = scores.device
         total, _ = improved_loss(scores, adj,
                                  torch.from_numpy(targets).to(dev, dtype),
                                  cfg.loss)
+        names, params = zip(*model.named_parameters())
         grads = torch.autograd.grad(total, params)
     return {n: g.detach().cpu() for n, g in zip(names, grads)}
+
+
+def relu_flips(cfg, model, clips: np.ndarray, step: int,
+               ref: Relus) -> dict:
+    """The ReLU decisions of `model`'s unpinned float32 forward of one step
+    against float64's (`ref`, a recording): by layer, how many entries
+    decide otherwise (`flips`), how many of those lie farther from 0 than
+    FLIP_NEAR of the layer's largest |float64| entry (`far`, which a
+    rounding difference cannot give), and the largest |float64| over that
+    entry among the flipped ones (`rel`, 0 where none flipped): the
+    reading that FLIP_NEAR separates."""
+    from cvad_tpu_torch.train.tasks import card_numerics
+
+    with torch.no_grad(), card_numerics(), Relus() as rec:
+        step_forward(cfg, model, clips, step)
+    check(len(rec.masks) == len(ref.masks),
+          f"{len(rec.masks)} ReLU calls against float64's {len(ref.masks)}")
+    flips = [m != r for m, r in zip(rec.masks, ref.masks)]
+    rel = [float(r[f].max()) if f.any() else 0.0
+           for f, r in zip(flips, ref.rel)]
+    return {"flips": [int(f.sum()) for f in flips],
+            "far": [int((f & (r > FLIP_NEAR)).sum())
+                    for f, r in zip(flips, ref.rel)],
+            "rel": rel}
 
 
 def rel_errs(got: dict, ref: dict) -> dict:
@@ -1460,44 +1581,55 @@ def long_parity_data(rng: np.random.Generator) -> tuple:
 
 def long_grad_parity(task, cfg, clips: np.ndarray, targets: np.ndarray,
                      witness: tuple = ()) -> tuple:
-    """Per-step gradients from the same parameters, held against float64.
-    The CPU runs the steps from seed 0 in float32; before each it takes
-    the step's float32 gradient and, from a float64 copy of the same
-    parameters, its float64 gradient.  The card takes the float32
-    gradient at those parameters on the same batch, and so does the
-    `witness` model on the card, where one is given as (config, model).
-    Returns, for each step, every leaf's e_card and e_cpu (and e_witness):
-    the largest difference of the card's (the CPU's float32, the
-    witness's) gradient from the float64 one over its largest entry; the
-    card's launches over its gradient calls (the witness's not counted);
-    and the CPU run's metrics and final state."""
+    """Per-step gradients from the same parameters, held against float64
+    with every ReLU's decision pinned to float64's.  The CPU runs the
+    steps from seed 0 in float32; before each it takes, from a float64
+    copy of its parameters, the step's float64 gradient, recording each
+    ReLU's mask (`Relus`), and then its float32 gradient with those masks
+    pinned.  The card takes the pinned float32 gradient at the same
+    parameters on the same batch, and so does the `witness` model on the
+    card, where one is given as (config, model).  The unpinned float32
+    forwards of the card and the CPU give each step's flipped decisions
+    (`relu_flips`).  Returns, for each step, every leaf's e_card and e_cpu
+    (and e_witness), the largest difference of the card's (the CPU's
+    float32, the witness's) pinned gradient from the float64 one over its
+    largest entry; each step's flips; the card's launches over its
+    gradient calls (the witness's and the flip forwards' not counted); and
+    the CPU run's metrics and final state."""
     from cvad_tpu_torch.train.state import float_metrics
 
     cpu = task.init_state(0, "cpu")
     card = task.init_state(0, "cuda").model
     launched = dict.fromkeys(counts(), 0)
-    steps, metrics = [], []
+    steps, flips, metrics = [], [], []
     for i in range(clips.shape[0]):
         args = (clips[i], targets[i], cpu.step)
-        g32 = step_grads(cfg, cpu.model, *args)
-        g64 = step_grads(cfg, cpu.model, *args, dtype=torch.float64)
+        with Relus() as ref:
+            g64 = step_grads(cfg, cpu.model, *args, dtype=torch.float64)
+        with Relus(ref.masks):
+            g32 = step_grads(cfg, cpu.model, *args)
         card.load_state_dict(cpu.model.state_dict(), strict=True)
         before = counts()
-        got = step_grads(cfg, card, *args)
+        with Relus(ref.masks):
+            got = step_grads(cfg, card, *args)
         for k, v in counts().items():
             launched[k] += v - before[k]
         errs = {"e_card": rel_errs(got, g64), "e_cpu": rel_errs(g32, g64)}
         if witness:
             wcfg, wmodel = witness
             wmodel.load_state_dict(cpu.model.state_dict(), strict=True)
-            errs["e_witness"] = rel_errs(step_grads(wcfg, wmodel, *args),
-                                         g64)
+            with Relus(ref.masks):
+                errs["e_witness"] = rel_errs(
+                    step_grads(wcfg, wmodel, *args), g64)
         steps.append({n: {k: e[n] for k, e in errs.items()} for n in g64})
+        flips.append({name: relu_flips(cfg, model, clips[i], cpu.step, ref)
+                      for name, model in (("card", card),
+                                          ("cpu", cpu.model))})
         cpu, m = task.train_step(cpu, {
             "clips": torch.from_numpy(clips[i]),
             "pseudo_targets": torch.from_numpy(targets[i])}, 1)
         metrics.append(float_metrics(m))
-    return steps, launched, metrics, cpu.model.state_dict()
+    return steps, flips, launched, metrics, cpu.model.state_dict()
 
 
 def grad_bound(e_cpu: float) -> float:
@@ -1516,6 +1648,13 @@ def worst_leaf(step: dict) -> dict:
             "share_of_bound": e["e_card"] / grad_bound(e["e_cpu"])}
 
 
+def parity_holds(step: dict, flips: dict) -> bool:
+    """long_train_parity's rule for one step: every leaf's pinned e_card
+    within its bound, and no flipped decision far from 0."""
+    return (all(e["e_card"] <= grad_bound(e["e_cpu"]) for e in step.values())
+            and not any(sum(f["far"]) for f in flips.values()))
+
+
 def phase_long_train_parity() -> None:
     """3 float32 steps at T=64, B=8 from seed 0 on the card and on the CPU,
     both on the K5 route, dropout 0 and injected pseudo-labels drawn from
@@ -1526,14 +1665,24 @@ def phase_long_train_parity() -> None:
     gradient is near 0, Adam's first steps (about lr * sign(g)) turn
     float32 rounding into differences of a good share of lr on some
     data.  What is bounded is each step's gradient from the same
-    parameters, against float64 arithmetic: at each of the 3 steps the
-    card computes the float32 gradient at the CPU run's parameters on that
-    step's batch, the CPU its float32 and float64 gradients there, and for
-    every leaf e_card <= GRAD_ABS + GRAD_KAPPA * e_cpu, e_x being the
-    largest |x - float64| over the largest |float64| entry.  The card may
-    lie farther from exact arithmetic than the CPU's own float32 only by
-    the factor GRAD_KAPPA, and by GRAD_ABS (the rule of the kernels' own
-    checks) beside it: float32 sums in another order, not a fault."""
+    parameters, against float64 arithmetic, with every ReLU deciding as
+    in float64: at each of the 3 steps the card computes the float32
+    gradient at the CPU run's parameters on that step's batch, the CPU
+    its float64 gradient (recording each ReLU's mask) and its float32
+    one, both float32 gradients with the masks pinned to float64's
+    (`Relus`), and for every leaf e_card <= GRAD_ABS + GRAD_KAPPA * e_cpu,
+    e_x being the largest |x - float64| over the largest |float64| entry.
+    The card may lie farther from exact arithmetic than the CPU's own
+    float32 only by the factor GRAD_KAPPA, and by GRAD_ABS (the rule of
+    the kernels' own checks) beside it: float32 sums in another order, not
+    a fault.  A pre-activation within float32 rounding of 0 may take the
+    other side of 0 than in float64, and its ReLU then passes a gradient
+    float64 stops, or the reverse: a decision, not arithmetic, which the
+    pinned masks take out of the rule.  Those flips are counted, by layer,
+    in the unpinned float32 forwards of the card and of the CPU, and each
+    must lie within FLIP_NEAR of its layer's largest |float64| entry: a
+    kernel that computes a wrong pre-activation flips decisions far from
+    0 and fails there."""
     from cvad_tpu_torch.train.state import float_metrics
     from cvad_tpu_torch.train.tasks import build_task
 
@@ -1551,7 +1700,8 @@ def phase_long_train_parity() -> None:
     rose = {k: v - before[k] for k, v in counts().items()}
     pg = {k: v.cpu() for k, v in st.model.state_dict().items()}
     # the CPU steps, and the card's gradients at their parameters
-    grads, grad_rose, mc, pc = long_grad_parity(task, cfg, clips, targets)
+    grads, flips, grad_rose, mc, pc = long_grad_parity(task, cfg, clips,
+                                                       targets)
     on_path = ("s2d_group_forward", "s2d_group_wgrad", "pairwise_l1_forward",
                "pairwise_l1_backward")
     check(all(v == (PARITY_STEPS if k in on_path else 0)
@@ -1569,16 +1719,18 @@ def phase_long_train_parity() -> None:
           "loss_card": [m["loss"] for m in mg],
           "loss_cpu": [m["loss"] for m in mc],
           "metrics_max_rel_err": err_m, "params_max_abs_err": err_p,
-          "grad_bound": {"abs": GRAD_ABS, "kappa": GRAD_KAPPA},
-          "grad_worst_leaf_by_step": [worst_leaf(g) for g in grads]})
+          "grad_bound": {"abs": GRAD_ABS, "kappa": GRAD_KAPPA,
+                         "relu_masks": "float64's", "flip_near": FLIP_NEAR},
+          "grad_worst_leaf_by_step": [worst_leaf(g) for g in grads],
+          "relu_flips_by_step": flips})
     check(err_m <= 1e-4, f"long-window card vs CPU metrics differ by {err_m}")
-    for i, step in enumerate(grads):
-        for name, e in step.items():
-            check(e["e_card"] <= grad_bound(e["e_cpu"]),
-                  f"long-window step {i + 1}: the card's gradient of {name} "
-                  f"lies {e['e_card']} of its largest entry from float64, "
-                  f"the CPU's float32 {e['e_cpu']}: past {GRAD_ABS} + "
-                  f"{GRAD_KAPPA} x {e['e_cpu']}")
+    for i, (step, flip) in enumerate(zip(grads, flips)):
+        check(parity_holds(step, flip),
+              f"long-window step {i + 1}: the card's gradient (ReLU masks "
+              f"pinned to float64's) against e_card <= {GRAD_ABS} + "
+              f"{GRAD_KAPPA} x e_cpu, worst leaf {worst_leaf(step)}; ReLU "
+              f"decisions flipped (none may lie past {FLIP_NEAR} of the "
+              f"layer's largest entry): {flip}")
 
 
 def phase_long_train(workdir: Path) -> dict:
@@ -2147,6 +2299,259 @@ def phase_attn_train(workdir: Path) -> dict:
           and launches["tfold_conv1"] == launches["s2d_group_forward"] == 0,
           f"main path 6 launches {launches} for {steps} train steps")
     return launches
+
+
+class Watched:
+    """A batch scorer that times its calls (`seconds`) and fails the check
+    on a clip whose largest value is 0: a decoder that cannot read the
+    frames gives zero frames, which would score without an error."""
+
+    def __init__(self, fn):
+        self.fn, self.seconds, self.clips = fn, 0.0, 0
+
+    def __call__(self, batch: np.ndarray):
+        check(bool((batch.reshape(len(batch), -1).max(1) > 0).all()),
+              "a decoded clip is all zeros: the frames were not decoded")
+        t0 = time.perf_counter()
+        out = self.fn(batch)
+        self.seconds += time.perf_counter() - t0
+        self.clips += len(batch)
+        return out
+
+
+def video_tree(root: Path) -> tuple:
+    """Writes phase video's tree with the port's writer; returns the test
+    split's videos, their frame labels (from the `_gt` masks) and the
+    seconds the writing took."""
+    from cvad_tpu_torch.data.frames import scan_video_folders
+    from cvad_tpu_torch.data.ground_truth import load_gt_frame_labels
+    from cvad_tpu_torch.data.synthetic import write_synthetic_video_tree
+
+    t0 = time.perf_counter()
+    write_synthetic_video_tree(
+        str(root), splits=("Test",), videos_per_split=VIDEO_VIDEOS,
+        frames_per_video=VIDEO_FRAMES, hw=VIDEO_HW, channels=1, fmt="pgm",
+        seed=VIDEO_SEED, write_gt=True)
+    write_s = time.perf_counter() - t0
+    videos = scan_video_folders(str(root / "Test"))
+    labels = load_gt_frame_labels(str(root), "Test",
+                                  [n for n, _ in videos])
+    check(len(videos) == VIDEO_VIDEOS and len(labels) == VIDEO_VIDEOS
+          and all(len(f) == VIDEO_FRAMES for _, f in videos),
+          f"the tree holds {len(videos)} videos, {len(labels)} with labels")
+    return videos, labels, write_s
+
+
+def check_decoder(videos: list) -> dict:
+    """The port's decoder is its own build of native/decoder.cpp in
+    cvad_tpu_torch/build/ and loads here; VIDEO_DECODED frames decoded at
+    their own size equal the bytes the writer put in the files, x / 255 in
+    float32, bit for bit."""
+    from cvad_tpu_torch.data import native_decoder as nd
+
+    t0 = time.perf_counter()
+    lib = nd.load_library()
+    load_s = time.perf_counter() - t0
+    check(lib is not None, "the port's native decoder did not build or load "
+                           "(no decoder reads the frames on this host): "
+                           f"{nd.last_error}")
+    check(Path(lib._name) == nd.library_path()
+          and nd.library_path().parent == nd.BUILD_DIR,
+          f"the decoder loaded from {lib._name}")
+    h, w = VIDEO_HW
+    paths = videos[0][1][:VIDEO_DECODED]
+    got = nd.decode_clip(paths, VIDEO_HW, 1)
+    header = f"P5\n{w} {h}\n255\n".encode()
+    inv255 = np.float32(1.0) / np.float32(255.0)
+    for p, frame in zip(paths, got):
+        raw = Path(p).read_bytes()
+        check(raw.startswith(header) and len(raw) == len(header) + h * w,
+              f"{p} is not the written {w}x{h} PGM")
+        px = np.frombuffer(raw[len(header):], np.uint8).reshape(h, w, 1)
+        check(np.array_equal(frame, px.astype(np.float32) * inv255),
+              f"{p} decodes to other values than its bytes")
+    return {"library": str(Path(lib._name).relative_to(ROOT)),
+            "build_and_load_s": load_s, "suffixes": nd.supported_suffixes(),
+            "frames_bit_identical": len(paths), "frame_hw": list(VIDEO_HW)}
+
+
+def score_videos(score_fn, cfg, videos: list, labels: dict) -> tuple:
+    """Every video through `VideoScorer` and `frame_level_auc`; returns the
+    AUC report, each video's `score_video` result by name, and the seconds
+    (total and inside the score calls)."""
+    from cvad_tpu_torch.evaluation.frame_auc import frame_level_auc
+    from cvad_tpu_torch.evaluation.scoring import VideoScorer
+
+    watched = Watched(score_fn)
+    scorer = VideoScorer(watched, cfg)
+    names = {frames[0]: name for name, frames in videos}
+    results = {}
+
+    def score_video(frames):
+        results[names[frames[0]]] = out = scorer.score_video(frames)
+        return out
+
+    t0 = time.perf_counter()
+    report = frame_level_auc(score_video, videos, labels)
+    return report, results, time.perf_counter() - t0, watched.seconds
+
+
+def video_path(name: str, score_fn, cfg, videos: list, labels: dict,
+               on_path: str, card: str) -> tuple:
+    """One scoring path of phase video on the card: the launch counts set
+    to 0 just before and read just after; `on_path`'s counter must rise
+    and every other stay 0.  Emits the path's line; returns its launches,
+    AUC report and per-video results."""
+    reset_counts()
+    report, results, total_s, score_s = score_videos(score_fn, cfg, videos,
+                                                     labels)
+    launched = counts()
+    windows = sum(len(r["scores"]) for r in results.values())
+    frames = sum(len(f) for _, f in videos)
+    emit({"phase": "video", "path": name, "videos": len(videos),
+          "frames": frames, "windows": windows,
+          "clip": [cfg.clip_len, *cfg.frame_size, cfg.channels],
+          "stride": cfg.stride, "seconds": total_s,
+          "decode_s": total_s - score_s, "score_s": score_s,
+          "frames_per_s": frames / total_s,
+          "windows_per_s": windows / total_s,
+          "score_windows_per_s": windows / score_s, "launches": launched,
+          **{k: report[k] for k in ("frame_auc", "frame_auc_normalized",
+                                    "macro_auc", "n_frames",
+                                    "anomalous_frames")},
+          "card": card})
+    check(report["frame_auc"] is not None
+          and report["n_frames"] == frames
+          and all(np.isfinite(r["scores"]).all() for r in results.values()),
+          f"{name}: frame AUC {report['frame_auc']}")
+    check(launched[on_path] > 0
+          and all(v == 0 for k, v in launched.items() if k != on_path),
+          f"{name} launched {launched}")
+    return launched, report, results
+
+
+def video_vs_cpu(name: str, cpu_fn, cfg, videos: list, labels: dict,
+                 card: dict, report: dict) -> dict:
+    """The first VIDEO_CPU_VIDEOS videos scored by the port on the CPU
+    against the card's results: window and frame scores within
+    VIDEO_CPU_TOL, each per-video frame AUC within VIDEO_AUC_TOL."""
+    part = videos[:VIDEO_CPU_VIDEOS]
+    cpu_report, cpu, _, _ = score_videos(cpu_fn, cfg, part, labels)
+    errs = {"window": 0.0, "frame": 0.0, "auc": 0.0}
+    for v, _ in part:
+        check(np.array_equal(cpu[v]["starts"], card[v]["starts"]),
+              f"{name}: {v}'s windows differ on the CPU")
+        errs["window"] = max(errs["window"], float(np.abs(
+            cpu[v]["scores"] - card[v]["scores"]).max()))
+        errs["frame"] = max(errs["frame"], float(np.abs(
+            cpu[v]["frame_scores"] - card[v]["frame_scores"]).max()))
+        a, b = cpu_report["per_video_auc"][v], report["per_video_auc"][v]
+        check((a is None) == (b is None), f"{name}: {v}'s AUC {a} vs {b}")
+        if a is not None:
+            errs["auc"] = max(errs["auc"], abs(a - b))
+    out = {"path": name, "videos": [v for v, _ in part],
+           "per_video_auc_card": {v: report["per_video_auc"][v]
+                                  for v, _ in part},
+           "per_video_auc_cpu": cpu_report["per_video_auc"],
+           "max_window_err": errs["window"], "max_frame_err": errs["frame"],
+           "max_auc_diff": errs["auc"]}
+    check(errs["window"] <= VIDEO_CPU_TOL and errs["frame"] <= VIDEO_CPU_TOL
+          and errs["auc"] <= VIDEO_AUC_TOL, f"{name} card vs CPU: {out}")
+    return out
+
+
+def stream_video(score_fn, cfg, video: tuple, ref: dict, card: str
+                 ) -> dict:
+    """One video replayed frame by frame through `StreamingScorer` (B=1) on
+    the card, each frame decoded by the port's dataset as `VideoScorer`'s
+    windows are (uint8, then / 255 in the scorer): the windows equal
+    `ref`'s (the batched scorer's) within STREAM_TOL, the launch counts
+    read over the stream alone."""
+    from cvad_tpu_torch.data.datasets import ClipDataset
+    from cvad_tpu_torch.data.frames import clip_windows
+    from cvad_tpu_torch.evaluation.streaming import StreamingScorer
+
+    name, frames = video
+    one = clip_windows([(name, frames)], 1, 1)
+    ds = ClipDataset(one, np.zeros(len(one), np.float32),
+                     cfg.replace(clip_len=1, stride=1))
+    watched = Watched(score_fn)
+    stream = StreamingScorer(watched, clip_len=cfg.clip_len,
+                             stride=cfg.stride)
+    reset_counts()
+    t0 = time.perf_counter()
+    for i in range(len(one)):
+        stream.push(ds.get_uint8(i)[0][0])
+    total_s = time.perf_counter() - t0
+    launched = counts()
+    starts = np.array([w.start for w in stream.windows])
+    scores = np.array([w.score for w in stream.windows], np.float32)
+    check(np.array_equal(starts, ref["starts"]),
+          f"the stream fired windows {starts.tolist()}")
+    err = float(np.abs(scores - ref["scores"]).max())
+    err_f = float(np.abs(stream.frame_scores() - ref["frame_scores"]).max())
+    out = {"phase": "video", "path": "stream_d", "video": name,
+           "frames": len(frames), "windows": len(starts), "batch": 1,
+           "seconds": total_s, "score_s": watched.seconds,
+           "decode_s": total_s - watched.seconds,
+           "frames_per_s": len(frames) / total_s,
+           "windows_per_s": len(starts) / total_s, "launches": launched,
+           "max_window_err_vs_batched": err,
+           "max_frame_err_vs_batched": err_f, "card": card}
+    emit(out)
+    check(max(err, err_f) <= STREAM_TOL,
+          f"stream vs batched scores differ by {err}, {err_f}")
+    check(launched["tfold_conv1"] > 0
+          and all(v == 0 for k, v in launched.items() if k != "tfold_conv1"),
+          f"stream_d launched {launched}")
+    return launched
+
+
+def phase_video(state: dict, dev: dict) -> dict:
+    """Frame-folder video end to end on the card (see the module
+    docstring); returns each path's launch counts."""
+    from cvad_tpu_torch.config import DataConfig, FamilyDConfig, preset
+    from cvad_tpu_torch.evaluation.scoring import (make_family_b_score_fn,
+                                                   make_family_d_score_fn)
+
+    card = dev["card"]
+    cfg_d = DataConfig(channels=3, clip_len=8, stride=4, frame_size=(64, 64))
+    cfg_b = preset("memory_ae").data
+    cfg_d64 = cfg_d.replace(clip_len=64, stride=16)
+    model_d64 = FamilyDConfig(conv_group_impl="s2d", conv1_mode="tfold")
+    state_b = b_checkpoint_state(np.random.default_rng(VIDEO_SEED))
+    paths, vs_cpu = {}, []
+    with tempfile.TemporaryDirectory(prefix="cvad_video_") as tmp:
+        videos, labels, write_s = video_tree(Path(tmp))
+        size = sum(f.stat().st_size for f in Path(tmp).rglob("*")
+                   if f.is_file())
+        decoder = check_decoder(videos)
+        emit({"phase": "video", "path": "tree", "videos": len(videos),
+              "frames_per_video": VIDEO_FRAMES, "frame_hw": list(VIDEO_HW),
+              "format": "pgm", "gt": "_gt mask folders",
+              "bytes": size, "write_s": write_s, "decoder": decoder,
+              "anomalous_frames": int(sum(v.sum() for v in
+                                          labels.values()))})
+        d_fn = make_family_d_score_fn(state)
+        for name, fn, cpu_fn, cfg, counter in (
+                ("video_score_d", d_fn,
+                 make_family_d_score_fn(state, device="cpu"), cfg_d,
+                 "tfold_conv1"),
+                ("video_score_b", make_family_b_score_fn(state_b),
+                 make_family_b_score_fn(state_b, device="cpu"), cfg_b,
+                 "memory_min_cosine"),
+                ("video_score_d64", make_family_d_score_fn(state, model_d64),
+                 make_family_d_score_fn(state, model_d64, device="cpu"),
+                 cfg_d64, "s2d_group_forward")):
+            paths[name], report, results = video_path(
+                name, fn, cfg, videos, labels, counter, card)
+            vs_cpu.append(video_vs_cpu(name, cpu_fn, cfg, videos, labels,
+                                       results, report))
+            if name == "video_score_d":
+                paths["stream_d"] = stream_video(
+                    d_fn, cfg_d, videos[0], results[videos[0][0]], card)
+    emit({"phase": "video_vs_cpu", "paths": vs_cpu, "card": card})
+    return paths
 
 
 def memory_times(rng: np.random.Generator) -> list:
@@ -2845,6 +3250,10 @@ def main() -> int:
         paths["attn_train"] = phase_attn_train(Path(tmp))  # resets first
         emit({"phase": "main_path", "path": "attn_train",
               "launches": paths["attn_train"]})
+    # main path 7: frame-folder video (each path resets the counts first)
+    for name, launched in phase_video(state, dev).items():
+        paths[name] = launched
+        emit({"phase": "main_path", "path": name, "launches": launched})
 
     train_times = [train_step_times(rng, "float32"),
                    train_step_times(rng, "bfloat16"),

@@ -8,10 +8,10 @@ family-B serving and training paths read; the port imports nothing of
 route as there (`models/family_d.py::conv1_route`): where `cvad_tpu` runs
 the s2d group kernel (K5), so does the port; every other lowering is an
 exact relowering of the same convolution, which K1 computes directly.
-Left out are `DataConfig.grayscale` and `label_policy`, which only the
-frame-folder datasets read (ROADMAP Queue 1 item 6; the synthetic clips
-take `channels`), and `TrainConfig.normal_only`, which no code of `cvad_tpu`
-reads (family B's step trains on the normal clips).  Knobs of
+Left out are `DataConfig.grayscale`, which nothing reads (decode takes
+gray from ``channels == 1``, as `cvad_tpu`'s datasets do), and
+`TrainConfig.normal_only`, which no code of `cvad_tpu` reads (family B's
+step trains on the normal clips).  Knobs of
 `TrainConfig` that have no port yet are carried and refused where they are
 read (`Trainer`), so that setting one never silently runs something else:
 
@@ -63,20 +63,31 @@ TEMPORAL_ENCODERS = ("lstm", "attention")
 
 @dataclass(frozen=True)
 class DataConfig(_Base):
-    """Clip windowing and batching: 8-frame RGB clips at 64x64, as the
-    checkpoint-producing Avenue pipeline uses them.  Only the synthetic
-    dataset is ported (`data/datasets.py::build_dataset`)."""
+    """Clip windowing, decode and batching: 8-frame RGB clips at 64x64, as
+    the checkpoint-producing Avenue pipeline uses them.  `dataset` is
+    'synthetic' (in-memory clips) or a frame-folder tree under `root`:
+    'ucsd_ped2', 'ucsd_ped2_simple' or 'avenue'
+    (`data/datasets.py::build_dataset`)."""
 
     dataset: str = "synthetic"
+    root: str = ""
     clip_len: int = 8
     frame_size: Tuple[int, int] = (64, 64)  # (H, W)
     channels: int = 3
     stride: int = 4
+    # 0 = every window; else a uniform subsample of each video's windows
+    max_clips_per_video: int = 0
     # family B's preset clamps to (0.001, 0.999)
     normalize_clamp: Tuple[float, float] = (0.0, 1.0)
+    # none | heuristic_v1 | hardcoded_v2 | split_binary | mixed_simple |
+    # ground_truth (data/labels.py)
+    label_policy: str = "none"
     batch_size: int = 32
     prefetch: int = 2
     num_decode_threads: int = 4
+    decode_backend: str = "auto"  # auto | native | pil | cv2 | npy
+    # keep each decoded frame as uint8 (epochs after the first skip decode)
+    cache_decoded: bool = True
     # host->device transfer dtype: uint8 sends 4x fewer bytes and the train
     # step normalises on the device
     transfer_dtype: str = "float32"  # float32 | uint8
@@ -261,7 +272,8 @@ def preset(name: str) -> ExperimentConfig:
         return ExperimentConfig(
             model=FamilyBConfig(),
             data=DataConfig(channels=1, clip_len=8, stride=2,
-                            normalize_clamp=(0.001, 0.999), batch_size=4),
+                            normalize_clamp=(0.001, 0.999), batch_size=4,
+                            label_policy="hardcoded_v2"),
             optim=OptimConfig(optimizer="adam", lr=1e-6, weight_decay=1e-6,
                               schedule="plateau", grad_clip=0.1),
             train=TrainConfig(num_epochs=50,

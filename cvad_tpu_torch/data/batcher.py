@@ -6,10 +6,13 @@ Port of `cvad_tpu/data/batcher.py::BatchLoader` (:20-175): the same
 `cvad_tpu`'s.  A producer thread collates batches into a bounded queue.
 `DevicePrefetcher` (pinned staging on a side stream) is not ported yet
 (ROADMAP Queue 1 item 15): the trainer copies each batch with a plain
-``.to(device)``.  The knobs of the multi-host path (``max_batches``), the
-frame-folder datasets (``warm_frames``), the device clip cache
-(``epoch_index_batches``) and the reference-layout adapter
-(``torch_layout``) wait for their ports.
+``.to(device)``.  Before collating a batch it calls the dataset's
+``warm_frames`` where it has one (the frame-folder datasets: one threaded
+native decode of every frame the batch still misses), and
+``torch_layout`` collates (B, C, T, H, W) for the reference-layout adapter
+(`data/datasets.py::create_avenue_dataloaders`).  The knobs of the
+multi-host path (``max_batches``) and the device clip cache
+(``epoch_index_batches``) wait for their ports.
 """
 
 from __future__ import annotations
@@ -31,13 +34,14 @@ class BatchLoader:
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
                  drop_last: bool = False, seed: int = 0,
-                 num_threads: int = 4, prefetch: int = 2,
-                 transfer_dtype: str = "float32"):
+                 torch_layout: bool = False, num_threads: int = 4,
+                 prefetch: int = 2, transfer_dtype: str = "float32"):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.seed = seed
+        self.torch_layout = torch_layout
         self.num_threads = max(1, num_threads)
         self.prefetch = max(1, prefetch)
         # uint8 transfer: 4x fewer host->device bytes; the train step
@@ -68,6 +72,11 @@ class BatchLoader:
             yield idx[s:s + self.batch_size]
 
     def _collate(self, indices) -> Dict[str, np.ndarray]:
+        if hasattr(self.dataset, "warm_frames"):
+            # one threaded native decode of all the batch's missing frames:
+            # overlapping windows share frames, which the per-item pool
+            # below would decode once a window
+            self.dataset.warm_frames([int(i) for i in indices])
         use_u8 = (self.transfer_dtype == "uint8"
                   and hasattr(self.dataset, "get_uint8"))
         get = self.dataset.get_uint8 if use_u8 else self.dataset.__getitem__
@@ -77,6 +86,8 @@ class BatchLoader:
             items = [get(int(i)) for i in indices]
         clips = np.stack([c for c, _ in items])
         labels = np.asarray([l for _, l in items], np.float32)
+        if self.torch_layout:  # (B, T, H, W, C) -> (B, C, T, H, W)
+            clips = np.transpose(clips, (0, 4, 1, 2, 3))
         return {"clips": clips, "labels": labels}
 
     def sample_batch(self) -> Dict[str, np.ndarray]:

@@ -1,14 +1,19 @@
-"""Synthetic clips, numpy only.
+"""Synthetic clips and frame-folder trees, numpy only.
 
-An own copy of `cvad_tpu/data/synthetic.py::_render_video` and
-`make_synthetic_clips` (:20-112): normal clips are smooth moving blobs,
-anomalous ones move erratically (and flash, in the 'easy' profile).  The
-code is the same numpy, so the same seed gives bit-identical clips and
-labels in both packages (tests/test_torch_port_trainer.py).
+An own copy of `cvad_tpu/data/synthetic.py` (`_render_video`,
+`make_synthetic_clips`, `write_synthetic_video_tree` and its PGM, PPM and
+mask writers): normal clips are smooth moving blobs, anomalous ones move
+erratically (and flash, in the 'easy' profile).  The code is the same
+numpy, so the same seed gives bit-identical clips and labels
+(tests/test_torch_port_trainer.py) and byte-identical trees
+(tests/test_torch_port_data.py) in both packages.  PGM, PPM and ``.npy``
+need numpy alone; TIFF, JPEG and PNG frames and BMP/PNG/TIFF masks are
+written through PIL, imported where one is asked for.
 """
 
 from __future__ import annotations
 
+from pathlib import Path
 from typing import Tuple
 
 import numpy as np
@@ -105,3 +110,88 @@ def make_synthetic_clips(n: int, clip_len: int = 8, hw: Tuple[int, int] = (64, 6
         clips[i] = _render_video(rng, clip_len, h, w, channels, bool(labels[i]),
                                  profile=profile)
     return clips, labels
+def write_synthetic_video_tree(root: str, splits=("Train", "Test"),
+                               videos_per_split: int = 2,
+                               frames_per_video: int = 24,
+                               hw: Tuple[int, int] = (64, 64),
+                               channels: int = 1, fmt: str = "pgm",
+                               seed: int = 0, write_gt: bool = False,
+                               gt_fmt: str = "pgm") -> str:
+    """Write a UCSD-style frame-folder tree; returns the root path.
+
+    With `write_gt`, anomalous test videos get frame-level anomaly
+    *segments* (middle 25-75% of frames) and a sibling ``<video>_gt/``
+    folder of per-frame pixel masks — the real UCSD Ped2 ground-truth
+    layout the reference skips (``minicausal_vad_complete3.py:141-143``) —
+    so the `ground_truth` label policy and the frame-AUC report are
+    end-to-end testable without the real dataset."""
+    rng = np.random.default_rng(seed)
+    h, w = hw
+    rootp = Path(root)
+    for split in splits:
+        for v in range(videos_per_split):
+            vdir = rootp / split / f"{split}{v + 1:03d}"
+            vdir.mkdir(parents=True, exist_ok=True)
+            is_anom_video = split != "Train" and v % 2 == 0
+            if write_gt and is_anom_video:
+                flags = np.zeros(frames_per_video, bool)
+                flags[frames_per_video // 4: (3 * frames_per_video) // 4] = True
+            else:
+                flags = np.full(frames_per_video, is_anom_video)
+            video, masks = _render_video(rng, frames_per_video, h, w,
+                                         channels, anomalous=flags,
+                                         return_masks=True)
+            if write_gt and split != "Train":
+                gt_dir = rootp / split / (vdir.name + "_gt")
+                gt_dir.mkdir(parents=True, exist_ok=True)
+                for i in range(frames_per_video):
+                    _write_mask(gt_dir / f"{i + 1:03d}.{gt_fmt}", masks[i],
+                                gt_fmt)
+            for i in range(frames_per_video):
+                frame8 = (video[i] * 255).astype(np.uint8)
+                path = vdir / f"{i + 1:03d}.{fmt}"
+                if fmt == "npy":
+                    np.save(str(path)[:-4] + ".npy", video[i])
+                elif fmt == "pgm":
+                    _write_pgm(path, frame8[..., 0] if channels >= 1 else frame8)
+                elif fmt == "ppm":
+                    rgb = (np.repeat(frame8, 3, -1) if channels == 1 else frame8)
+                    _write_ppm(path, rgb[..., :3])
+                elif fmt in ("tif", "tiff", "tif_lzw", "jpg", "png"):
+                    # real-dataset formats (UCSD .tif / Avenue jpg+png),
+                    # written via PIL like the original datasets were
+                    from PIL import Image
+
+                    arr = frame8[..., 0] if channels == 1 else frame8
+                    kw = {"compression": "tiff_lzw"} if fmt == "tif_lzw" else {}
+                    ext = "tif" if fmt == "tif_lzw" else fmt
+                    Image.fromarray(arr).save(
+                        str(path)[: -len(fmt)] + ext, **kw)
+                else:
+                    raise ValueError(f"unsupported fixture format {fmt!r}")
+    return str(rootp)
+
+
+def _write_mask(path: Path, mask: np.ndarray, fmt: str) -> None:
+    if fmt == "pgm":
+        _write_pgm(path, mask)
+    elif fmt == "npy":
+        np.save(str(path)[:-4] + ".npy", mask)
+    else:  # bmp/png/tif — the real dataset mask formats, via PIL
+        from PIL import Image
+
+        Image.fromarray(mask).save(path)
+
+
+def _write_pgm(path: Path, gray: np.ndarray) -> None:
+    h, w = gray.shape[:2]
+    with open(path, "wb") as f:
+        f.write(f"P5\n{w} {h}\n255\n".encode())
+        f.write(np.ascontiguousarray(gray, np.uint8).tobytes())
+
+
+def _write_ppm(path: Path, rgb: np.ndarray) -> None:
+    h, w = rgb.shape[:2]
+    with open(path, "wb") as f:
+        f.write(f"P6\n{w} {h}\n255\n".encode())
+        f.write(np.ascontiguousarray(rgb, np.uint8).tobytes())

@@ -1,2 +1,2 @@
-"""Evaluation: family-D scorers, the batching service and its HTTP
-front-end."""
+"""Evaluation: video scoring (windows, streams, frame AUC), family-D and
+family-B scorers, metrics, the batching service and its HTTP front-end."""

@@ -8,7 +8,8 @@ An own copy of `cvad_tpu/evaluation/metrics.py` (:19-134), numpy only:
   at a threshold) and `score_separation`.  `cvad_tpu` computes the binary
   metrics with scikit-learn; here they are written out in numpy with
   scikit-learn's definitions (zero_division=0, AUC from average ranks), so
-  the port needs no scikit-learn.
+  the port needs no scikit-learn;
+- `format_sample_table`, the per-sample prediction table.
 """
 
 from __future__ import annotations
@@ -95,6 +96,23 @@ def binary_metrics(scores: np.ndarray, labels: np.ndarray,
     out["auc"] = (roc_auc(scores, labels) if len(np.unique(labels)) > 1
                   else float("nan"))
     return out
+
+
+def format_sample_table(scores: np.ndarray, labels: np.ndarray,
+                        threshold: float = 0.5, max_rows: int = 50) -> str:
+    """Per-sample prediction table (the reference's ``test_model`` print,
+    ``causal_anomaly_detection.py:796-835``), returned as a string."""
+    scores = np.asarray(scores).reshape(-1)
+    labels = np.asarray(labels).reshape(-1)
+    lines = [f"{'idx':>5} {'score':>8} {'pred':>5} {'label':>5} {'ok':>3}"]
+    for i in range(min(len(scores), max_rows)):
+        pred = int(scores[i] > threshold)
+        ok = "y" if pred == int(labels[i]) else "n"
+        lines.append(f"{i:>5} {scores[i]:>8.4f} {pred:>5} {int(labels[i]):>5} "
+                     f"{ok:>3}")
+    if len(scores) > max_rows:
+        lines.append(f"... ({len(scores) - max_rows} more)")
+    return "\n".join(lines)
 
 
 def score_separation(scores: np.ndarray, labels: np.ndarray

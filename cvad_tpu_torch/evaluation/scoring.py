@@ -1,7 +1,11 @@
-"""Clip scoring: family D's per-batch and bulk (throughput) scorers and
-family B's combined scorer.
+"""Video and clip scoring: sliding-window scoring of frame-folder videos,
+family D's per-batch and bulk (throughput) scorers and family B's combined
+scorer.
 
-Port of `cvad_tpu/evaluation/scoring.py::make_family_d_score_fn`,
+Port of `cvad_tpu/evaluation/scoring.py`: `ScoredClip`, `VideoScorer`
+(every window of a video decoded through `ClipDataset` and scored in
+batches of `batch_size`, the per-frame curve the mean of the windows
+covering each frame), `make_family_d_score_fn`,
 `make_family_d_bulk_score_fn`, `make_family_b_score_fn`, `make_score_fn`
 (families 'd' and 'b') and `aggregate_frame_scores`.  The public
 functions take (N, T, H, W, C) clips, float32 in [0, 1] or raw uint8 pixels,
@@ -21,15 +25,96 @@ runs; nothing is changed at import time.
 
 from __future__ import annotations
 
-from typing import Callable, Mapping, Optional, Tuple
+import dataclasses
+from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from cvad_tpu_torch.config import FamilyBConfig, FamilyDConfig, LossConfig
+from cvad_tpu_torch.config import (DataConfig, FamilyBConfig, FamilyDConfig,
+                                   LossConfig)
+from cvad_tpu_torch.data.datasets import ClipDataset
+from cvad_tpu_torch.data.frames import clip_windows, scan_video_folders
 from cvad_tpu_torch.models import CausalAnomalyDetector, MemoryVideoAutoEncoder
 from cvad_tpu_torch.models.family_b import MemoryBankState
 from cvad_tpu_torch.runtime.device import resolve_device
+
+
+@dataclasses.dataclass
+class ScoredClip:
+    """One window scoring above the threshold (the reference's
+    anomalous-clip record)."""
+
+    video: str
+    start: int
+    score: float
+    frames: Tuple[str, ...]
+    causal_graph: Optional[np.ndarray] = None
+
+
+class VideoScorer:
+    """Scores whole videos with a clip-level model.
+
+    `score_fn(clips)` maps a (B, T, H, W, C) batch to per-clip scores in
+    [0, 1], or to (scores, extras) such as family D's causal graphs; build
+    one with `make_family_d_score_fn` or `make_family_b_score_fn`.  Each
+    batch of windows is decoded on the host and scored in one call.
+    """
+
+    def __init__(self, score_fn: Callable, cfg: DataConfig,
+                 batch_size: int = 64):
+        self.score_fn = score_fn
+        self.cfg = cfg
+        self.batch_size = batch_size
+
+    def score_video(self, frames: Sequence[str]) -> Dict[str, np.ndarray]:
+        """Score every sliding window of one video: window 'starts',
+        'scores', 'graphs' where the scorer returns them, and the per-frame
+        curve 'frame_scores'."""
+        cfg = self.cfg
+        clips = clip_windows([("v", list(frames))], cfg.clip_len, cfg.stride)
+        ds = ClipDataset(clips, np.zeros(len(clips), np.float32), cfg)
+        starts = np.array([c.start for c in clips])
+        scores = np.empty(len(clips), np.float32)
+        graphs: List[np.ndarray] = []
+        for s in range(0, len(clips), self.batch_size):
+            idx = range(s, min(s + self.batch_size, len(clips)))
+            batch = np.stack([ds[i][0] for i in idx])
+            out = self.score_fn(batch)
+            if isinstance(out, tuple):
+                clip_scores = out[0]
+                graphs.append(np.asarray(out[1]))
+            else:
+                clip_scores = out
+            scores[s:s + len(batch)] = np.asarray(clip_scores).reshape(-1)
+        result: Dict[str, np.ndarray] = {
+            "starts": starts, "scores": scores,
+            "frame_scores": aggregate_frame_scores(starts, scores,
+                                                   cfg.clip_len,
+                                                   len(frames))}
+        if graphs:
+            result["graphs"] = np.concatenate(graphs)
+        return result
+
+    def extract_anomalous_clips(self, video_root: str,
+                                threshold: float = 0.3,
+                                max_clips: Optional[int] = None
+                                ) -> List[ScoredClip]:
+        """Every window of every video under `video_root` scoring above
+        `threshold` (the reference's default 0.3), highest first."""
+        out: List[ScoredClip] = []
+        for name, frames in scan_video_folders(video_root):
+            res = self.score_video(frames)
+            graphs = res.get("graphs")
+            for i, (start, score) in enumerate(zip(res["starts"],
+                                                   res["scores"])):
+                if score > threshold:
+                    out.append(ScoredClip(
+                        video=name, start=int(start), score=float(score),
+                        frames=tuple(frames[start:start + self.cfg.clip_len]),
+                        causal_graph=None if graphs is None else graphs[i]))
+        out.sort(key=lambda c: c.score, reverse=True)
+        return out[:max_clips] if max_clips else out
 
 
 def aggregate_frame_scores(starts: np.ndarray, scores: np.ndarray,

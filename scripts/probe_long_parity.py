@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Probe: chip_smoke.py's `long_train_parity` gradient check over many data
-seeds, with each gradient held against float64.
+seeds, with each gradient held against float64 and every ReLU's decision
+pinned to float64's.
 
     python scripts/probe_long_parity.py [SEED ...]
 
@@ -10,30 +11,27 @@ them from its own generator (`chip_smoke.LONG_PARITY_SEED`), and runs
 `chip_smoke.long_grad_parity`: family D at T=64, B=8 on the K5 route
 (model seed 0, dropout 0), 3 float32 steps on the CPU; before each step,
 at the CPU run's parameters on that step's batch, the CPU's float64
-gradient (the reference), the CPU's float32 gradient at its default
-thread count, the card's float32 gradient, and a witness: the card's
-float32 gradient with conv1 on K1 (conv_group_impl 'stack', no K5).  For
-every leaf at every step it reports
+gradient (the reference, each ReLU's mask recorded), and with those masks
+pinned the CPU's float32 gradient at its default thread count, the card's
+float32 gradient, and a witness: the card's float32 gradient with conv1
+on K1 (conv_group_impl 'stack', no K5).  For every leaf at every step it
+reports
 
     e_card = max|g_card - g64| / max|g64|,  e_cpu and e_k1 likewise,
 
-and whether the phase's rule holds: e_card <= GRAD_ABS + GRAD_KAPPA *
-e_cpu (1e-5 + 4 e_cpu).  Prints one JSON line a seed (each step's worst
-leaf, the share of its bound, e_card / e_cpu, and every leaf's three
-numbers), then the card's name and power limit.
-
-    python scripts/probe_long_parity.py --layers SEED ...
-
-locates where a seed's gradients part, layer by layer, at each step's
-parameters: the pre-activations of the four ReLUs of family D's
-`models/family_d.py` (conv1-3 and the graph encoder's first layer) on the
-card (K5 route), on the CPU in float32 and on the card on the K1 route,
-each against the CPU's float64 ones (largest difference over the largest
-float64 entry, and how many entries lie on the other side of 0 than in
-float64: where the ReLU passes a gradient in one and not in the other);
-then e_card, e_cpu and e_k1 as above, and again with those ReLUs' masks
-pinned to float64's (relu(x) = x * mask64), which takes the ReLU
-decisions out of the comparison and leaves the arithmetic.  Imports
+and, by ReLU (conv1-3 and the graph encoder's first layer), the decisions
+the unpinned float32 forwards of the card and of the CPU flip against
+float64's, how many of those lie farther from 0 than
+`chip_smoke.FLIP_NEAR` of the layer's largest |float64| pre-activation,
+and the largest |float64| over that entry among the flipped ones (`rel`;
+`max_flip_rel` is the largest of a seed's, for the card and the CPU).
+A seed passes where, at every step, e_card <= GRAD_ABS + GRAD_KAPPA *
+e_cpu (1e-5 + 4 e_cpu) on every leaf and no flip lies far from 0
+(`chip_smoke.parity_holds`).  Prints one JSON line a seed (each step's
+worst leaf, the share of its bound, e_card / e_cpu, the flips and every
+leaf's three numbers), then the card's name and power limit.  A planted
+wrong forward (K5's forward scaled by 1.001 in a throwaway copy) shows
+where that reading lies for a kernel at fault.  Imports
 nothing of JAX.
 """
 
@@ -47,93 +45,6 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 
 
-class Relus:
-    """Stands in for `torch.nn.functional` inside `models/family_d.py`: its
-    `relu` records each call's input (`record`), or applies the next of
-    `masks` as relu(x) = x * mask (pinned); everything else is torch's."""
-
-    def __init__(self, masks=None):
-        self.masks, self.inputs = masks, []
-
-    def __getattr__(self, name):
-        import torch.nn.functional as F
-
-        return getattr(F, name)
-
-    def relu(self, x):
-        if self.masks is None:
-            self.inputs.append(x.detach().cpu().double())
-            import torch.nn.functional as F
-
-            return F.relu(x)
-        mask = self.masks[len(self.inputs)]
-        self.inputs.append(None)
-        return x * mask.to(x.device, x.dtype)
-
-
-def through(relus, fn):
-    """fn() with `models/family_d.py`'s ReLUs replaced by `relus`."""
-    from cvad_tpu_torch.models import family_d
-
-    real = family_d.F
-    family_d.F = relus
-    try:
-        return fn()
-    finally:
-        family_d.F = real
-
-
-def layers(task, cfg, k1_cfg, k1_model, clips, targets) -> list:
-    """The `--layers` report of one seed, a dict a step (see the module
-    docstring), along the CPU run's float32 steps."""
-    import torch
-
-    import chip_smoke as cs
-
-    cpu = task.init_state(0, "cpu")
-    card = task.init_state(0, "cuda").model
-    out = []
-    for i in range(clips.shape[0]):
-        args = (clips[i], targets[i], cpu.step)
-        card.load_state_dict(cpu.model.state_dict(), strict=True)
-        k1_model.load_state_dict(cpu.model.state_dict(), strict=True)
-        runs = {"card": (cfg, card, torch.float32),
-                "cpu": (cfg, cpu.model, torch.float32),
-                "k1": (k1_cfg, k1_model, torch.float32),
-                "f64": (cfg, cpu.model, torch.float64)}
-        grads, pre = {}, {}
-        for name, (c, model, dt) in runs.items():
-            rec = Relus()
-            grads[name] = through(rec, lambda: cs.step_grads(
-                c, model, *args, dtype=dt))
-            pre[name] = rec.inputs
-        masks = [x > 0 for x in pre["f64"]]
-        pinned = {name: through(Relus(masks), lambda: cs.step_grads(
-            c, model, *args, dtype=dt))
-            for name, (c, model, dt) in runs.items() if name != "f64"}
-        g64 = grads["f64"]
-
-        def report(g: dict) -> dict:
-            return {f"e_{n}": cs.rel_errs(g[n], g64) for n in g
-                    if n != "f64"}
-
-        out.append({
-            "relu_inputs": [{
-                "shape": list(ref.shape),
-                **{f"{n}_rel_err": ((pre[n][j] - ref).abs().max()
-                                    / ref.abs().max()).item()
-                   for n in ("card", "cpu", "k1")},
-                **{f"{n}_sign_flips": int(((pre[n][j] > 0) != masks[j])
-                                          .sum()) for n in ("card", "cpu",
-                                                            "k1")}}
-                for j, ref in enumerate(pre["f64"])],
-            "grads": report(grads), "grads_relu_pinned": report(pinned)})
-        cpu, _ = task.train_step(cpu, {
-            "clips": torch.from_numpy(clips[i]),
-            "pseudo_targets": torch.from_numpy(targets[i])}, 1)
-    return out
-
-
 def main() -> int:
     sys.path.insert(0, str(ROOT))
     import numpy as np
@@ -145,9 +56,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("probe_long_parity: no CUDA card", file=sys.stderr)
         return 1
-    args = sys.argv[1:]
-    by_layer = "--layers" in args
-    seeds = [int(a) for a in args if a != "--layers"] or list(range(16))
+    seeds = [int(a) for a in sys.argv[1:]] or list(range(16))
     cfg = cs.long_config(cs.LONG_PARITY_BATCH, conv1_mode="tfold")
     cfg = cfg.replace(model=cfg.model.replace(dropout=0.0))
     task = build_task(cfg)
@@ -155,26 +64,26 @@ def main() -> int:
     k1_model = build_task(k1_cfg).init_state(0, "cuda").model
     for seed in seeds:
         clips, targets = cs.long_parity_data(np.random.default_rng(seed))
-        if by_layer:
-            print(json.dumps({"seed": seed, "steps": layers(
-                task, cfg, k1_cfg, k1_model, clips, targets)}), flush=True)
-            continue
-        steps = cs.long_grad_parity(task, cfg, clips, targets,
-                                    witness=(k1_cfg, k1_model))[0]
+        steps, flips = cs.long_grad_parity(task, cfg, clips, targets,
+                                           witness=(k1_cfg, k1_model))[:2]
         out = []
-        for step in steps:
+        for step, flip in zip(steps, flips):
             leaves = {n: {"e_card": e["e_card"], "e_cpu": e["e_cpu"],
                           "e_k1": e["e_witness"]} for n, e in step.items()}
             worst = cs.worst_leaf(step)
             worst["e_k1"] = worst.pop("e_witness")
-            out.append({"passes": worst["share_of_bound"] <= 1.0,
-                        "worst": worst, "leaves": leaves})
+            out.append({"passes": cs.parity_holds(step, flip),
+                        "worst": worst, "relu_flips": flip,
+                        "leaves": leaves})
         print(json.dumps({
             "seed": seed, "threads": torch.get_num_threads(),
-            "bound": {"abs": cs.GRAD_ABS, "kappa": cs.GRAD_KAPPA},
+            "bound": {"abs": cs.GRAD_ABS, "kappa": cs.GRAD_KAPPA,
+                      "relu_masks": "float64's", "flip_near": cs.FLIP_NEAR},
             "passes": all(s["passes"] for s in out),
             "max_share_of_bound": max(s["worst"]["share_of_bound"]
                                       for s in out),
+            "max_flip_rel": {side: max(max(f[side]["rel"]) for f in flips)
+                             for side in ("card", "cpu")},
             "steps": out}), flush=True)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -53,6 +53,13 @@ def test_imports_without_jax_or_cvad_tpu():
                 "cvad_tpu_torch.data.synthetic",
                 "cvad_tpu_torch.data.datasets",
                 "cvad_tpu_torch.data.batcher",
+                "cvad_tpu_torch.data.frames",
+                "cvad_tpu_torch.data.labels",
+                "cvad_tpu_torch.data.ground_truth",
+                "cvad_tpu_torch.data.native_decoder",
+                "cvad_tpu_torch.data.decode",
+                "cvad_tpu_torch.evaluation.streaming",
+                "cvad_tpu_torch.evaluation.frame_auc",
                 "cvad_tpu_torch.train.optim", "cvad_tpu_torch.train.state",
                 "cvad_tpu_torch.train.tasks", "cvad_tpu_torch.train.engine"):
         assert mod in res["imported"]

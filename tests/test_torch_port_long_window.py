@@ -317,6 +317,48 @@ def test_float64_step_gradient_stays_float64(k5_calls):
             xg, torch.zeros(2, 8, 8, 64, dtype=torch.float64), 4, 3, 16, 128)
 
 
+def test_relu_masks_pinned_and_flips_read(k5_calls):
+    """`chip_smoke.Relus` and `relu_flips` at T=16, B=2 on the K5 route:
+    the float64 forward records one mask per ReLU; the float32 gradient
+    with those masks pinned is the unpinned one where no decision flips;
+    a replay short of one mask fails; the float32 forward's flips lie
+    within FLIP_NEAR of their layer's largest |float64| entry, and a
+    conv1 weight off by 0.1% flips decisions past it."""
+    import copy
+
+    cs = _chip_smoke()
+    cfg = preset("family_d")
+    cfg = cfg.replace(model=cfg.model.replace(dropout=0.0, **S2D),
+                      data=cfg.data.replace(clip_len=16))
+    model = build_task(cfg).init_state(0, "cpu").model
+    rng = np.random.default_rng(5)
+    clips = rng.integers(0, 256, (2, 16, 32, 32, 3), dtype=np.uint8)
+    targets = np.array([0.0, 1.0], np.float32)
+    with cs.Relus() as ref:
+        cs.step_grads(cfg, model, clips, targets, 0, dtype=torch.float64)
+    assert len(ref.masks) == len(ref.rel) == 6
+    assert all(r.max().item() == 1.0 for r in ref.rel)
+    sound = cs.relu_flips(cfg, model, clips, 0, ref)
+    assert all(r <= cs.FLIP_NEAR for r in sound["rel"])
+    assert sum(sound["far"]) == 0
+    with cs.Relus(ref.masks):
+        pinned = cs.step_grads(cfg, model, clips, targets, 0)
+    free = cs.step_grads(cfg, model, clips, targets, 0)
+    if sum(sound["flips"]) == 0:
+        assert all(torch.equal(pinned[n], free[n]) for n in free)
+    with pytest.raises(RuntimeError, match="no recorded mask"):
+        with cs.Relus(ref.masks[:-1]):
+            cs.step_grads(cfg, model, clips, targets, 0)
+    bad = copy.deepcopy(model)
+    with torch.no_grad():
+        next(p for p in bad.parameters() if p.dim() == 5).mul_(1.001)
+    planted = cs.relu_flips(cfg, bad, clips, 0, ref)
+    assert sum(planted["far"]) > 0 and max(planted["rel"]) > cs.FLIP_NEAR
+    step = {"w": {"e_card": 0.0, "e_cpu": 0.0}}
+    assert cs.parity_holds(step, {"card": sound, "cpu": sound})
+    assert not cs.parity_holds(step, {"card": planted, "cpu": sound})
+
+
 # -- the CLI -------------------------------------------------------------------
 
 

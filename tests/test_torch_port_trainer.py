@@ -117,9 +117,12 @@ def test_state_is_the_shipped_model():
 
 
 def test_build_dataset_refuses_folder_datasets():
+    """The folder datasets are ported (tests/test_torch_port_data.py): a
+    root that holds no tree is refused, and so is an unknown dataset."""
     data = preset("family_d").data
-    with pytest.raises(NotImplementedError, match="item 6"):
-        build_dataset(data.replace(dataset="avenue"))
+    for name in ("avenue", "ucsd_ped2", "ucsd_ped2_simple"):
+        with pytest.raises(FileNotFoundError):
+            build_dataset(data.replace(dataset=name, root="/nonexistent"))
     with pytest.raises(KeyError):
         build_dataset(data.replace(dataset="nope"))
 
