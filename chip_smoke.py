@@ -148,6 +148,45 @@ Phases:
            within 1e-3; a line a path with windows, frames, seconds
            (decode apart from score), frames/s, windows/s, launches and
            the frame AUCs
+  family_c  (main path 8) family C, the mini3d preset (8x64x64x1 clips,
+           B=8): its scorer on the card against the CPU's from the same
+           weights (within 1e-5); 3 float32 train steps card vs CPU step
+           by step from the same init, dropout off: each step from the
+           CPU run's train state before it, every ReLU's mask and max
+           pool's argmax pinned to the CPU's float64 forward; on every
+           leaf the card's gradient within 1e-4 + 4 e_cpu of float64's
+           largest entry (e_cpu the CPU's own float32 error); after the step the metrics within rtol 1e-4,
+           every parameter whose gradient lies above 1e-3 of its leaf's
+           largest within 2e-5, every one within 2 lr, at most 0.1%
+           beyond 2e-5, the running statistics within 1e-5 of each leaf's
+           largest entry;
+           `Trainer.fit` on synthetic clips (256 train, 64 eval, 2 epochs,
+           eval (auc) and a checkpoint an epoch), a run of 1 epoch resumed
+           and finished bit-identical to it; the best checkpoint's scorer
+           within 1e-5 of the eval step; the step times (f32, bf16); no
+           port kernel launched (cuDNN convs, as cvad_tpu runs XLA's)
+  family_a  (main path 9) family A at full width, the causal_pipeline
+           preset (16x240x360x1 clips, B=4, channels 32-256): the eval
+           forward on the card against the CPU (scores, adjacency,
+           detections within 1e-2 px, both masks equal, no box coordinate
+           within 1e-2 px of a threshold), from the preset's
+           initialisation and from a detector head whose boxes cross the
+           thresholds by frame and slot; from such a head placed on the
+           steps' batches, 3 float32 train steps card vs CPU (family_c's
+           rule; dropout off, the VAE draws shared; every box 1e-2 px
+           from a threshold at each step, the valid share strictly
+           between 0 and 1);
+           the bf16 step's loss within 2e-2 of the f32 step's; one step
+           of causal_pipeline_v0 (loss = score MSE + 0.001 KL); 3 remat
+           steps bit-identical to the plain ones (running statistics and
+           Adam included); `Trainer.fit` (32 train, 16 eval clips, 2
+           epochs, val_acc and the analysis), a resumed run bit-identical
+           to it; the best checkpoint's scorer within 1e-5 of the eval
+           step; the step times (f32, bf16, anchor); no port kernel
+           launched
+  video    (also) video_score_a: family A's best checkpoint from phase
+           family_a scores the tree (16-frame windows at 240x360, stride 8,
+           21 a video) with no port kernel launched, the CPU on 2 videos
   times    kernel, plain-version and library times (CUDA events), the
            bounds, per-bucket request latency of both families, bulk
            clips/s, the train step of both families at B=256, the
@@ -193,16 +232,19 @@ gradients within 1e-5 of the largest entry in f32 and 2e-2 of it in bf16
 call.
 Kernel launch counts are set to 0 just before each main path (serve + bulk,
 long_score, long_train, train, family_b_train, family_b_serve, attn_train,
-video_score_d, stream_d, video_score_b, video_score_d64) and read just
-after it.  The last lines are the kernels summary, the card's
+family_c_train, family_a_train, video_score_d, stream_d, video_score_b,
+video_score_d64, video_score_a) and read just after it; families C and A
+must read 0 for every kernel.  The last lines are the kernels summary, the card's
 nvidia-smi name and power limit, and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import copy
+import functools
 import io
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -211,6 +253,7 @@ import threading
 import time
 import urllib.request
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -311,6 +354,55 @@ VIDEO_CPU_VIDEOS, VIDEO_DECODED = 2, 8
 # tolerances: card vs CPU per window and frame (f32), per-video frame AUC,
 # and the stream (B=1) against the batched scorer (B<=64) on the card
 VIDEO_CPU_TOL, VIDEO_AUC_TOL, STREAM_TOL = 1e-4, 1e-3, 1e-5
+# family C (phase family_c): the mini3d preset's clip and batch; its fit
+# on synthetic clips (2 epochs, and 1 + a resumed 1)
+C_CLIP, C_BATCH, C_TRAIN_CLIPS, C_EVAL_CLIPS = (8, 64, 64, 1), 8, 256, 64
+C_PARAMS = 18337
+# family A (phase family_a) at full width: the causal_pipeline preset's
+# clip (16 gray frames of 240x360) and batch; its fit (2 epochs, and 1 + a
+# resumed 1, the cosine schedule's length fixed at 2)
+A_CLIP, A_BATCH, A_TRAIN_CLIPS, A_EVAL_CLIPS = (16, 240, 360, 1), 4, 32, 16
+# card vs CPU over the train steps of families C and A, step by step
+# (`step_parity`): each step taken on the card and on the CPU from the CPU
+# run's train state before it, every ReLU mask and max-pool argmax pinned
+# to the CPU's float64 forward (unpinned, family A's first step flips 17
+# ReLU decisions within 5.6e-7 of their layer's largest |pre-activation|
+# and one max pool between card and CPU, moving a leaf's gradient by 1.7%,
+# and its 3-step runs part by 5% in the loss).  Each step: the metrics
+# within STEP_RTOL; every parameter entry whose CPU gradient lies above
+# STEP_TINY_REL of its leaf's largest |entry| ("steady") within
+# STEP_PARAM_ATOL (Adam moves it by lr times about the gradients'
+# relative difference), every entry within 2 lr, at most STEP_FAR_SHARE
+# of them beyond STEP_PARAM_ATOL; the running statistics within
+# STEP_STATS_REL of each leaf's largest entry.  Sound readings (H100,
+# scripts/probe_family_parity.py): metrics 1.2e-6, steady entries 5.6e-6,
+# 3.1e-5 of the entries beyond 2e-5, every entry within 3.0e-4 (about an
+# lr), statistics 4.6e-7; + 1e-3 of the leaf's largest entry planted on
+# the card's gradient of the first conv weight moves steady entries 2.1e-5
+# to 5.5e-5 (C's first step, A's three), a 1.001 scaling none (Adam's
+# update is blind to a leaf's scale: the gradient rule below catches it)
+STEP_RTOL, STEP_PARAM_ATOL, STEP_STATS_REL = 1e-4, 2e-5, 1e-5
+STEP_TINY_REL, STEP_FAR_SHARE = 1e-3, 1e-3
+# ... and each step's gradient on the card (decisions pinned) against the
+# CPU's float64 one: each leaf's e_card (largest difference over float64's
+# largest entry) within GRAD_F64_REL + GRAD_KAPPA * e_cpu, e_cpu the CPU's
+# own float32 error.  cuDNN's float32 conv backward is several times less
+# accurate than the CPU's (e_card up to 3.4e-4 against e_cpu 8.0e-5 in
+# family A's first BatchNorm bias), so the 1e-5 of long_train_parity's
+# bound does not fit these convs.  Sound steps read up to 0.81 of the
+# bound; the card's gradient of the first conv weight planted x 1.001
+# 1.01 to 5.4 times it, lowest where the CPU's own error is largest
+# (family C's first step, e_cpu 2.2e-4) (scripts/probe_family_parity.py)
+GRAD_F64_REL = 1e-4
+# family A's bf16 step against its f32 step: the loss within A_BF16_RTOL
+A_BF16_RTOL = 2e-2
+# the detector's decisions: no box coordinate within A_MARGIN pixels of a
+# validity threshold
+A_MARGIN = 1e-2
+A_PARAMS, A_ANCHOR_PARAMS = 7868720, 1318119
+# the generators of phases family_c and family_a (their clips, and family
+# A's shared VAE draws), apart from the stream of the earlier phases
+C_SEED, A_SEED, A_NOISE_SEED = 13, 14, 21
 # the port's CUDA kernels by symbol name (cvad_tpu_torch/csrc/*.cu), picked
 # out of the profiler's rows
 PORT_KERNELS = ("tfold_conv1_", "pairwise_", "memory_min_cosine_",
@@ -1497,6 +1589,53 @@ class Relus:
         return x * self.pinned[j].to(x.device, x.dtype)
 
 
+class Pools:
+    """While active (``with``), `torch.nn.functional.max_pool3d` (family
+    C's pools) and `max_pool2d` (family A's backbone) record each call's
+    argmax indices (without `indices`) or take the recorded ones (with a
+    recording's `indices`), matched by call order over both: the value and
+    the gradient of a pool that decides as the recording did, however close
+    a window's two largest values lie.  A call past the recording's count,
+    a shape that differs, or fewer calls than recorded fail the check."""
+
+    NAMES = ("max_pool3d", "max_pool2d")
+
+    def __init__(self, indices=None):
+        self.pinned = indices
+        self.indices = []
+
+    def __enter__(self):
+        import torch.nn.functional as F
+
+        self._real = {n: getattr(F, n) for n in self.NAMES}
+        for n in self.NAMES:
+            setattr(F, n, functools.partial(self._pool, self._real[n]))
+        return self
+
+    def __exit__(self, exc_type, *_):
+        import torch.nn.functional as F
+
+        for n in self.NAMES:
+            setattr(F, n, self._real[n])
+        if exc_type is None and self.pinned is not None:
+            check(len(self.indices) == len(self.pinned),
+                  f"{len(self.indices)} max-pool calls replayed "
+                  f"{len(self.pinned)} recorded")
+
+    def _pool(self, real, x: torch.Tensor, *args, **kwargs) -> torch.Tensor:
+        kwargs.pop("return_indices", None)
+        out, idx = real(x, *args, return_indices=True, **kwargs)
+        if self.pinned is None:
+            self.indices.append(idx.cpu())
+            return out
+        j = len(self.indices)
+        check(j < len(self.pinned) and self.pinned[j].shape == idx.shape,
+              f"max-pool call {j} has no recorded indices of its shape")
+        self.indices.append(None)  # counts the calls
+        idx = self.pinned[j].to(x.device)
+        return x.flatten(2).gather(2, idx.flatten(2)).view(idx.shape)
+
+
 def step_forward(cfg, model, clips: np.ndarray, step: int,
                  dtype: torch.dtype = torch.float32) -> tuple:
     """Family D's train-mode forward of one train step on `model`'s device
@@ -2400,7 +2539,7 @@ def video_path(name: str, score_fn, cfg, videos: list, labels: dict,
                on_path: str, card: str) -> tuple:
     """One scoring path of phase video on the card: the launch counts set
     to 0 just before and read just after; `on_path`'s counter must rise
-    and every other stay 0.  Emits the path's line; returns its launches,
+    and every other stay 0 (every counter, where `on_path` is None).  Emits the path's line; returns its launches,
     AUC report and per-video results."""
     reset_counts()
     report, results, total_s, score_s = score_videos(score_fn, cfg, videos,
@@ -2424,7 +2563,7 @@ def video_path(name: str, score_fn, cfg, videos: list, labels: dict,
           and report["n_frames"] == frames
           and all(np.isfinite(r["scores"]).all() for r in results.values()),
           f"{name}: frame AUC {report['frame_auc']}")
-    check(launched[on_path] > 0
+    check((on_path is None or launched[on_path] > 0)
           and all(v == 0 for k, v in launched.items() if k != on_path),
           f"{name} launched {launched}")
     return launched, report, results
@@ -2507,12 +2646,14 @@ def stream_video(score_fn, cfg, video: tuple, ref: dict, card: str
     return launched
 
 
-def phase_video(state: dict, dev: dict) -> dict:
+def phase_video(state: dict, dev: dict, state_a: dict) -> dict:
     """Frame-folder video end to end on the card (see the module
-    docstring); returns each path's launch counts."""
+    docstring), family A with `state_a`; returns each path's launch
+    counts."""
     from cvad_tpu_torch.config import DataConfig, FamilyDConfig, preset
     from cvad_tpu_torch.evaluation.scoring import (make_family_b_score_fn,
-                                                   make_family_d_score_fn)
+                                                   make_family_d_score_fn,
+                                                   make_score_fn)
 
     card = dev["card"]
     cfg_d = DataConfig(channels=3, clip_len=8, stride=4, frame_size=(64, 64))
@@ -2542,7 +2683,10 @@ def phase_video(state: dict, dev: dict) -> dict:
                  "memory_min_cosine"),
                 ("video_score_d64", make_family_d_score_fn(state, model_d64),
                  make_family_d_score_fn(state, model_d64, device="cpu"),
-                 cfg_d64, "s2d_group_forward")):
+                 cfg_d64, "s2d_group_forward"),
+                ("video_score_a", make_score_fn("a", state_a),
+                 make_score_fn("a", state_a, device="cpu"),
+                 preset("causal_pipeline").data, None)):
             paths[name], report, results = video_path(
                 name, fn, cfg, videos, labels, counter, card)
             vs_cpu.append(video_vs_cpu(name, cpu_fn, cfg, videos, labels,
@@ -2552,6 +2696,648 @@ def phase_video(state: dict, dev: dict) -> dict:
                     d_fn, cfg_d, videos[0], results[videos[0][0]], card)
     emit({"phase": "video_vs_cpu", "paths": vs_cpu, "card": card})
     return paths
+
+
+def no_dropout(model: torch.nn.Module) -> torch.nn.Module:
+    """Every ``nn.Dropout`` of `model` at p = 0: the card's and the CPU's
+    generators draw different masks."""
+    for mod in model.modules():
+        if isinstance(mod, torch.nn.Dropout):
+            mod.p = 0.0
+    return model
+
+
+class SharedDraws:
+    """Family A's VAE draw (`models/family_a.py::vae_noise`) from a CPU
+    generator seeded with `seed` plus the draw's number, moved to the
+    device: a card run and a CPU run take the same draws.  A context
+    manager that puts itself in place of `vae_noise` and restores it."""
+
+    def __init__(self, seed: int):
+        self.seed, self.calls, self.saved = seed, 0, None
+
+    def __call__(self, shape, dtype, device, generator):
+        gen = torch.Generator().manual_seed(self.seed + self.calls)
+        self.calls += 1
+        return torch.randn(shape, generator=gen).to(device, dtype)
+
+    def __enter__(self):
+        import cvad_tpu_torch.models.family_a as family_a
+
+        self.saved = family_a.vae_noise
+        family_a.vae_noise = self
+        return self
+
+    def __exit__(self, *exc):
+        import cvad_tpu_torch.models.family_a as family_a
+
+        family_a.vae_noise = self.saved
+
+
+def c_config(batch: int, **train):
+    """The mini3d preset at C_CLIP (its own clip), uint8 transfer."""
+    from cvad_tpu_torch.config import preset
+
+    cfg = preset("mini3d")
+    return cfg.replace(
+        data=cfg.data.replace(batch_size=batch, transfer_dtype="uint8",
+                              clip_len=C_CLIP[0], frame_size=C_CLIP[1:3]),
+        train=cfg.train.replace(log_every=10**9, **train))
+
+
+def a_config(batch: int, name: str = "causal_pipeline", **train):
+    """Family A's preset `name` at A_CLIP (its own clip), uint8
+    transfer."""
+    from cvad_tpu_torch.config import preset
+
+    cfg = preset(name)
+    return cfg.replace(
+        data=cfg.data.replace(batch_size=batch, transfer_dtype="uint8",
+                              clip_len=A_CLIP[0], frame_size=A_CLIP[1:3]),
+        train=cfg.train.replace(log_every=10**9, **train))
+
+
+def box_margin(out: dict) -> float:
+    """The smallest distance (pixels) of a masked detector's box coordinate
+    from a validity threshold (x in [10, 350], y in [10, 230]; w and h lie
+    inside theirs by construction)."""
+    det = out["detections"].detach().double().cpu()
+    x, y = det[..., 0], det[..., 1]
+    return float(torch.stack([(x - 10).abs(), (x - 350).abs(),
+                              (y - 10).abs(), (y - 230).abs()]).min())
+
+
+def steps_on(cfg, batches: list, state: Optional[dict], dev: str) -> tuple:
+    """`cfg`'s float32 train steps over numpy `batches` on `dev` from the
+    seed-0 init (or the model state dict `state`), dropout off, family A's
+    VAE draws shared (`SharedDraws`): (metrics, the train state, the
+    launches by kernel, the train state before each step as
+    `TrainState.state_dict()`)."""
+    from cvad_tpu_torch.train.state import float_metrics
+    from cvad_tpu_torch.train.tasks import build_task
+
+    task = build_task(cfg)
+    st = task.init_state(0, dev)
+    if state is not None:
+        st.model.load_state_dict(state, strict=True)
+    no_dropout(st.model)
+    before, metrics, states = counts(), [], []
+    with SharedDraws(A_NOISE_SEED):
+        for b in batches:
+            states.append(st.state_dict())
+            st, m = task.train_step(
+                st, {k: torch.from_numpy(v).to(dev) for k, v in b.items()}, 1)
+            metrics.append(float_metrics(m))
+    rose = {k: v - before[k] for k, v in counts().items() if v != before[k]}
+    return metrics, st, rose, states
+
+
+def pinned_step(cfg, before: dict, batch: dict, k: int, dev: str,
+                pins: tuple) -> tuple:
+    """Step `k` (from 0) of `cfg` on `dev` from the train state `before`
+    (`TrainState.state_dict()`) on numpy `batch`: `train/tasks.py`'s step,
+    dropout off, the k-th VAE draw of `SharedDraws`, every ReLU mask and
+    max-pool argmax replayed from `pins` (`Relus`, `Pools` recordings):
+    (metrics, the model state dict on the CPU, the gradient as Adam took it
+    (from its first moment) by trainable parameter, the launches by
+    kernel)."""
+    from cvad_tpu_torch.train.state import float_metrics
+    from cvad_tpu_torch.train.tasks import build_task
+
+    task = build_task(cfg)
+    st = task.init_state(0, dev)
+    st.load_state_dict(before)
+    no_dropout(st.model)
+    mu, start = st.opt_state.mu.clone(), counts()
+    with SharedDraws(A_NOISE_SEED + k), Relus(pins[0]), Pools(pins[1]):
+        st, m = task.train_step(
+            st, {n: torch.from_numpy(v).to(dev) for n, v in batch.items()}, 1)
+    rose = {n: v - start[n] for n, v in counts().items() if v != start[n]}
+    b1 = cfg.optim.b1
+    g = ((st.opt_state.mu - b1 * mu) / (1 - b1)).cpu()
+    named = [(n, p.numel()) for n, p in st.model.named_parameters()
+             if p.requires_grad]
+    grads = dict(zip((n for n, _ in named), g.split([k for _, k in named])))
+    return (float_metrics(m),
+            {n: v.cpu() for n, v in st.model.state_dict().items()},
+            grads, rose)
+
+
+def step_readings(cpu: tuple, card: tuple,
+                  tiny_rel: float = STEP_TINY_REL) -> dict:
+    """One pinned step from the same train state on the CPU and on the
+    card (`pinned_step`'s results): the metrics' largest relative
+    difference; the gradients' (each leaf's largest difference over the
+    CPU's largest entry); the parameters' largest difference, over all
+    entries and over the steady ones (CPU gradient above `tiny_rel` of its
+    leaf's largest |entry|); the share beyond STEP_PARAM_ATOL (and the four
+    worst leaves) and, among those entries, the largest |gradient| over
+    its leaf's largest; the running statistics' largest difference over
+    each leaf's largest entry."""
+    (mc, pc, gc, _), (mg, pg, gg, rose) = cpu, card
+    d, steady, far, hi = [], [], {}, 0.0
+    for n, g in gc.items():
+        r = (g.abs() / max(float(g.abs().max()), 1e-30)).reshape(-1)
+        e = (pg[n] - pc[n]).abs().reshape(-1)
+        d.append(e)
+        steady.append(r > tiny_rel)
+        far[n] = float((e > STEP_PARAM_ATOL).double().mean())
+        if bool((e > STEP_PARAM_ATOL).any()):
+            hi = max(hi, float(r[e > STEP_PARAM_ATOL].max()))
+    d, steady = torch.cat(d), torch.cat(steady)
+    return {"loss_cpu": mc["loss"], "loss_card": mg["loss"],
+            "metrics_max_rel_err": max(abs(mg[k] - mc[k])
+                                       / max(abs(mc[k]), 1e-6) for k in mc),
+            "grad_max_rel_err": max(rel_errs(gg, gc).values()),
+            "params_max_abs_err": float(d.max()),
+            "params_steady_share": float(steady.double().mean()),
+            "params_steady_max_abs_err": float(d[steady].max()),
+            "params_beyond_atol_share": float((d > STEP_PARAM_ATOL)
+                                              .double().mean()),
+            "params_beyond_atol_worst_leaves": {
+                n: far[n] for n in sorted(far, key=far.get,
+                                          reverse=True)[:4]},
+            "params_beyond_atol_max_grad_rel": hi,
+            "stats_max_rel_err": max(
+                float((pg[k] - pc[k]).abs().max() / pc[k].abs().max())
+                for k in pc if "running" in k),
+            "card_launches": rose}
+
+
+def step_holds(r: dict, lr: float) -> bool:
+    """`step_readings` within the module's limits."""
+    return (not r["card_launches"]
+            and r["metrics_max_rel_err"] <= STEP_RTOL
+            and r["params_steady_max_abs_err"] <= STEP_PARAM_ATOL
+            and r["params_max_abs_err"] <= 2 * lr
+            and r["params_beyond_atol_share"] <= STEP_FAR_SHARE
+            and r["stats_max_rel_err"] <= STEP_STATS_REL)
+
+
+def box_shares(cfg, before: dict, batch: dict, k: int) -> dict:
+    """Family A's train-mode detections at the train state `before` on
+    numpy `batch` (the k-th VAE draw) on the card, each box held to
+    A_MARGIN: the valid box and trajectory shares."""
+    from cvad_tpu_torch.train.tasks import build_task, prep_frames
+
+    model = build_task(cfg).init_state(0, "cuda").model
+    model.load_state_dict(before["model_state_dict"], strict=True)
+    with torch.no_grad(), no_tf32(), SharedDraws(A_NOISE_SEED + k):
+        out = no_dropout(model).train()(
+            prep_frames(torch.from_numpy(batch["clips"]).cuda()))
+    check(box_margin(out) > A_MARGIN,
+          f"a box lies {box_margin(out)} px from a threshold")
+    return {"valid_box": float(out["detection_mask"].float().mean()),
+            "valid_trajectory": float(out["trajectory_mask"].float().mean())}
+
+
+def step_parity(cfg, batches: list, state: Optional[dict],
+                probe: bool = False, sweep: tuple = (),
+                checked: bool = True) -> dict:
+    """PARITY_STEPS float32 steps of `cfg` from `state` (the seed-0 init
+    where None), card against CPU step by step.  The CPU's own run gives
+    the train state before each step; from it, on that step's batch: the
+    gradient rule (`grad_readings`: card and CPU float32 against the CPU's
+    float64, every ReLU mask and max-pool argmax pinned to float64's), and
+    one train step on the CPU and on the card with those decisions pinned
+    (`pinned_step`), compared by `step_readings` (also at the steady-entry
+    thresholds `sweep`) and held to `step_holds` unless `checked` is
+    False.  With `probe` (family A), the card's detections at each step's
+    state are held to A_MARGIN (`box_shares`).  Returns the readings by
+    step."""
+    cpu_metrics, _, cpu_rose, befores = steps_on(cfg, batches, state, "cpu")
+    check(not cpu_rose, f"the CPU steps launched a port kernel: {cpu_rose}")
+    steps = []
+    for k, (before, batch) in enumerate(zip(befores, batches)):
+        step = {"box_shares": box_shares(cfg, before, batch, k)} if probe \
+            else {}
+        grad, pins = grad_readings(cfg, batch, before["model_state_dict"], k)
+        cpu = pinned_step(cfg, before, batch, k, "cpu", pins)
+        card = pinned_step(cfg, before, batch, k, "cuda", pins)
+        step.update(step_readings(cpu, card), grad=grad,
+                    loss_unpinned_cpu=cpu_metrics[k]["loss"])
+        if sweep:
+            step["by_tiny_rel"] = {str(t): step_readings(cpu, card, t)
+                                   for t in sweep}
+        steps.append(step)
+        if checked:
+            check(grad["holds"], f"step {k}'s gradient vs float64: {grad}")
+            check(step_holds(step, cfg.optim.lr),
+                  f"card vs CPU step {k} differs: {step}")
+    return {"steps": steps}
+
+
+def loss_grads(cfg, model: torch.nn.Module, batch: dict,
+               dtype: torch.dtype, draw: int = 0) -> dict:
+    """The gradient of one train step of family C or A (`cfg`) at `model`'s
+    parameters on a numpy `batch`, in `dtype` (a float64 copy of the model
+    for float64): `train/tasks.py`'s step up to its gradients, on a copy of
+    the model (its running statistics untouched), the `draw`-th VAE draw
+    of `SharedDraws`; returned on the CPU by trainable parameter name."""
+    from cvad_tpu_torch.config import FamilyAConfig
+    from cvad_tpu_torch.ops.losses import binary_cross_entropy, family_a_loss
+    from cvad_tpu_torch.train.tasks import (card_numerics, prep_clips,
+                                            prep_frames,
+                                            stop_bn_absorbed_biases)
+
+    dev = next(model.parameters()).device
+    m = copy.deepcopy(model).to(dtype).train()
+    clips = torch.from_numpy(batch["clips"]).to(dev)
+    labels = torch.from_numpy(batch["labels"]).to(dev)
+    family_a = isinstance(cfg.model, FamilyAConfig)
+    x = (prep_frames if family_a else prep_clips)(clips).to(dtype)
+    with card_numerics(), SharedDraws(A_NOISE_SEED + draw):
+        out = m(x)
+        if family_a:
+            loss, _ = family_a_loss(out, labels, cfg.loss)
+        else:
+            loss = binary_cross_entropy(out.reshape(-1),
+                                        labels.to(dtype)).mean()
+        grads = stop_bn_absorbed_biases(m, loss)
+    names = [n for n, p in m.named_parameters() if p.requires_grad]
+    return {n: g.detach().cpu() for n, g in zip(names, grads)}
+
+
+def grad_readings(cfg, batch: dict, state: Optional[dict] = None,
+                  draw: int = 0) -> tuple:
+    """A step's gradient from the seed-0 init (or the model state dict
+    `state`) on `batch` (the `draw`-th VAE draw), the card's
+    float32, the CPU's float32 and the CPU's float64, every ReLU's mask and
+    every max pool's argmax pinned to the float64 forward's (`Relus`,
+    `Pools`: a decision that float32 rounding flips is not arithmetic).
+    By leaf, each a largest difference over float64's largest entry:
+    e_card and e_cpu, each against float64; e_diff, card against CPU.
+    Every leaf's e_card within GRAD_F64_REL + GRAD_KAPPA * e_cpu, as
+    long_train_parity's rule with its own absolute term (where float32
+    itself cancels, as in family C's head bias at init, the CPU's own error
+    widens the bound).  Returns the leaf with the largest share of
+    its bound and whether every leaf holds, and the float64 forward's
+    decisions (the ReLU masks, the max-pool argmaxes)."""
+    from cvad_tpu_torch.train.tasks import build_task
+
+    task = build_task(cfg)
+    cpu, card = (no_dropout(task.init_state(0, dev).model)
+                 for dev in ("cpu", "cuda"))
+    if state is not None:
+        cpu.load_state_dict(state, strict=True)
+        card.load_state_dict(state, strict=True)
+    with Relus() as ref, Pools() as pools:
+        g64 = loss_grads(cfg, cpu, batch, torch.float64, draw)
+    with Relus(ref.masks), Pools(pools.indices):
+        g32 = loss_grads(cfg, cpu, batch, torch.float32, draw)
+    with Relus(ref.masks), Pools(pools.indices):
+        got = loss_grads(cfg, card, batch, torch.float32, draw)
+    e_card, e_cpu = rel_errs(got, g64), rel_errs(g32, g64)
+    e_diff = {n: (got[n].double() - g32[n].double()).abs().max().item()
+              / max(g.abs().max().item(), 1e-30) for n, g in g64.items()}
+    share = {n: e_card[n] / (GRAD_F64_REL + GRAD_KAPPA * e_cpu[n])
+             for n in g64}
+    name = max(share, key=share.get)
+    out = {"relus": len(ref.masks), "max_pools": len(pools.indices),
+           "worst_leaf": {"leaf": name, "e_card": e_card[name],
+                          "e_cpu": e_cpu[name], "e_diff": e_diff[name],
+                          "share_of_bound": share[name]},
+           "e_card_max": max(e_card.values()),
+           "e_cpu_max": max(e_cpu.values()),
+           "holds": max(share.values()) <= 1.0}
+    return out, (ref.masks, pools.indices)
+
+
+def same_state(a, b) -> bool:
+    """Two train states bit-identical: every state-dict entry and Adam."""
+    sa, sb = a.model.state_dict(), b.model.state_dict()
+    return (all(torch.equal(sa[k], sb[k]) for k in sa)
+            and all(torch.equal(getattr(a.opt_state, k),
+                                getattr(b.opt_state, k))
+                    for k in ("mu", "nu", "count")))
+
+
+def fit_and_resume(cfg, workdir: Path, name: str, train_clips: int,
+                   eval_clips: int) -> dict:
+    """`Trainer.fit` on synthetic clips for cfg's epochs, then a run of one
+    epoch fewer resumed from its last epoch's checkpoint and finished: the
+    launch counts over the fits, the seconds, the history, the eval of the
+    best checkpoint, and whether the resumed run equals the uninterrupted
+    one bit for bit (weights, BatchNorm statistics, Adam, history)."""
+    from cvad_tpu_torch.data.batcher import BatchLoader
+    from cvad_tpu_torch.data.datasets import build_dataset
+    from cvad_tpu_torch.train.engine import Trainer
+
+    batch = cfg.data.batch_size
+    t0 = time.perf_counter()
+    train_loader = BatchLoader(build_dataset(cfg.data, "Train", train_clips),
+                               batch, shuffle=True, seed=cfg.data.seed,
+                               transfer_dtype="uint8")
+    eval_loader = BatchLoader(build_dataset(cfg.data, "Test", eval_clips),
+                              batch, transfer_dtype="uint8")
+    data_s = time.perf_counter() - t0
+    reset_counts()
+    t0 = time.perf_counter()
+    full = Trainer(cfg, out_dir=str(workdir / f"{name}_full"))
+    hist = full.fit(train_loader, eval_loader)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    epochs = cfg.train.num_epochs
+    first = Trainer(cfg.replace(train=cfg.train.replace(
+        num_epochs=epochs - 1)), out_dir=str(workdir / f"{name}_resumed"))
+    first.fit(train_loader, eval_loader)
+    resumed = Trainer(cfg, out_dir=str(workdir / f"{name}_resumed"))
+    restored = resumed.restore()
+    resumed.fit(train_loader, eval_loader)
+    best = Trainer(cfg, out_dir=str(workdir / f"{name}_ref"))
+    best.init_state()
+    best.state.load_state_dict(full.ckpt.restore("best"))
+    evaluated = best.evaluate(eval_loader)
+    torch.cuda.synchronize()
+    launches = counts()
+    return {"launches": launches, "data_s": data_s, "fit_s": fit_s,
+            "hist": hist, "restored": restored, "evaluated": evaluated,
+            "best": best,
+            "bit_identical": (same_state(full.state, resumed.state)
+                              and full.history.as_dict()
+                              == resumed.history.as_dict()),
+            "full": full, "eval_loader": eval_loader,
+            "steps": 2 * epochs * (train_clips // batch)}
+
+
+def best_scorer_err(family: str, fit: dict) -> tuple:
+    """The best checkpoint's ``.pth`` through ``make_score_fn(family)`` on
+    16 eval clips, against the eval step of a trainer holding it: (the
+    scores, the largest difference)."""
+    from cvad_tpu_torch.evaluation.scoring import make_score_fn
+    from cvad_tpu_torch.runtime.checkpoint import load_torch_state_dict
+
+    clips = np.stack([fit["eval_loader"].dataset[i][0]
+                      for i in range(min(16, len(fit["eval_loader"].dataset)))])
+    cfg = fit["full"].cfg.model
+    scores = make_score_fn(family, load_torch_state_dict(
+        str(fit["full"].ckpt.path("best"))), cfg=cfg)(clips)
+    ref = fit["best"]
+    want = ref.task.eval_step(ref.state, ref.put_batch(
+        {"clips": clips, "labels": np.zeros(len(clips), np.float32)}))
+    err = float(np.abs(scores - want["predictions"].cpu().numpy()).max())
+    check(scores.shape == (len(clips),) and bool(np.isfinite(scores).all())
+          and err <= 1e-5, f"family {family}'s best checkpoint scorer vs "
+                           f"its eval step: {err}")
+    return scores, err
+
+
+def c_step_batches(rng: np.random.Generator) -> list:
+    """Family C's PARITY_STEPS batches of uint8 clips and 0/1 labels."""
+    return [{"clips": rng.integers(0, 256, (C_BATCH,) + C_CLIP,
+                                   dtype=np.uint8),
+             "labels": (rng.uniform(size=C_BATCH) < 0.5).astype(np.float32)}
+            for _ in range(PARITY_STEPS)]
+
+
+def phase_family_c(workdir: Path, card: str) -> dict:
+    """Family C (the mini3d preset) on the card: the scorer against the
+    CPU's from the same weights; 3 float32 train steps card vs CPU, step
+    by step (`step_parity`); `Trainer.fit` with eval (auc), a checkpoint an epoch and a resume
+    bit-identical on the card; the best checkpoint's scorer against the
+    eval step; step times.  No port kernel runs (cuDNN convs, as
+    `cvad_tpu` runs XLA's).  Returns the fit's launch counts."""
+    from cvad_tpu_torch.evaluation.scoring import make_score_fn
+    from cvad_tpu_torch.models import Simple3DCNNDetector
+    from cvad_tpu_torch.train.state import param_count
+
+    rng = np.random.default_rng(C_SEED)
+    state = Simple3DCNNDetector(seed=0).state_dict()
+    clips = rng.uniform(0, 1, (64,) + C_CLIP).astype(np.float32)
+    before = counts()
+    s_gpu = make_score_fn("c", state)(clips)
+    launched = {k: v - before[k] for k, v in counts().items()
+                if v != before[k]}
+    s_cpu = make_score_fn("c", state, device="cpu")(clips)
+    score_err = float(np.abs(s_gpu - s_cpu).max())
+    check(s_gpu.shape == (64,) and bool(np.isfinite(s_gpu).all())
+          and score_err <= 1e-5 and not launched,
+          f"family C scorer: err {score_err}, launches {launched}")
+
+    cfg = c_config(C_BATCH)
+    batches = c_step_batches(rng)
+    parity = step_parity(cfg, batches, None)
+
+    fit = fit_and_resume(c_config(C_BATCH, num_epochs=2, eval_every=1,
+                                  save_interval=1), workdir, "c",
+                         C_TRAIN_CLIPS, C_EVAL_CLIPS)
+    full, hist = fit["full"], fit["hist"]
+    best_scores, best_err = best_scorer_err("c", fit)
+    times = [train_step_times(rng, dtype, "c")
+             for dtype in ("float32", "bfloat16")]
+    n_params = param_count(full.state.model)
+    emit({"phase": "family_c", "card": card, "params": n_params,
+          "clip": list(C_CLIP), "batch": C_BATCH,
+          "scorer": {"clips": len(clips), "max_abs_err_vs_cpu": score_err},
+          "parity": parity,
+          "fit": {"train_clips": C_TRAIN_CLIPS, "eval_clips": C_EVAL_CLIPS,
+                  "epochs": 2, "train_steps": fit["steps"],
+                  "synthetic_data_s": fit["data_s"], "fit_s": fit["fit_s"],
+                  "train_losses": hist["train_losses"],
+                  "auc": [e["auc"] for e in hist["evaluation_metrics"]],
+                  "resumed_from_epoch": fit["restored"],
+                  "resume_bit_identical": fit["bit_identical"],
+                  "best_checkpoint_score_err": best_err,
+                  "best_score_mean": float(best_scores.mean())},
+          "step_times": times, "launches": fit["launches"]})
+    check(n_params == C_PARAMS, f"{n_params} family-C parameters")
+    check(all(np.isfinite(hist["train_losses"])), "family C train history")
+    check(fit["restored"] == 1 and fit["bit_identical"],
+          "the resumed family-C run differs from the uninterrupted one")
+    check(not any(fit["launches"].values()),
+          f"family C's fit launched {fit['launches']}")
+    return fit["launches"]
+
+
+def a_clips(rng: np.random.Generator, b: int) -> np.ndarray:
+    """(b, 16, 240, 360, 1) uint8 clips, each frame at its own brightness,
+    so that the backbone's features differ from frame to frame."""
+    gain = rng.uniform(0.1, 1.0, (b, A_CLIP[0], 1, 1, 1))
+    return (rng.integers(0, 256, (b,) + A_CLIP) * gain).astype(np.uint8)
+
+
+def mixed_head(state: dict, frames: list, train: bool = False) -> dict:
+    """A copy of family-A `state` whose detector head varies validity by
+    frame and slot: each slot's x row scaled to unit spread over the
+    batches `frames` (the CPU's eval forward, or with `train` the train-mode
+    one, batch statistics and dropout off), its bias putting the threshold
+    x = 350 in the widest gap of the middle half of those values; the y, w
+    and h rows zero (the box centre, valid)."""
+    from cvad_tpu_torch.models import CausalPipelineDetector
+
+    m = CausalPipelineDetector()
+    m.load_state_dict(state, strict=True)
+    m.eval().backbone.train(train)
+    with torch.no_grad():
+        h = torch.cat([m.detector.detector_net[:10](m.backbone(f))
+                       for f in frames])
+    key = "detector.detector_net.10"
+    w = torch.zeros_like(state[f"{key}.weight"])
+    bias = torch.zeros_like(state[f"{key}.bias"])
+    for k in range(w.shape[0] // 4):
+        row = state[f"{key}.weight"][4 * k]
+        raw = (h @ row).reshape(-1).double()
+        row = row / float(raw.std())
+        v = torch.sort(raw / float(raw.std())).values
+        mid = v[len(v) // 4: 3 * len(v) // 4 + 1]
+        i = int(torch.argmax(mid[1:] - mid[:-1]))
+        w[4 * k] = row
+        bias[4 * k] = math.log(350 / 10) - float(mid[i] + mid[i + 1]) / 2
+    return {**state, f"{key}.weight": w, f"{key}.bias": bias}
+
+
+def a_step_batches(rng: np.random.Generator) -> list:
+    """Family A's PARITY_STEPS batches (`a_clips`, labels 0, 1, 0, 1)."""
+    return [{"clips": a_clips(rng, A_BATCH),
+             "labels": (np.arange(A_BATCH) % 2).astype(np.float32)}
+            for _ in range(PARITY_STEPS)]
+
+
+def a_step_head(state: dict, batches: list) -> dict:
+    """`mixed_head` of family-A `state` placed on the train-mode features
+    of the steps' `batches`."""
+    from cvad_tpu_torch.train.tasks import prep_frames
+
+    return mixed_head(state, [prep_frames(torch.from_numpy(b["clips"]))
+                              for b in batches], train=True)
+
+
+def a_forward_parity(state: dict, clips: np.ndarray) -> dict:
+    """Family A's eval forward of `state` on the card and on the CPU, TF32
+    off: every output's largest difference, the masks equal, each side's
+    box margin above A_MARGIN."""
+    from cvad_tpu_torch.models import CausalPipelineDetector
+    from cvad_tpu_torch.train.tasks import prep_frames
+
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        m = CausalPipelineDetector()
+        m.load_state_dict(state, strict=True)
+        m = m.to(dev).eval()
+        with torch.no_grad(), no_tf32():
+            out = m(prep_frames(torch.from_numpy(clips).to(dev)))
+        outs[dev] = {k: v.detach().cpu() for k, v in out.items()}
+        check(box_margin(out) > A_MARGIN,
+              f"a box lies {box_margin(out)} px from a threshold on {dev}")
+    g, c = outs["cuda"], outs["cpu"]
+    for k in ("detection_mask", "trajectory_mask"):
+        check(torch.equal(g[k], c[k]), f"family A's {k} differs on the card")
+    errs = {k: float((g[k].double() - c[k].double()).abs().max())
+            for k in g if k not in ("detection_mask", "trajectory_mask")}
+    out = {"max_abs_err": errs, "box_margin_px": box_margin(c),
+           "valid_box_share": float(c["detection_mask"].float().mean()),
+           "valid_trajectory_share": float(
+               c["trajectory_mask"].float().mean()),
+           "adjacency_max": float(c["adjacency_matrices"].max()),
+           "score_mean": float(c["anomaly_scores"].mean())}
+    check(all(v <= (1e-2 if k == "detections" else 1e-4)
+              for k, v in errs.items()),
+          f"family A card vs CPU forward: {out}")
+    return out
+
+
+def phase_family_a(workdir: Path, card: str) -> tuple:
+    """Family A (the causal_pipeline preset) at full width on the card:
+    the eval forward card vs CPU (scores, adjacency, detections, both
+    masks), from the preset's initialisation and from a head whose boxes
+    cross the thresholds; from such a head (placed on the steps' batches),
+    3 float32 train steps card vs CPU step by step (`step_parity`), the bf16
+    step against the f32 step,
+    and 3 remat steps bit-identical to the plain ones on the card, running
+    statistics included; one step of causal_pipeline_v0; `Trainer.fit` with eval (val_acc, analysis) and a resume
+    bit-identical on the card; step times.  No port kernel runs (cuDNN
+    convs, as `cvad_tpu` runs XLA's).  Returns the fit's launch counts and
+    the best checkpoint's state dict."""
+    from cvad_tpu_torch.models import CausalPipelineDetector
+    from cvad_tpu_torch.runtime.checkpoint import load_torch_state_dict
+    from cvad_tpu_torch.train.state import param_count
+    from cvad_tpu_torch.train.tasks import prep_frames
+
+    rng = np.random.default_rng(A_SEED)
+    init = CausalPipelineDetector(seed=0).state_dict()
+    clips = a_clips(rng, A_BATCH)
+    before = counts()
+    forward = {"preset_init": a_forward_parity(init, clips)}
+    forward["mixed_head"] = a_forward_parity(
+        mixed_head(init, [prep_frames(torch.from_numpy(clips))]), clips)
+    check(0 < forward["mixed_head"]["valid_box_share"] < 1
+          and forward["mixed_head"]["adjacency_max"] > 0,
+          f"the mixed head's masks do not vary: {forward['mixed_head']}")
+
+    cfg = a_config(A_BATCH)
+    batches = a_step_batches(rng)
+    # the steps start from a head whose boxes cross the thresholds, so the
+    # tracker, GRU and VAE see valid and invalid boxes
+    mixed = a_step_head(init, batches)
+    parity = step_parity(cfg, batches, mixed, probe=True)
+    shares = [st["box_shares"] for st in parity["steps"]]
+    check(all(0 < sh["valid_box"] < 1 for sh in shares),
+          f"the steps' box masks do not vary: {shares}")
+    on_card = steps_on(cfg, batches, mixed, "cuda")
+    bf16 = steps_on(a_config(A_BATCH, dtype="bfloat16"), batches[:1], mixed,
+                    "cuda")
+    bf16_err = abs(bf16[0][0]["loss"] - on_card[0][0]["loss"]) / on_card[0][0][
+        "loss"]
+    check(np.isfinite(bf16[0][0]["loss"]) and bf16_err <= A_BF16_RTOL,
+          f"family A's bf16 step loss {bf16[0][0]} vs f32 {on_card[0][0]}")
+    anchor = steps_on(a_config(A_BATCH, "causal_pipeline_v0"), batches[:1],
+                      None, "cuda")
+    am = anchor[0][0]
+    check(np.isfinite(am["loss"])
+          and abs(am["loss"] - am["score_mse"] - 1e-3 * am["kl"])
+          <= 1e-5 * am["loss"],
+          f"causal_pipeline_v0's step: {am}")
+    remat_cfg = cfg.replace(model=cfg.model.replace(remat=True))
+    remat = steps_on(remat_cfg, batches, mixed, "cuda")
+    remat_same = same_state(remat[1], on_card[1])
+    check(remat_same, "the remat steps differ from the plain ones")
+    launched = {k: v - before[k] for k, v in counts().items()
+                if v != before[k]}
+    check(not launched, f"family A's checks launched {launched}")
+
+    fit_cfg = a_config(A_BATCH, num_epochs=2, eval_every=1, save_interval=1)
+    fit_cfg = fit_cfg.replace(optim=fit_cfg.optim.replace(cosine_steps=2))
+    fit = fit_and_resume(fit_cfg, workdir, "a", A_TRAIN_CLIPS, A_EVAL_CLIPS)
+    full, hist, evaluated = fit["full"], fit["hist"], fit["evaluated"]
+    best_scores, best_err = best_scorer_err("a", fit)
+    times = [train_step_times(rng, dtype, fam) for fam, dtype in (
+        ("a", "float32"), ("a", "bfloat16"), ("a_anchor", "float32"))]
+    n_params = param_count(full.state.model)
+    emit({"phase": "family_a", "card": card, "params": n_params,
+          "trainable_params": sum(p.numel() for p in full.state.params()),
+          "anchor_params": param_count(anchor[1].model),
+          "clip": list(A_CLIP), "batch": A_BATCH,
+          "channels": list(cfg.model.backbone_channels),
+          "forward": forward, "parity": parity,
+          "bf16_step": {"loss_bf16": bf16[0][0]["loss"],
+                        "loss_f32": on_card[0][0]["loss"],
+                        "loss_rel_err": bf16_err},
+          "anchor_step": am, "remat_bit_identical": remat_same,
+          "fit": {"train_clips": A_TRAIN_CLIPS, "eval_clips": A_EVAL_CLIPS,
+                  "epochs": 2, "train_steps": fit["steps"],
+                  "synthetic_data_s": fit["data_s"], "fit_s": fit["fit_s"],
+                  "train_losses": hist["train_losses"],
+                  "val_acc": [e["val_acc"]
+                              for e in hist["evaluation_metrics"]],
+                  "analysis": {k: v for k, v in evaluated["analysis"].items()
+                               if k != "samples"},
+                  "resumed_from_epoch": fit["restored"],
+                  "resume_bit_identical": fit["bit_identical"],
+                  "best_checkpoint_score_err": best_err,
+                  "best_score_mean": float(best_scores.mean())},
+          "step_times": times, "launches": fit["launches"]})
+    check(n_params == A_PARAMS and param_count(anchor[1].model)
+          == A_ANCHOR_PARAMS, f"family A parameters: {n_params}")
+    check(all(np.isfinite(hist["train_losses"]))
+          and evaluated["analysis"]["total_samples"] == A_EVAL_CLIPS
+          and "val_acc" in hist["evaluation_metrics"][0],
+          "family A train history and eval")
+    check(fit["restored"] == 1 and fit["bit_identical"],
+          "the resumed family-A run differs from the uninterrupted one")
+    check(not any(fit["launches"].values()),
+          f"family A's fit launched {fit['launches']}")
+    return fit["launches"], load_torch_state_dict(
+        str(full.ckpt.path("best")))
 
 
 def memory_times(rng: np.random.Generator) -> list:
@@ -3028,7 +3814,9 @@ def train_step_times(rng: np.random.Generator, dtype: str,
     'd64_k1' the same step with the default lowering, conv1 on K1 (its
     backward the whole-T folded conv's); 'b_attn' family B with the
     attention encoder at B=16, T=128 (attention on K6, in float32 at
-    either dtype, as in `cvad_tpu`)."""
+    either dtype, as in `cvad_tpu`); 'c' family C (mini3d, B=8); 'a' and
+    'a_anchor' family A at full width (B=4, 16 x 240 x 360), the
+    causal_pipeline and causal_pipeline_v0 presets."""
     from cvad_tpu_torch.train.tasks import build_task
 
     batch_size = TRAIN_BATCH
@@ -3037,6 +3825,13 @@ def train_step_times(rng: np.random.Generator, dtype: str,
     elif family == "b_attn":
         batch_size, clip = ATTN_BATCH, ATTN_CLIP
         cfg = attn_config(ATTN_BATCH, dtype=dtype)
+    elif family == "c":
+        batch_size, clip = C_BATCH, C_CLIP
+        cfg = c_config(C_BATCH, dtype=dtype)
+    elif family in ("a", "a_anchor"):
+        batch_size, clip = A_BATCH, A_CLIP
+        cfg = a_config(A_BATCH, "causal_pipeline_v0" if family == "a_anchor"
+                       else "causal_pipeline", dtype=dtype)
     elif family in ("d64", "d64_k1"):
         batch_size, clip = LONG_BATCH, LONG_CLIP
         cfg = long_config(LONG_BATCH, dtype=dtype)
@@ -3250,8 +4045,16 @@ def main() -> int:
         paths["attn_train"] = phase_attn_train(Path(tmp))  # resets first
         emit({"phase": "main_path", "path": "attn_train",
               "launches": paths["attn_train"]})
+        # families C and A (main paths 8 and 9; the fits reset the counts)
+        paths["family_c_train"] = phase_family_c(Path(tmp), dev["card"])
+        emit({"phase": "main_path", "path": "family_c_train",
+              "launches": paths["family_c_train"]})
+        paths["family_a_train"], state_a = phase_family_a(Path(tmp),
+                                                          dev["card"])
+        emit({"phase": "main_path", "path": "family_a_train",
+              "launches": paths["family_a_train"]})
     # main path 7: frame-folder video (each path resets the counts first)
-    for name, launched in phase_video(state, dev).items():
+    for name, launched in phase_video(state, dev, state_a).items():
         paths[name] = launched
         emit({"phase": "main_path", "path": name, "launches": launched})
 

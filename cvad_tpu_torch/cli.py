@@ -5,18 +5,23 @@
         [--dataset ucsd_ped2 --data-root TREE] [--set SEC.KEY=VAL ...] \\
         [--device cuda]
     python -m cvad_tpu_torch.cli train --preset memory_ae --out results_b
+    python -m cvad_tpu_torch.cli train --preset mini3d --out results_c
+    python -m cvad_tpu_torch.cli train --preset causal_pipeline --out results_a
     python -m cvad_tpu_torch.cli serve CKPT.pth --port 8700 \\
         --buckets 1,8,32,128 --device cuda [--warmup] [--family b]
     python -m cvad_tpu_torch.cli synth --out TREE --videos 2 --frames 24 \\
         [--write-gt] [--format pgm]
     python -m cvad_tpu_torch.cli score TREE/Test [--checkpoint CKPT.pth]
     python -m cvad_tpu_torch.cli auc --data-root TREE \\
-        (--torch-checkpoint CKPT.pth [--family d|b] | --out RUN [--step best])
+        (--torch-checkpoint CKPT.pth [--family d|b|c|a] | --out RUN \
+        [--step best])
     python -m cvad_tpu_torch.cli eval --out RUN [--step latest] \\
         [--dataset ucsd_ped2 --data-root TREE]
 
 ``train`` is `cvad_tpu/cli.py::cmd_train` for families D (presets
-avenue_improved, family_d) and B (memory_ae, family_b), on synthetic clips
+avenue_improved, family_d), B (memory_ae, family_b), C (mini3d, family_c)
+and A (causal_pipeline, family_a; the anchor variant causal_pipeline_v0,
+family_a_anchor), on synthetic clips
 or, with ``--dataset`` and ``--data-root``, on a frame-folder tree: it
 writes ``config.json``, the history, ``metrics.jsonl`` and the checkpoints
 under ``--out``; ``--resume`` continues from the newest checkpoint there
@@ -29,9 +34,11 @@ dynamic request coalescing.  ``synth`` writes a UCSD-style frame-folder
 tree (`cmd_synth`); ``score`` scores every sliding window of every video
 under a folder with a family-D ``.pth`` and keeps the windows above the
 threshold (`cmd_score`); ``auc`` is the frame-level ROC-AUC against the
-tree's ground truth (`cmd_auc`) from a ``.pth`` of family D or B or from a
-training run's checkpoint; ``eval`` evaluates a training run's checkpoint
-on the test split (`cmd_eval`).  Everything runs on CUDA unless
+tree's ground truth (`cmd_auc`) from a ``.pth`` of family D, B, C or A
+(the model config of ``--preset`` where it is that family's, else the
+family's default) or from a training run's checkpoint of any ported
+family; ``eval`` evaluates a training run's checkpoint on the test split
+(`cmd_eval`).  Everything runs on CUDA unless
 ``--device cpu``.
 """
 
@@ -46,7 +53,8 @@ from typing import Optional, Sequence
 
 import numpy as np
 
-from cvad_tpu_torch.config import DataConfig, ExperimentConfig, preset
+from cvad_tpu_torch.config import (FAMILY_CONFIGS, DataConfig,
+                                   ExperimentConfig, preset)
 
 # the family-D checkpoint the repository ships (the reference's .pth format)
 FIXTURE = (Path(__file__).resolve().parent.parent / "runs" / "dyn_parity_d"
@@ -230,6 +238,7 @@ def cmd_auc(args) -> int:
 
         score_fn = make_score_fn(args.family,
                                  load_torch_state_dict(args.torch_checkpoint),
+                                 cfg=_family_model(cfg, args.family),
                                  device=args.device)
     else:
         from cvad_tpu_torch.train.engine import Trainer
@@ -253,6 +262,13 @@ def cmd_auc(args) -> int:
                       ("frame_auc", "frame_auc_normalized", "macro_auc",
                        "n_videos", "n_frames", "anomalous_frames")}))
     return 0 if report.get("frame_auc") is not None else 1
+
+
+def _family_model(cfg: ExperimentConfig, family: str):
+    """The preset's model config where the preset is of `family`, else None
+    (the family's default)."""
+    return (cfg.model if type(cfg.model) is FAMILY_CONFIGS.get(family)
+            else None)
 
 
 def _try_restore(trainer, step):
@@ -288,11 +304,13 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="cvad_tpu_torch",
                                 description="PyTorch/CUDA port of cvad_tpu")
     sub = p.add_subparsers(dest="cmd", required=True)
-    t = sub.add_parser("train", help="train family D or B on synthetic "
-                                     "clips or a frame-folder tree")
+    t = sub.add_parser("train", help="train family D, B, C or A on "
+                                     "synthetic clips or a frame-folder tree")
     t.add_argument("--preset", default="avenue_improved",
-                   help="avenue_improved|family_d (family D) or "
-                        "memory_ae|family_b (family B)")
+                   help="avenue_improved|family_d (family D), "
+                        "memory_ae|family_b (family B), mini3d|family_c "
+                        "(family C), causal_pipeline|family_a or "
+                        "causal_pipeline_v0|family_a_anchor (family A)")
     t.add_argument("--dataset", default=None,
                    help="synthetic|ucsd_ped2|ucsd_ped2_simple|avenue")
     t.add_argument("--data-root", default=None)
@@ -342,8 +360,8 @@ def build_parser() -> argparse.ArgumentParser:
     au.add_argument("--torch-checkpoint", default=None,
                     help="score from a reference-format .pth")
     au.add_argument("--family", default="d", choices=list("abcde"),
-                    help="model family of --torch-checkpoint (d and b are "
-                         "ported)")
+                    help="model family of --torch-checkpoint (d, b, c and "
+                         "a are ported)")
     au.add_argument("--out", default=None,
                     help="training out_dir holding the checkpoints")
     au.add_argument("--step", default="best",

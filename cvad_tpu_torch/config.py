@@ -1,15 +1,17 @@
-"""Configuration for the port's slices: family D and family B, serving and
-training.
+"""Configuration for the port's slices: families D, B, C and A, serving,
+training and scoring.
 
-An own copy of the fields of `cvad_tpu.config` that the family-D and
-family-B serving and training paths read; the port imports nothing of
-`cvad_tpu`.  `FamilyDConfig`'s conv1 lowering knobs (`conv1_mode`,
+An own copy of the fields of `cvad_tpu.config` that the paths of families
+D, B, C and A read; the port imports nothing of `cvad_tpu`.  `FamilyDConfig`'s conv1 lowering knobs (`conv1_mode`,
 `conv_stack`, `conv_group_impl`) take every value `cvad_tpu` documents and
 route as there (`models/family_d.py::conv1_route`): where `cvad_tpu` runs
 the s2d group kernel (K5), so does the port; every other lowering is an
 exact relowering of the same convolution, which K1 computes directly.
 Left out are `DataConfig.grayscale`, which nothing reads (decode takes
-gray from ``channels == 1``, as `cvad_tpu`'s datasets do), and
+gray from ``channels == 1``, as `cvad_tpu`'s datasets do),
+`FamilyCConfig.conv_mode`, whose every value `cvad_tpu` sends to the same
+XLA conv (the port runs ``F.conv3d``), `FamilyAConfig.frame_hw`, which
+nothing reads, and
 `TrainConfig.normal_only`, which no code of `cvad_tpu` reads (family B's
 step trains on the normal clips).  Knobs of
 `TrainConfig` that have no port yet are carried and refused where they are
@@ -175,6 +177,56 @@ class FamilyBConfig(_Base):
 
 
 @dataclass(frozen=True)
+class FamilyCConfig(_Base):
+    """The minimal 3D-CNN classifier (``minicausal_vad_complete3.py:25-102``):
+    three blocks of Conv3d k3 (stride 1, padding 1), BatchNorm, ReLU and max
+    pool, 1->8->16->32, a global average pool and a dropout MLP
+    32->16->8->1 with a sigmoid."""
+
+    name: str = "family_c"
+    # computation dtype of the conv blocks ('float32' | 'bfloat16'); the
+    # parameters, BatchNorm statistics and the head stay float32
+    dtype: str = "float32"
+    in_channels: int = 1
+    conv_channels: Tuple[int, int, int] = (8, 16, 32)
+    mlp_dims: Tuple[int, int] = (16, 8)
+    dropout: float = 0.3
+
+
+@dataclass(frozen=True)
+class FamilyAConfig(_Base):
+    """The 12-stage causal pipeline (``causal_anomaly_detection.py:508-586``)
+    with fixed-shape masked stages: a per-frame 2D conv backbone, a fixed-K
+    detector with a validity mask, ReID, a GRU over each detection slot, a
+    VAE factor head, an edge MLP over factor pairs, a dynamics MLP, the
+    anomaly scorers and (``direct_variant``) a direct classifier on the
+    time-pooled backbone features, blended 0.6 / 0.4."""
+
+    name: str = "family_a"
+    backbone_channels: Tuple[int, int, int, int, int] = (32, 32, 64, 128, 256)
+    backbone_pool: Tuple[int, int] = (4, 6)
+    max_boxes: int = 5
+    num_factors: int = 6
+    reid_dim: int = 64
+    gru_hidden: int = 64
+    traj_latent: int = 32
+    direct_variant: bool = True
+    # the earlier detector head (video_anomaly_detection.py): bbox and
+    # confidence heads over 3 anchors, one score head
+    anchor_variant: bool = False
+    # backbone conv1 and bn1 take no gradient and no update (the
+    # reference's apply_memory_efficient_training, :592-607)
+    freeze_stem: bool = True
+    # recompute the backbone's activations in the backward pass
+    remat: bool = False
+    score_blend: Tuple[float, float] = (0.6, 0.4)  # causal vs direct
+    scorer_blend: Tuple[float, float, float] = (0.5, 0.3, 0.2)
+    # computation dtype ('float32' | 'bfloat16'); parameters and BatchNorm
+    # statistics stay float32, the scores and KL leave in float32
+    dtype: str = "float32"
+
+
+@dataclass(frozen=True)
 class LossConfig(_Base):
     """Family-D loss weights: focal anomaly 1.0, acyclicity 0.01, sparsity
     0.001, consistency 0.01, structure 0.01; focal alpha/gamma 0.25/2.0;
@@ -200,6 +252,12 @@ class LossConfig(_Base):
     b_recon_weight: float = 1.0
     b_score_recon: float = 0.7
     b_score_memory: float = 0.3
+    # family A (causal_anomaly_detection.py:661-662): 0.4 CE + 0.3 score
+    # MSE + 0.2 causal-score MSE + 0.1 KL
+    a_ce: float = 0.4
+    a_score_mse: float = 0.3
+    a_causal_mse: float = 0.2
+    a_kl: float = 0.1
 
 
 @dataclass(frozen=True)
@@ -250,24 +308,55 @@ class TrainConfig(_Base):
 class ExperimentConfig(_Base):
     """One config per entry point."""
 
-    model: Union[FamilyDConfig, FamilyBConfig] = field(
-        default_factory=FamilyDConfig)
+    model: Union[FamilyDConfig, FamilyBConfig, FamilyCConfig,
+                 FamilyAConfig] = field(default_factory=FamilyDConfig)
     data: DataConfig = field(default_factory=DataConfig)
     loss: LossConfig = field(default_factory=LossConfig)
     optim: OptimConfig = field(default_factory=OptimConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
 
 
+# the model config of each family letter (the CLI's ``--family``)
+FAMILY_CONFIGS = {"d": FamilyDConfig, "b": FamilyBConfig, "c": FamilyCConfig,
+                  "a": FamilyAConfig}
+
+
+def family_of(model_cfg: Any) -> str:
+    """The family letter of a model config."""
+    for family, cls in FAMILY_CONFIGS.items():
+        if type(model_cfg) is cls:
+            return family
+    raise NotImplementedError(
+        f"{type(model_cfg).__name__} is not a family the port has: "
+        f"{', '.join(FAMILY_CONFIGS).upper()}")
+
+
 FAMILY_D_PRESETS = ("avenue_improved", "family_d", "avenue_training_script2")
 FAMILY_B_PRESETS = ("memory_ae", "family_b", "causal_anomaly_detection1")
+FAMILY_C_PRESETS = ("mini3d", "family_c", "minicausal_vad_complete3")
+FAMILY_A_PRESETS = ("causal_pipeline", "family_a", "causal_anomaly_detection")
+FAMILY_A_ANCHOR_PRESETS = ("causal_pipeline_v0", "family_a_anchor",
+                           "video_anomaly_detection")
+FAMILY_E_PRESETS = ("bbox_viz", "family_e", "avenue_training_script_bbox")
 
 
 def preset(name: str) -> ExperimentConfig:
     """Named presets of the ported families, as `cvad_tpu.config.preset`
-    writes them (:356-384); the other families' presets wait for their
-    slices (ROADMAP Queue 1 items 9-11)."""
+    writes them (:356-410); family E's waits for its slice (ROADMAP Queue 1
+    item 11)."""
     if name in FAMILY_D_PRESETS:
         return ExperimentConfig()
+    if name in FAMILY_C_PRESETS:
+        return ExperimentConfig(
+            model=FamilyCConfig(),
+            data=DataConfig(channels=1, label_policy="mixed_simple",
+                            stride=4, max_clips_per_video=50, batch_size=8),
+            optim=OptimConfig(optimizer="adam", lr=1e-3, weight_decay=1e-5,
+                              schedule="step", step_size=15, step_gamma=0.7,
+                              grad_clip=1.0, clip_trigger=10.0),
+            train=TrainConfig(num_epochs=40, best_metric="auc",
+                              best_mode="max", eval_every=1),
+        )
     if name in FAMILY_B_PRESETS:
         return ExperimentConfig(
             model=FamilyBConfig(),
@@ -281,8 +370,31 @@ def preset(name: str) -> ExperimentConfig:
                               eval_every=1, early_stop_patience=10,
                               reload_best=True),
         )
+    if name in FAMILY_A_PRESETS:
+        return ExperimentConfig(
+            model=FamilyAConfig(),
+            data=DataConfig(channels=1, clip_len=16, stride=8,
+                            frame_size=(240, 360), label_policy="heuristic_v1",
+                            batch_size=4),
+            optim=OptimConfig(optimizer="adamw", lr=3e-4, weight_decay=1e-5,
+                              schedule="cosine", grad_clip=1.0),
+            train=TrainConfig(num_epochs=20, best_metric="val_acc",
+                              best_mode="max", eval_every=1),
+        )
+    if name in FAMILY_A_ANCHOR_PRESETS:
+        # the earlier pipeline: anchor detector, one score head, no direct
+        # classifier; loss MSE(score, label) + 0.001 KL
+        # (video_anomaly_detection.py:528), lr 1e-4 for 10 epochs (:1034-1037)
+        base = preset("causal_pipeline")
+        return base.replace(
+            model=base.model.replace(anchor_variant=True,
+                                     direct_variant=False),
+            data=base.data.replace(label_policy="split_binary"),
+            loss=base.loss.replace(a_ce=0.0, a_score_mse=1.0,
+                                   a_causal_mse=0.0, a_kl=0.001),
+            optim=base.optim.replace(lr=1e-4),
+            train=base.train.replace(num_epochs=10),
+        )
     raise NotImplementedError(
-        f"preset {name!r} is not ported; the port trains families D "
-        f"({', '.join(FAMILY_D_PRESETS)}) and B "
-        f"({', '.join(FAMILY_B_PRESETS)}); the other families are ROADMAP "
-        f"Queue 1 items 9-11")
+        f"preset {name!r} is not ported; family E "
+        f"({', '.join(FAMILY_E_PRESETS)}) is ROADMAP Queue 1 item 11")

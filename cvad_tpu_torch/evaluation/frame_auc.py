@@ -107,8 +107,8 @@ def dataset_frame_auc(score_fn: Callable, data_cfg, root: str,
 def make_trainer_score_fn(trainer) -> Callable:
     """Batch scorer from a (restored) `cvad_tpu_torch.train.engine.Trainer`:
     its task's eval step on the trainer's device, which returns per-clip
-    ``predictions`` for families D and B.  The port trains on one device,
-    so nothing is padded."""
+    ``predictions`` for families D, B, C and A.  The port trains on one
+    device, so nothing is padded."""
     import torch
 
     def score(batch: np.ndarray) -> np.ndarray:

@@ -9,12 +9,14 @@ An own copy of `cvad_tpu/evaluation/metrics.py` (:19-134), numpy only:
   metrics with scikit-learn; here they are written out in numpy with
   scikit-learn's definitions (zero_division=0, AUC from average ranks), so
   the port needs no scikit-learn;
-- `format_sample_table`, the per-sample prediction table.
+- `format_sample_table`, the per-sample prediction table, and
+  `family_a_test_analysis`, the reference's family-A test report;
+- each family's eval dict (`cvad_tpu/train/engine.py:445-478`).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import numpy as np
 
@@ -115,6 +117,37 @@ def format_sample_table(scores: np.ndarray, labels: np.ndarray,
     return "\n".join(lines)
 
 
+def family_a_test_analysis(scores: np.ndarray, labels: np.ndarray,
+                           direct_predictions: np.ndarray,
+                           threshold: float = 0.5,
+                           max_rows: int = 10) -> Dict[str, object]:
+    """The reference family-A ``test_model`` report
+    (``causal_anomaly_detection.py:796-835``): prediction counts by both
+    methods (blended score > `threshold`, argmax of the direct softmax) and
+    the first `max_rows` per-sample rows, as a dict."""
+    scores = np.asarray(scores).reshape(-1)
+    labels = np.asarray(labels).reshape(-1).astype(int)
+    direct = np.asarray(direct_predictions).reshape(len(scores), -1)
+    anomaly_pred = (scores > threshold).astype(int)
+    class_pred = np.argmax(direct, axis=1)
+    return {
+        "total_samples": int(len(labels)),
+        "true_normal": int((labels == 0).sum()),
+        "true_abnormal": int((labels == 1).sum()),
+        "score_pred_normal": int((anomaly_pred == 0).sum()),
+        "score_pred_abnormal": int((anomaly_pred == 1).sum()),
+        "class_pred_normal": int((class_pred == 0).sum()),
+        "class_pred_abnormal": int((class_pred == 1).sum()),
+        "samples": [
+            {"index": i + 1, "true": int(labels[i]),
+             "score": float(scores[i]),
+             "anomaly_pred": int(anomaly_pred[i]),
+             "class_pred": int(class_pred[i])}
+            for i in range(min(max_rows, len(labels)))
+        ],
+    }
+
+
 def score_separation(scores: np.ndarray, labels: np.ndarray
                      ) -> Dict[str, float]:
     """Mean score of the normal and of the abnormal clips, and their
@@ -142,4 +175,25 @@ def family_b_eval_metrics(predictions: np.ndarray, labels: np.ndarray,
     m = binary_metrics(predictions, labels, thr)
     m.update(score_separation(predictions, labels))
     m["val_loss"] = float(np.mean(loss))
+    return m
+
+
+def family_c_eval_metrics(predictions: np.ndarray, labels: np.ndarray,
+                          loss: np.ndarray) -> Dict[str, float]:
+    """Family C's eval dict (`cvad_tpu/train/engine.py:452-456`): the
+    binary metrics at 0.5 and ``loss``, the mean per-clip BCE."""
+    m = binary_metrics(predictions, labels)
+    m["loss"] = float(np.mean(loss))
+    return m
+
+
+def family_a_eval_metrics(predictions: np.ndarray, labels: np.ndarray,
+                          direct_predictions: np.ndarray) -> Dict[str, Any]:
+    """Family A's eval dict (`cvad_tpu/train/engine.py:464-478`): the
+    binary metrics of the blended score at 0.5, ``val_acc`` (their
+    accuracy) and ``analysis`` (`family_a_test_analysis`)."""
+    m: Dict[str, Any] = binary_metrics(predictions, labels)
+    m["val_acc"] = m["accuracy"]
+    m["analysis"] = family_a_test_analysis(predictions, labels,
+                                           direct_predictions)
     return m

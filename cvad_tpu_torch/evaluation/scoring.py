@@ -7,11 +7,11 @@ Port of `cvad_tpu/evaluation/scoring.py`: `ScoredClip`, `VideoScorer`
 batches of `batch_size`, the per-frame curve the mean of the windows
 covering each frame), `make_family_d_score_fn`,
 `make_family_d_bulk_score_fn`, `make_family_b_score_fn`, `make_score_fn`
-(families 'd' and 'b') and `aggregate_frame_scores`.  The public
+(families 'd', 'b', 'c' and 'a') and `aggregate_frame_scores`.  The public
 functions take (N, T, H, W, C) clips, float32 in [0, 1] or raw uint8 pixels,
 as `cvad_tpu`'s do; the clips are copied to the device once, normalised
 there (uint8 / 255) and permuted there to the model's layout, (N, C, T,
-H, W) for family D, (N, T, C, H, W) for family B.  The model runs in
+H, W) for families D and C, (N, T, C, H, W) for families B and A.  The model runs in
 ``eval()`` (no dropout; BatchNorm on running statistics) under
 ``torch.inference_mode()``.
 
@@ -31,11 +31,14 @@ from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from cvad_tpu_torch.config import (DataConfig, FamilyBConfig, FamilyDConfig,
-                                   LossConfig)
+from cvad_tpu_torch.config import (DataConfig, FamilyAConfig, FamilyBConfig,
+                                   FamilyCConfig, FamilyDConfig, LossConfig)
 from cvad_tpu_torch.data.datasets import ClipDataset
 from cvad_tpu_torch.data.frames import clip_windows, scan_video_folders
-from cvad_tpu_torch.models import CausalAnomalyDetector, MemoryVideoAutoEncoder
+from cvad_tpu_torch.models import (CausalAnomalyDetector,
+                                   CausalPipelineDetector,
+                                   MemoryVideoAutoEncoder,
+                                   Simple3DCNNDetector)
 from cvad_tpu_torch.models.family_b import MemoryBankState
 from cvad_tpu_torch.runtime.device import resolve_device
 
@@ -256,15 +259,71 @@ def make_family_b_score_fn(state: Mapping[str, torch.Tensor], memory=None,
     return score
 
 
+def make_family_c_score_fn(state: Mapping[str, torch.Tensor],
+                           cfg: Optional[FamilyCConfig] = None, *,
+                           device=None) -> Callable:
+    """Family-C scorer: (N, T, H, W, C) uint8 or float32 clips -> scores
+    (N,) as numpy, the classifier's sigmoid.  `state` is the model's state
+    dict (the reference ``.pth`` keys); `device` defaults to CUDA and
+    raises without it."""
+    cfg = cfg or FamilyCConfig()
+    dev = resolve_device(device)
+    model = Simple3DCNNDetector(cfg)
+    model.load_state_dict(state, strict=True)
+    model = model.to(dev).eval()
+
+    def score(batch: np.ndarray) -> np.ndarray:
+        if len(batch) == 0:
+            return np.zeros(0, np.float32)
+        x = prep_clips(torch.from_numpy(np.ascontiguousarray(batch)).to(dev))
+        with torch.inference_mode(), _no_tf32():
+            return model(x).reshape(-1).cpu().numpy()
+
+    return score
+
+
+def make_family_a_score_fn(state: Mapping[str, torch.Tensor],
+                           cfg: Optional[FamilyAConfig] = None, *,
+                           device=None) -> Callable:
+    """Family-A scorer: (N, T, H, W, C) uint8 or float32 clips -> the
+    blended ``anomaly_scores`` (N,) as numpy (the causal score alone in
+    the anchor variant), from the deterministic eval forward (z = mu).
+    `state` is the model's state dict (the reference ``.pth`` keys; its
+    conv1 gives the input channels); `device` defaults to CUDA and raises
+    without it."""
+    cfg = cfg or FamilyAConfig()
+    dev = resolve_device(device)
+    model = CausalPipelineDetector(
+        cfg, in_channels=state["backbone.conv1.weight"].shape[1])
+    model.load_state_dict(state, strict=True)
+    model = model.to(dev).eval()
+
+    def score(batch: np.ndarray) -> np.ndarray:
+        if len(batch) == 0:
+            return np.zeros(0, np.float32)
+        x = prep_frames(torch.from_numpy(np.ascontiguousarray(batch)).to(dev))
+        with torch.inference_mode(), _no_tf32():
+            return model(x)["anomaly_scores"].cpu().numpy()
+
+    return score
+
+
 def make_score_fn(family: str, state: Mapping[str, torch.Tensor],
-                  memory=None, *, device=None) -> Callable:
+                  memory=None, *, cfg=None, device=None) -> Callable:
     """Per-family batch -> scores dispatcher (`cvad_tpu`'s, for the ported
     families): family 'd' returns (scores, adjacency), family 'b' scores
-    against the bank in `state` unless `memory` is given."""
+    against the bank in `state` unless `memory` is given, families 'c' and
+    'a' return scores.  `cfg` is the family's model config where it is
+    not the default."""
     if family == "d":
-        return make_family_d_score_fn(state, device=device)
+        return make_family_d_score_fn(state, cfg, device=device)
     if family == "b":
-        return make_family_b_score_fn(state, memory, device=device)
+        return make_family_b_score_fn(state, memory, cfg=cfg, device=device)
+    if family == "c":
+        return make_family_c_score_fn(state, cfg, device=device)
+    if family == "a":
+        return make_family_a_score_fn(state, cfg, device=device)
     raise NotImplementedError(
-        f"family {family!r} has no scorer in the port yet; families 'd' and "
-        f"'b' are ported (ROADMAP Queue 1 items 9-11)")
+        f"family {family!r} has no scorer in the port yet; families 'd', "
+        f"'b', 'c' and 'a' are ported (family 'e' is ROADMAP Queue 1 item "
+        f"11)")

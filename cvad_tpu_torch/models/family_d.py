@@ -31,18 +31,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from cvad_tpu_torch.config import FamilyDConfig
-from cvad_tpu_torch.models.layers import TFoldConv1
+from cvad_tpu_torch.models.layers import TFoldConv1, dropout
 from cvad_tpu_torch.ops.pallas_conv import fold_group_size
-
-
-def dropout(x: torch.Tensor, p: float, training: bool,
-            generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """Inverted dropout drawn from `generator` (`nn.Dropout` cannot take
-    one); the identity outside training or at p = 0."""
-    if not training or p == 0.0:
-        return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
-    return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
 
 
 def _resolve_lowering(cfg: FamilyDConfig, on_cpu: bool) -> Tuple[str, str]:

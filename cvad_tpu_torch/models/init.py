@@ -3,7 +3,10 @@
 Own copy of `cvad_tpu/models/init.py:33-57` for torch weight layouts: the
 reference initialises family B's convs with kaiming-normal (fan_out,
 leaky_relu with a = 0) and its denses with xavier-normal of gain 0.5, biases
-zero (``causal_anomaly_detection1.py:29-42``).  Every draw takes a
+zero (``causal_anomaly_detection1.py:29-42``); family C's convs with
+kaiming-normal (fan_out, relu) and its denses with normal(0, 0.01)
+(``minicausal_vad_complete3.py:76-88``).  `lecun_normal_` is flax's default
+kernel initialiser, which `cvad_tpu` leaves on family A.  Every draw takes a
 `torch.Generator`, so that a model's initial weights follow from a seed
 without touching the global generator.  The two frameworks draw different
 numbers from the same seed; tests carry weights across instead.
@@ -42,3 +45,14 @@ def xavier_normal_(weight: torch.Tensor, generator: torch.Generator,
     fan_in, fan_out = _fans(weight)
     std = gain * math.sqrt(2.0 / (fan_in + fan_out))
     return weight.normal_(0.0, std, generator=generator)
+
+
+@torch.no_grad()
+def lecun_normal_(weight: torch.Tensor, generator: torch.Generator
+                  ) -> torch.Tensor:
+    """flax's default kernel init, ``variance_scaling(1, 'fan_in',
+    'truncated_normal')``: a normal truncated at 2 std, scaled so that the
+    variance is 1 / fan_in."""
+    std = (1.0 / _fans(weight)[0]) ** 0.5 / 0.87962566103423978
+    return torch.nn.init.trunc_normal_(weight, 0.0, std, -2 * std, 2 * std,
+                                       generator=generator)

@@ -21,14 +21,17 @@ convolution runs by one of two routes, which the model picks
   parameter), the K5 kernel (`s2d_group_conv`), and the t-major output
   (B, H/2, W/2, T*O) unfolded to (B, O, T, H/2, W/2).
 
-`MaskedBatchNorm` is family B's BatchNorm2d (`cvad_tpu.models.layers.
-MaskedBatchNorm`, :598-647).
+`MaskedBatchNorm` is the BatchNorm of families B, C and A
+(`cvad_tpu.models.layers.MaskedBatchNorm`, :598-647).  `max_pool3d`,
+`adaptive_avg_pool2d` and `mlp` are the counterparts of `cvad_tpu`'s
+helpers of the same names (:504-595) for families C and A; `run_seq`
+applies such a stack in a compute dtype with dropout from a generator.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -82,7 +85,7 @@ class MaskedBatchNorm(nn.Module):
     """BatchNorm over dim 1 of (N, C, ...) with `cvad_tpu`'s arithmetic.
 
     - train mode (``self.training``): batch statistics in float32 (also for
-      bf16 inputs), the biased variance E[x^2] - E[x]^2 clamped at 0, over
+      bf16 inputs; float64 for a float64 model), the biased variance E[x^2] - E[x]^2 clamped at 0, over
       the rows where `valid` (N,) is nonzero when it is given; the running
       statistics become ``0.9 * running + 0.1 * batch``, mean and variance
       alike (`torch.nn.BatchNorm2d` would take the unbiased variance);
@@ -108,8 +111,12 @@ class MaskedBatchNorm(nn.Module):
                              torch.zeros((), dtype=torch.long))
 
     def forward(self, x: torch.Tensor,
-                valid: Optional[torch.Tensor] = None) -> torch.Tensor:
-        xf = x.float()
+                valid: Optional[torch.Tensor] = None,
+                update_stats: bool = True) -> torch.Tensor:
+        """`update_stats=False` normalises with the batch statistics in
+        train mode without touching the running ones (a recomputation of
+        the same forward, as under ``torch.utils.checkpoint``)."""
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
         shape = (1, -1) + (1,) * (x.dim() - 2)
         if not self.training:
             mean, var = self.running_mean, self.running_var
@@ -126,13 +133,121 @@ class MaskedBatchNorm(nn.Module):
                 mean2 = (xf * xf * w).sum(axes) / cnt
             var = torch.clamp(mean2 - mean * mean, min=0.0)
             m = self.momentum
-            with torch.no_grad():
-                self.running_mean.copy_(m * self.running_mean
-                                        + (1 - m) * mean.detach())
-                self.running_var.copy_(m * self.running_var
-                                       + (1 - m) * var.detach())
-                self.num_batches_tracked.add_(1)
+            if update_stats:
+                with torch.no_grad():
+                    self.running_mean.copy_(m * self.running_mean
+                                            + (1 - m) * mean.detach())
+                    self.running_var.copy_(m * self.running_var
+                                           + (1 - m) * var.detach())
+                    self.num_batches_tracked.add_(1)
         mul = torch.rsqrt(var + self.eps) * self.weight
         out = (xf - mean.reshape(shape)) * mul.reshape(shape) \
             + self.bias.reshape(shape)
         return out.to(x.dtype)
+
+
+def max_pool3d(x: torch.Tensor, kernel: Tuple[int, int, int],
+               stride: Optional[Tuple[int, int, int]] = None) -> torch.Tensor:
+    """Max pool over (B, C, T, H, W) without padding, ``nn.MaxPool3d``'s
+    (`cvad_tpu`'s flax pool with 'VALID' padding)."""
+    return F.max_pool3d(x, kernel, stride or kernel)
+
+
+def adaptive_slices(in_size: int, out_size: int) -> List[Tuple[int, int]]:
+    """torch's adaptive-pool windows [floor(i*in/out), ceil((i+1)*in/out))
+    (`cvad_tpu`'s ``_adaptive_slices``)."""
+    return [(math.floor(i * in_size / out_size),
+             math.ceil((i + 1) * in_size / out_size))
+            for i in range(out_size)]
+
+
+def adaptive_avg_pool2d(x: torch.Tensor, out: Tuple[int, int]
+                        ) -> torch.Tensor:
+    """(N, C, H, W) -> (N, C, oh, ow), ``F.adaptive_avg_pool2d``'s windows,
+    also where the output is larger than the input (windows repeat).  As in
+    `cvad_tpu`: one reshaped mean where the output divides the input, else
+    the mean of each window along H, then along W."""
+    n, c, h, w = x.shape
+    oh, ow = out
+    if h % oh == 0 and w % ow == 0:
+        return x.reshape(n, c, oh, h // oh, ow, w // ow).mean((3, 5))
+
+    def pool(a: torch.Tensor, dim: int, size: int, o: int) -> torch.Tensor:
+        return torch.cat([a.narrow(dim, s, e - s).mean(dim, keepdim=True)
+                          for s, e in adaptive_slices(size, o)], dim)
+
+    return pool(pool(x, 2, h, oh), 3, w, ow)
+
+
+ACTIVATIONS = {"sigmoid": nn.Sigmoid, "relu": nn.ReLU, "tanh": nn.Tanh}
+
+
+def mlp(in_features: int, features: Sequence[int],
+        final_activation: Optional[str] = None, dropout: float = 0.0,
+        dropout_after: Sequence[int] = (),
+        dropout_rates: Optional[Sequence[float]] = None) -> nn.Sequential:
+    """`cvad_tpu`'s ``MLP`` as the reference's ``nn.Sequential``: Linear,
+    ReLU between layers, ``nn.Dropout`` after the layers in `dropout_after`
+    (at `dropout_rates`, else `dropout`), then the final activation
+    ('sigmoid', 'softmax', 'tanh', 'relu' or None).  The indices of the
+    Linears are the reference's state-dict keys (e.g. 0, 3, 6, 8 for
+    (512, 256, 128, 64) with dropout after 0 and 1)."""
+    rates = {i: (dropout_rates[j] if dropout_rates is not None else dropout)
+             for j, i in enumerate(dropout_after)}
+    layers: List[nn.Module] = []
+    for i, f in enumerate(features):
+        layers.append(nn.Linear(in_features, f))
+        in_features = f
+        if i < len(features) - 1:
+            layers.append(nn.ReLU())
+        if rates.get(i, 0.0) > 0:
+            layers.append(nn.Dropout(rates[i]))
+    if final_activation == "softmax":
+        layers.append(nn.Softmax(dim=-1))
+    elif final_activation is not None:
+        layers.append(ACTIVATIONS[final_activation]())
+    return nn.Sequential(*layers)
+
+
+def dropout(x: torch.Tensor, p: float, training: bool,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Inverted dropout drawn from `generator` (`nn.Dropout` cannot take
+    one), as flax's: keep with probability 1 - p, scale by 1 / (1 - p);
+    the identity outside training or at p = 0."""
+    if not training or p == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
+
+
+def compute_dtype(dtype: str, params: torch.Tensor) -> torch.dtype:
+    """A model's compute dtype: bfloat16 where its config says so, else the
+    parameters' type (float32, or float64 for a copy cast with
+    ``.double()``, a reference on the CPU)."""
+    return torch.bfloat16 if dtype == "bfloat16" else params.dtype
+
+
+def accumulate(x: torch.Tensor) -> torch.Tensor:
+    """`x` in at least float32: what the heads, statistics and losses
+    accumulate in whatever the compute dtype."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
+def linear(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """`layer` applied in x's dtype (its float32 parameters cast to it)."""
+    return F.linear(x, layer.weight.to(x.dtype), layer.bias.to(x.dtype))
+
+
+def run_seq(seq: nn.Sequential, x: torch.Tensor, training: bool = False,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Apply an `mlp` stack in x's dtype (the Linears' float32 parameters
+    cast to it), its ``nn.Dropout`` layers at their ``p`` through `dropout`
+    with `generator` in training."""
+    for layer in seq:
+        if isinstance(layer, nn.Linear):
+            x = linear(layer, x)
+        elif isinstance(layer, nn.Dropout):
+            x = dropout(x, layer.p, training, generator)
+        else:
+            x = layer(x)
+    return x

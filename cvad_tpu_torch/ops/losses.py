@@ -1,9 +1,10 @@
-"""Family D's loss and family B's reconstruction loss, in PyTorch.
+"""The losses of families D, A and B, in PyTorch.
 
-Port of `cvad_tpu/ops/losses.py:21-150`: binary cross-entropy, the focal
-loss as the reference composes it, the masked mean, pseudo-labels and the
-five-term ``improved_loss``; the consistency term calls the port's
-`pairwise_l1_mean`, which launches K2 for CUDA tensors.  Also
+Port of `cvad_tpu/ops/losses.py:21-150`: binary cross-entropy (family C's
+loss), the focal loss as the reference composes it, the masked mean,
+pseudo-labels and the five-term ``improved_loss``, whose consistency term
+calls the port's `pairwise_l1_mean`, which launches K2 for CUDA tensors;
+family A's four-term `family_a_loss`.  Also
 `family_b_reconstruction_loss`, the reference's MSE -> L1 -> 0 chain (the
 family-B train step computes the same MSE from sufficient statistics and
 does not call it).
@@ -109,6 +110,30 @@ def improved_loss(anomaly_scores: torch.Tensor, causal_adj: torch.Tensor,
         "sparsity_ratio": current_sparsity,
     }
     return total, components
+
+
+def family_a_loss(outputs: Dict[str, torch.Tensor], labels: torch.Tensor,
+                  cfg: LossConfig = LossConfig(),
+                  valid: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Family A's loss (``causal_anomaly_detection.py:649-662``):
+    ``a_ce`` CE of the direct softmax (clipped to [1e-7, 1]) at the label
+    + ``a_score_mse`` MSE(final score, label) + ``a_causal_mse``
+    MSE(causal score, label) + ``a_kl`` KL, each a mean over the rows
+    `valid` keeps."""
+    labels_f = labels.float()
+    direct = torch.clamp(outputs["direct_predictions"], _EPS, 1.0)
+    picked = direct.gather(1, labels.long().reshape(-1, 1))[:, 0]
+    ce = _masked_mean(-torch.log(picked), valid)
+    score_mse = _masked_mean((outputs["anomaly_scores"] - labels_f) ** 2,
+                             valid)
+    causal_mse = _masked_mean(
+        (outputs["causal_anomaly_scores"] - labels_f) ** 2, valid)
+    kl = _masked_mean(outputs["kl_losses"], valid)
+    total = (cfg.a_ce * ce + cfg.a_score_mse * score_mse
+             + cfg.a_causal_mse * causal_mse + cfg.a_kl * kl)
+    return total, {"ce": ce, "score_mse": score_mse,
+                   "causal_mse": causal_mse, "kl": kl}
 
 
 def family_b_reconstruction_loss(pred: torch.Tensor, target: torch.Tensor

@@ -1,23 +1,28 @@
-"""Checkpoints of families D and B for the port.
+"""Checkpoints of families D, B, C and A for the port.
 
 The port's state dicts ARE the reference's: `CausalAnomalyDetector`'s module
-names give the keys of ``best_improved_model.pth``, and
+names give the keys of ``best_improved_model.pth``,
 `MemoryVideoAutoEncoder`'s those of the reference ``VideoAutoEncoder``
-(plus ``memory_fill``, which `cvad_tpu`'s importer ignores).  This module
+(plus ``memory_fill``, which `cvad_tpu`'s importer ignores),
+`Simple3DCNNDetector`'s those of ``SimpleVideoAnomalyDetector`` and
+`CausalPipelineDetector`'s those of the reference
+``CausalAnomalyDetector`` of ``causal_anomaly_detection.py`` (or, in the
+anchor variant, of ``video_anomaly_detection.py``).  This module
 
 - loads the three ``.pth`` formats the reference writes;
 - keeps training checkpoints (`CheckpointManager`, the torch-native
   counterpart of `cvad_tpu/runtime/checkpoint.py:26-110`);
 - converts between the port's state dicts and `cvad_tpu`'s flax variables
-  (family B's memory bank included), and from optax's Adam state to the
-  port's (`from_jax_opt_state`), numpy in and out, for the parity tests.
+  (family B's memory bank and the BatchNorm statistics included), and from
+  optax's Adam state to the port's (`from_jax_opt_state`), numpy in and
+  out, for the parity tests.
 """
 
 from __future__ import annotations
 
 import shutil
 from pathlib import Path
-from typing import Any, Dict, Mapping, Optional, Union
+from typing import Any, Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -201,6 +206,47 @@ def _t(a: Any) -> torch.Tensor:
     return torch.from_numpy(np.array(a, np.float32, order="C"))
 
 
+def _bn_from(out: Dict, prefix: str, params: Mapping, stats: Optional[Mapping],
+             path: str) -> None:
+    node = _node(params, path)
+    out[f"{prefix}.weight"] = _t(node["scale"])
+    out[f"{prefix}.bias"] = _t(node["bias"])
+    if stats is not None:
+        st = _node(stats, path)
+        out[f"{prefix}.running_mean"] = _t(st["mean"])
+        out[f"{prefix}.running_var"] = _t(st["var"])
+        out[f"{prefix}.num_batches_tracked"] = torch.zeros((),
+                                                           dtype=torch.long)
+
+
+def _bn_to(state: Mapping, prefix: str, params: Dict, stats: Dict,
+           path: str) -> None:
+    def a(k):
+        return state[f"{prefix}.{k}"].detach().cpu().numpy()
+
+    _put(params, path, {"scale": a("weight"), "bias": a("bias")})
+    _put(stats, path, {"mean": a("running_mean"), "var": a("running_var")})
+
+
+def _dense_from(node: Mapping, rows: Optional[np.ndarray] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A flax Dense (in, out) -> a Linear's (out, in) weight and bias; with
+    `rows`, the kernel's input rows are taken in that order first."""
+    k = np.asarray(node["kernel"])
+    if rows is not None:
+        k = k[rows]
+    return _t(k.T), _t(node["bias"])
+
+
+def _dense_to(state: Mapping, prefix: str,
+              rows: Optional[np.ndarray] = None) -> Dict[str, np.ndarray]:
+    k = state[f"{prefix}.weight"].detach().cpu().numpy().T
+    if rows is not None:
+        k = k[rows]
+    return {"kernel": np.ascontiguousarray(k),
+            "bias": state[f"{prefix}.bias"].detach().cpu().numpy()}
+
+
 def from_jax_temporal(tree: Mapping[str, Any], prefix: str = ""
                       ) -> Dict[str, torch.Tensor]:
     """`cvad_tpu`'s attention-encoder parameters (the ``temporal`` tree, or
@@ -261,20 +307,11 @@ def from_jax_family_b(variables: Mapping[str, Any], memory: Any = None
                                                   (3, 2, 0, 1)))
         out[f"{prefix}.bias"] = _t(node["bias"])
     for prefix, path in FAMILY_B_DENSES.items():
-        node = _node(params, path)
-        out[f"{prefix}.weight"] = _t(np.asarray(node["kernel"]).T)
-        out[f"{prefix}.bias"] = _t(node["bias"])
+        out[f"{prefix}.weight"], out[f"{prefix}.bias"] = _dense_from(
+            _node(params, path))
     stats = variables.get("batch_stats")
     for prefix, path in FAMILY_B_BNS.items():
-        node = _node(params, path)
-        out[f"{prefix}.weight"] = _t(node["scale"])
-        out[f"{prefix}.bias"] = _t(node["bias"])
-        if stats is not None:
-            st = _node(stats, path)
-            out[f"{prefix}.running_mean"] = _t(st["mean"])
-            out[f"{prefix}.running_var"] = _t(st["var"])
-            out[f"{prefix}.num_batches_tracked"] = torch.zeros(
-                (), dtype=torch.long)
+        _bn_from(out, prefix, params, stats, path)
     if "temporal" in params:
         out.update(from_jax_temporal(params["temporal"], _ATTN))
     else:
@@ -311,13 +348,9 @@ def to_jax_family_b(state: Mapping[str, torch.Tensor]):
         _put(params, path, {"kernel": np.ascontiguousarray(kernel),
                             "bias": a(f"{prefix}.bias")})
     for prefix, path in FAMILY_B_DENSES.items():
-        _put(params, path, {"kernel": np.ascontiguousarray(
-            a(f"{prefix}.weight").T), "bias": a(f"{prefix}.bias")})
+        _put(params, path, _dense_to(state, prefix))
     for prefix, path in FAMILY_B_BNS.items():
-        _put(params, path, {"scale": a(f"{prefix}.weight"),
-                            "bias": a(f"{prefix}.bias")})
-        _put(stats, path, {"mean": a(f"{prefix}.running_mean"),
-                           "var": a(f"{prefix}.running_var")})
+        _bn_to(state, prefix, params, stats, path)
     if any(k.startswith(_ATTN) for k in state):
         params["temporal"] = to_jax_temporal(state, _ATTN)
     else:
@@ -336,6 +369,201 @@ def to_jax_family_b(state: Mapping[str, torch.Tensor]):
     memory = (a("normal_memory"), np.asarray(ptr, np.int32),
               np.asarray(fill, np.int32))
     return {"params": params, "batch_stats": stats}, memory
+
+
+# family C: state-dict index -> flax name, own copy of the maps of
+# cvad_tpu/runtime/checkpoint.py::import_torch_family_c (:275-294)
+FAMILY_C_BLOCKS = ((0, 1), (4, 5), (8, 9))  # features.(conv, BatchNorm)
+FAMILY_C_DENSES = ((1, "cls_1"), (4, "cls_4"), (6, "cls_6"))
+
+
+def from_jax_family_c(variables: Mapping[str, Any]
+                      ) -> Dict[str, torch.Tensor]:
+    """`cvad_tpu` family-C variables ``{'params', 'batch_stats'}`` (numpy
+    or array leaves) -> the port's state dict.  Without ``batch_stats``
+    (an Adam moment tree), only the parameters are filled."""
+    params, stats = variables["params"], variables.get("batch_stats")
+    out: Dict[str, torch.Tensor] = {}
+    for i, (conv, bn) in enumerate(FAMILY_C_BLOCKS):
+        node = params[f"conv_{i}"]["conv"]
+        out[f"features.{conv}.weight"] = _t(np.transpose(
+            np.asarray(node["kernel"]), _TO_TORCH["conv3d"]))
+        out[f"features.{conv}.bias"] = _t(node["bias"])
+        _bn_from(out, f"features.{bn}", params, stats, f"bn_{i}")
+    for idx, name in FAMILY_C_DENSES:
+        out[f"classifier.{idx}.weight"], out[f"classifier.{idx}.bias"] = \
+            _dense_from(params[name])
+    return out
+
+
+def to_jax_family_c(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The port's family-C state dict -> `cvad_tpu` variables
+    ``{'params', 'batch_stats'}`` with numpy leaves (inverse of
+    `from_jax_family_c`)."""
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+    for i, (conv, bn) in enumerate(FAMILY_C_BLOCKS):
+        w = state[f"features.{conv}.weight"].detach().cpu().numpy()
+        params[f"conv_{i}"] = {"conv": {
+            "kernel": np.ascontiguousarray(np.transpose(w, _TO_FLAX["conv3d"])),
+            "bias": state[f"features.{conv}.bias"].detach().cpu().numpy()}}
+        _bn_to(state, f"features.{bn}", params, stats, f"bn_{i}")
+    for idx, name in FAMILY_C_DENSES:
+        params[name] = _dense_to(state, f"classifier.{idx}")
+    return {"params": params, "batch_stats": stats}
+
+
+def family_a_feature_permutation(pool_hw=(4, 6), channels: int = 256
+                                 ) -> np.ndarray:
+    """`cvad_tpu`'s row permutation (checkpoint.py:297-307): row r of its
+    (h, w, c)-flattened backbone features is row ``perm[r]`` of the
+    channel-major flatten (c * H * W + h * W + w) that the reference and
+    the port use."""
+    ph, pw = pool_hw
+    h, w, c = np.meshgrid(np.arange(ph), np.arange(pw), np.arange(channels),
+                          indexing="ij")
+    return (c * (ph * pw) + h * pw + w).reshape(-1)
+
+
+def _family_a_layout(cfg) -> Dict[str, Any]:
+    """The index maps of `cvad_tpu`'s ``import_torch_family_a``
+    (checkpoint.py:310-441) for `cfg` (a `FamilyAConfig`): state-dict
+    prefix -> flax path of every Dense, and which of them read the
+    backbone features."""
+    denses = {}
+    if cfg.anchor_variant:
+        for head in ("bbox_head", "conf_head"):
+            denses[f"detector.{head}"] = f"detector/{head}"
+    else:
+        for i, idx in enumerate((0, 3, 6, 8)):
+            denses[f"detector.detector_net.{idx}"] = \
+                f"detector/detector_net/dense_{i}"
+        denses["detector.detector_net.10"] = "detector/detector_out"
+    for i in (0, 2, 4):
+        denses[f"tracker.reid_net.{i}"] = f"tracker/reid_{i}"
+    denses["traj_encoder.encoder"] = "traj_encoder/encoder"
+    for i in (0, 2):
+        denses[f"causal_extractor.encoder.{i}"] = f"causal_extractor/enc_{i}"
+    for head in ("mu_head", "logvar_head"):
+        denses[f"causal_extractor.{head}"] = f"causal_extractor/{head}"
+    denses["structure_learner.node_encoder"] = \
+        "structure_learner/node_encoder"
+    for i in (0, 2):
+        denses[f"structure_learner.edge_predictor.{i}"] = \
+            f"structure_learner/edge_{i}"
+    for i in (0, 2, 4):
+        denses[f"dynamics_predictor.dynamics_net.{i}"] = \
+            f"dynamics_predictor/dyn_{i}"
+    heads = ((("score_net", (0, 2, 4)),) if cfg.anchor_variant else
+             (("causal_scorer", (0, 3, 5)), ("motion_scorer", (0, 2, 4)),
+              ("temporal_scorer", (0, 2, 4))))
+    for head, idxs in heads:
+        for i, idx in enumerate(idxs):
+            denses[f"anomaly_scorer.{head}.{idx}"] = \
+                f"anomaly_scorer/{head}/dense_{i}"
+    if cfg.direct_variant:
+        for i, idx in enumerate((0, 3, 6, 8, 10)):
+            denses[f"direct_classifier.{idx}"] = \
+                f"direct_classifier/dense_{i}"
+    reads_features = {"detector.bbox_head", "detector.conf_head",
+                      "detector.detector_net.0", "direct_classifier.0"}
+    convs = {"backbone.conv1": "backbone/conv1"}
+    bns = {"backbone.bn1": "backbone/bn1"}
+    for n in range(1, 5):
+        convs[f"backbone.layer{n}.0"] = f"backbone/layer{n}_conv0"
+        convs[f"backbone.layer{n}.3"] = f"backbone/layer{n}_conv1"
+        bns[f"backbone.layer{n}.1"] = f"backbone/layer{n}_bn0"
+        bns[f"backbone.layer{n}.4"] = f"backbone/layer{n}_bn1"
+    perm = family_a_feature_permutation(tuple(cfg.backbone_pool),
+                                        cfg.backbone_channels[-1])
+    return {"denses": denses, "reads_features": reads_features,
+            "convs": convs, "bns": bns, "perm": perm}
+
+
+_GRU = "traj_encoder.gru"
+_GRU_GATES = ("r", "z", "n")  # row blocks of torch's fused (3H, .) weights
+
+
+def from_jax_family_a(variables: Mapping[str, Any], cfg
+                      ) -> Dict[str, torch.Tensor]:
+    """`cvad_tpu` family-A variables ``{'params', 'batch_stats'}`` for the
+    `FamilyAConfig` `cfg` -> the port's state dict.
+
+    Conv kernels (kH, kW, I, O) become (O, I, kH, kW); the GRU's per-gate
+    denses the fused (3H, .) weights in gate order r, z, n, flax's input
+    biases ``bias_ih_l0`` and its ``hn`` bias the n third of
+    ``bias_hh_l0`` (r and z thirds zero); the Denses that read the
+    backbone features take their rows back to the channel-major order
+    (the inverse of `family_a_feature_permutation` for the config's pool
+    and last width).  Without ``batch_stats`` only the parameters are
+    filled."""
+    params, stats = variables["params"], variables.get("batch_stats")
+    lay = _family_a_layout(cfg)
+    inverse = np.argsort(lay["perm"])
+    out: Dict[str, torch.Tensor] = {}
+    for prefix, path in lay["convs"].items():
+        node = _node(params, path)
+        out[f"{prefix}.weight"] = _t(np.transpose(np.asarray(node["kernel"]),
+                                                  (3, 2, 0, 1)))
+        out[f"{prefix}.bias"] = _t(node["bias"])
+    for prefix, path in lay["bns"].items():
+        _bn_from(out, prefix, params, stats, path)
+    for prefix, path in lay["denses"].items():
+        rows = inverse if prefix in lay["reads_features"] else None
+        out[f"{prefix}.weight"], out[f"{prefix}.bias"] = _dense_from(
+            _node(params, path), rows)
+    cell = params["traj_encoder"]["GRUCell_0"]
+    out[f"{_GRU}.weight_ih_l0"] = _t(np.concatenate(
+        [np.asarray(cell[f"i{g}"]["kernel"]).T for g in _GRU_GATES]))
+    out[f"{_GRU}.weight_hh_l0"] = _t(np.concatenate(
+        [np.asarray(cell[f"h{g}"]["kernel"]).T for g in _GRU_GATES]))
+    out[f"{_GRU}.bias_ih_l0"] = _t(np.concatenate(
+        [np.asarray(cell[f"i{g}"]["bias"]) for g in _GRU_GATES]))
+    b_hn = np.asarray(cell["hn"]["bias"])
+    out[f"{_GRU}.bias_hh_l0"] = _t(np.concatenate(
+        [np.zeros_like(b_hn), np.zeros_like(b_hn), b_hn]))
+    out["structure_learner.structure_params"] = _t(
+        params["structure_learner"]["structure_params"])
+    return out
+
+
+def to_jax_family_a(state: Mapping[str, torch.Tensor], cfg
+                    ) -> Dict[str, Any]:
+    """The port's family-A state dict -> `cvad_tpu` variables
+    ``{'params', 'batch_stats'}`` with numpy leaves for `cfg` (inverse of
+    `from_jax_family_a`; a reference state dict's r and z hidden biases
+    join flax's input biases, as `import_torch_family_a` adds them)."""
+    lay = _family_a_layout(cfg)
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+
+    def a(key: str) -> np.ndarray:
+        return state[key].detach().cpu().numpy()
+
+    for prefix, path in lay["convs"].items():
+        _put(params, path, {"kernel": np.ascontiguousarray(
+            np.transpose(a(f"{prefix}.weight"), (2, 3, 1, 0))),
+            "bias": a(f"{prefix}.bias")})
+    for prefix, path in lay["bns"].items():
+        _bn_to(state, prefix, params, stats, path)
+    for prefix, path in lay["denses"].items():
+        rows = lay["perm"] if prefix in lay["reads_features"] else None
+        _put(params, path, _dense_to(state, prefix, rows))
+    w_ih, w_hh = a(f"{_GRU}.weight_ih_l0"), a(f"{_GRU}.weight_hh_l0")
+    b_ih, b_hh = a(f"{_GRU}.bias_ih_l0"), a(f"{_GRU}.bias_hh_l0")
+    h = w_hh.shape[1]
+    cell: Dict[str, Any] = {}
+    for gi, g in enumerate(_GRU_GATES):
+        rows = slice(gi * h, (gi + 1) * h)
+        bias = b_ih[rows] if g == "n" else b_ih[rows] + b_hh[rows]
+        cell[f"i{g}"] = {"kernel": np.ascontiguousarray(w_ih[rows].T),
+                         "bias": bias}
+        cell[f"h{g}"] = {"kernel": np.ascontiguousarray(w_hh[rows].T)}
+    cell["hn"]["bias"] = b_hh[2 * h:]
+    params.setdefault("traj_encoder", {})["GRUCell_0"] = cell
+    _put(params, "structure_learner/structure_params",
+         a("structure_learner.structure_params"))
+    return {"params": params, "batch_stats": stats}
 
 
 def _find(node: Any, pred) -> Any:
@@ -368,8 +596,8 @@ def from_jax_opt_state(opt_state: Any, model: torch.nn.Module,
     moments = []
     for tree in (adam.mu, adam.nu):
         by_key = convert({"params": tree})
-        moments.append(flatten(by_key[name]
-                               for name, _ in model.named_parameters()))
+        moments.append(flatten(by_key[name] for name, p in
+                               model.named_parameters() if p.requires_grad))
     dev = next(model.parameters()).device
     return OptState(
         mu=moments[0], nu=moments[1],

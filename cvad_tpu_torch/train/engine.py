@@ -1,4 +1,4 @@
-"""The training engine of the port: families D and B on one device.
+"""The training engine of the port: families D, C, B and A on one device.
 
 Port of `cvad_tpu/train/engine.py` (`Trainer`: `init_state`, `train_epoch`,
 `evaluate`, `_eval_metrics`, `fit`, `restore` with the 'mid' resume,
@@ -25,9 +25,11 @@ from typing import Any, Dict, Iterable, Mapping, Optional
 import numpy as np
 import torch
 
-from cvad_tpu_torch.config import ExperimentConfig, FamilyBConfig, TrainConfig
+from cvad_tpu_torch.config import ExperimentConfig, TrainConfig, family_of
 from cvad_tpu_torch.data.batcher import BatchLoader
-from cvad_tpu_torch.evaluation.metrics import (family_b_eval_metrics,
+from cvad_tpu_torch.evaluation.metrics import (family_a_eval_metrics,
+                                               family_b_eval_metrics,
+                                               family_c_eval_metrics,
                                                family_d_eval_metrics)
 from cvad_tpu_torch.runtime.checkpoint import CheckpointManager
 from cvad_tpu_torch.runtime.device import resolve_device
@@ -207,15 +209,22 @@ class Trainer:
         return self._eval_metrics(merged)
 
     def _eval_metrics(self, out: Mapping[str, np.ndarray]) -> Dict[str, Any]:
-        if isinstance(self.cfg.model, FamilyBConfig):
-            m = family_b_eval_metrics(out["predictions"], out["labels"],
-                                      out["loss"])
-            return {**m, "predictions": out["predictions"],
-                    "labels": out["labels"]}
-        m = family_d_eval_metrics(out["predictions"], out["causal_graphs"],
-                                  self.cfg.loss.edge_threshold)
-        return {**m, "predictions": out["predictions"],
-                "causal_graphs": out["causal_graphs"]}
+        family = family_of(self.cfg.model)
+        if family in ("b", "c"):
+            metrics = (family_b_eval_metrics if family == "b"
+                       else family_c_eval_metrics)
+            m = metrics(out["predictions"], out["labels"], out["loss"])
+            keep = ("predictions", "labels")
+        elif family == "a":
+            m = family_a_eval_metrics(out["predictions"], out["labels"],
+                                      out["direct_predictions"])
+            keep = ("predictions", "causal_scores", "direct_predictions",
+                    "labels")
+        else:
+            m = family_d_eval_metrics(out["predictions"], out["causal_graphs"],
+                                      self.cfg.loss.edge_threshold)
+            keep = ("predictions", "causal_graphs")
+        return {**m, **{k: out[k] for k in keep}}
 
     # -- full run ------------------------------------------------------------
 

@@ -9,7 +9,10 @@ device read.  `cvad_tpu` keeps family B's BatchNorm statistics and memory
 bank in the state (``batch_stats``, ``extra``); here they are buffers of
 the model (``running_mean``/``running_var``, ``normal_memory``,
 ``memory_ptr``, ``memory_fill``), so ``state_dict`` and
-``load_state_dict`` carry them with the weights.
+``load_state_dict`` carry them with the weights.  The optimizer works on
+the parameters that require a gradient (`trainable`): family A's frozen
+stem has no moments and takes no update, as `cvad_tpu`'s masked optax
+chain gives it none.
 """
 
 from __future__ import annotations
@@ -23,6 +26,12 @@ from torch import nn
 from cvad_tpu_torch.train.optim import OptState
 
 
+def trainable(model: nn.Module) -> List[torch.Tensor]:
+    """The parameters that require a gradient, in `named_parameters`
+    order: the flat optimizer vector's."""
+    return [p for p in model.parameters() if p.requires_grad]
+
+
 @dataclass
 class TrainState:
     model: nn.Module
@@ -31,7 +40,7 @@ class TrainState:
 
     def params(self) -> List[torch.Tensor]:
         """The trainable parameters, in the flat vector's order."""
-        return list(self.model.parameters())
+        return trainable(self.model)
 
     def state_dict(self) -> dict:
         """Host copies of the model weights (reference `.pth` keys), the

@@ -1,11 +1,17 @@
-"""The train and eval steps of families D and B, in PyTorch.
+"""The train and eval steps of families D, C, B and A, in PyTorch.
 
-Port of `cvad_tpu/train/tasks.py` for families D and B (`prep_clips`,
-`_apply_updates`, `_family_d_task`, `_family_b_task`,
-`update_memory_masked`, `stop_bn_absorbed_biases`).  Batches are dicts of
-tensors already on the model's device: ``{"clips": (B, T, H, W, C) uint8 or
-float32, "labels": (B,)}``, optionally ``"valid"`` (B,) and, for family D,
-``"pseudo_targets"`` (B,).
+Port of `cvad_tpu/train/tasks.py` (`prep_clips`, `_apply_updates`,
+`_family_d_task`, `_family_c_task`, `_family_b_task`, `_family_a_task`,
+`update_memory_masked`, `stop_bn_absorbed_biases`; `stop_frozen_stem` is
+``requires_grad=False`` on family A's stem, which the model sets).  Batches
+are dicts of tensors already on the model's device: ``{"clips": (B, T, H,
+W, C) uint8 or float32, "labels": (B,)}``, optionally ``"valid"`` (B,)
+and, for family D, ``"pseudo_targets"`` (B,).
+
+Family C trains a BCE over the batch's (valid) clips; family A the
+four-term `family_a_loss`, with its stem frozen (no gradient, no Adam
+moments, no update, no weight decay; bn1's running statistics still
+update) and, in training, the VAE's draw.
 
 Family B trains on the batch's normal clips (labels == 0, and valid) with
 the sufficient-statistics reconstruction loss, writes their sequence
@@ -13,13 +19,14 @@ features into the memory bank, and takes no random draw.  The train step
 computes no memory score (nothing reads it); the eval step does, through
 K3.
 
-Randomness: `cvad_tpu` derives each step's dropout and pseudo-label keys
-from ``fold_in(rng, step)``, which is stateless, so a resumed run replays
-them.  Here each step seeds a fresh `torch.Generator` on the device from
-(seed, step) (`step_seed`) and draws the pseudo-labels, then the dropout
-masks, from it; no generator state is carried between steps.  The two
-frameworks draw different bits from the same seed: tests set dropout to 0
-and pass ``pseudo_targets``.
+Randomness: `cvad_tpu` derives each step's dropout, pseudo-label and VAE
+keys from ``fold_in(rng, step)``, which is stateless, so a resumed run
+replays them.  Here each step seeds a fresh `torch.Generator` on the
+device from (seed, step) (`step_seed`) and draws the pseudo-labels, the
+dropout masks and family A's VAE noise from it; no generator state is
+carried between steps.  The two frameworks draw different bits from the
+same seed: tests set dropout to 0, pass ``pseudo_targets`` and put
+`cvad_tpu`'s VAE draw into `models/family_a.py::vae_noise`.
 
 Numerics on the card: the steps run inside ``cudnn.flags(deterministic=True,
 allow_tf32=False, benchmark=False)``.  TF32 (cuDNN's default for float32
@@ -36,17 +43,21 @@ from typing import Callable, Dict, List, Mapping, Sequence, Tuple
 import torch
 from torch import nn
 
-from cvad_tpu_torch.config import (ExperimentConfig, FamilyBConfig,
-                                   FamilyDConfig)
+from cvad_tpu_torch.config import (ExperimentConfig, FamilyAConfig,
+                                   FamilyBConfig, FamilyCConfig, family_of)
 from cvad_tpu_torch.evaluation import scoring
-from cvad_tpu_torch.models import CausalAnomalyDetector, MemoryVideoAutoEncoder
+from cvad_tpu_torch.models import (CausalAnomalyDetector,
+                                   CausalPipelineDetector,
+                                   MemoryVideoAutoEncoder,
+                                   Simple3DCNNDetector)
 from cvad_tpu_torch.models.family_b import MemoryBankState
 from cvad_tpu_torch.models.layers import MaskedBatchNorm
-from cvad_tpu_torch.ops.losses import improved_loss, pseudo_labels
+from cvad_tpu_torch.ops.losses import (binary_cross_entropy, family_a_loss,
+                                       improved_loss, pseudo_labels)
 from cvad_tpu_torch.runtime.device import resolve_device
 from cvad_tpu_torch.train.optim import (OptState, Optimizer, build_optimizer,
                                         flatten, global_norm, unflatten)
-from cvad_tpu_torch.train.state import TrainState
+from cvad_tpu_torch.train.state import TrainState, trainable
 
 
 class Task:
@@ -70,6 +81,27 @@ def prep_clips(clips: torch.Tensor, clamp=(0.0, 1.0)) -> torch.Tensor:
     if (lo, hi) != (0.0, 1.0):
         x = torch.clamp(x, lo, hi)
     return x
+
+
+def _new_state(model: nn.Module, tx: Optimizer, device) -> TrainState:
+    """`model` on CUDA unless `device` says 'cpu', with a fresh optimizer
+    state over its trainable parameters."""
+    model = model.to(resolve_device(device))
+    return TrainState(model, tx.init(flatten(trainable(model)).detach()))
+
+
+def _masked_mean_1d(x: torch.Tensor, valid) -> torch.Tensor:
+    """Mean of a per-sample vector over the rows `valid` keeps."""
+    if valid is None:
+        return x.mean()
+    return (x * valid).sum() / torch.clamp(valid.sum(), min=1.0)
+
+
+def _generator(device: torch.device, seed: int, step: int
+               ) -> torch.Generator:
+    gen = torch.Generator(device=device)
+    gen.manual_seed(step_seed(seed, step))
+    return gen
 
 
 def step_seed(seed: int, step: int) -> int:
@@ -126,9 +158,7 @@ def _family_d_task(cfg: ExperimentConfig) -> Task:
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
             model = CausalAnomalyDetector(model_cfg)
-        model = model.to(resolve_device(device))
-        return TrainState(model, tx.init(flatten(model.parameters())
-                                         .detach()))
+        return _new_state(model, tx, device)
 
     def train_step(state: TrainState, batch: Mapping[str, torch.Tensor],
                    seed: int) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
@@ -137,8 +167,7 @@ def _family_d_task(cfg: ExperimentConfig) -> Task:
         model = state.model
         clips = prep_clips(batch["clips"], clamp)
         valid = batch.get("valid")
-        gen = torch.Generator(device=clips.device)
-        gen.manual_seed(step_seed(seed, state.step))
+        gen = _generator(clips.device, seed, state.step)
         if "pseudo_targets" in batch:
             targets = batch["pseudo_targets"]
         else:
@@ -198,35 +227,43 @@ def update_memory_masked(state: MemoryBankState, feats: torch.Tensor,
                            torch.clamp(state.fill + k, max=m))
 
 
+_CONVS = (nn.Conv2d, nn.ConvTranspose2d, nn.Conv3d)
+
+
 def bn_absorbed_biases(model: nn.Module) -> List[str]:
     """Names of the conv and deconv biases that feed straight into a
-    `MaskedBatchNorm` (family B's encoder convs 0-3 and decoder deconvs
-    0-2; the output deconv feeds a sigmoid and stays live)."""
+    `MaskedBatchNorm` inside an ``nn.Sequential``: family B's encoder convs
+    0-3 and decoder deconvs 0-2 (the output deconv feeds a sigmoid and
+    stays live), family C's ``features.{0,4,8}`` and family A's
+    ``backbone.layer{1-4}.{0,3}`` (its stem conv1 is frozen)."""
     names = []
-    for seq_name, seq in model.named_children():
+    for seq_name, seq in model.named_modules():
         if not isinstance(seq, nn.Sequential):
             continue
         layers = list(seq)
         for i, (layer, nxt) in enumerate(zip(layers, layers[1:])):
-            if isinstance(layer, (nn.Conv2d, nn.ConvTranspose2d)) \
-                    and isinstance(nxt, MaskedBatchNorm):
+            if isinstance(layer, _CONVS) and isinstance(nxt, MaskedBatchNorm):
                 names.append(f"{seq_name}.{i}.bias")
     return names
 
 
 def stop_bn_absorbed_biases(model: nn.Module, loss: torch.Tensor
                             ) -> List[torch.Tensor]:
-    """Gradients of `loss` w.r.t. every parameter (`TrainState.params`
-    order), with exactly zero for the BN-absorbed biases: BatchNorm's batch
+    """Gradients of `loss` w.r.t. every trainable parameter
+    (`TrainState.params` order), with exactly zero for the BN-absorbed biases: BatchNorm's batch
     mean cancels them, so their true gradient is 0, and autograd's ~1e-8 of
     rounding would become an lr-sized Adam step.  They are left out of
     `autograd.grad`, which also skips their reduction.  Weight decay still
     reaches them in the optimizer, as in `cvad_tpu`'s optax chain."""
-    absorbed = set(bn_absorbed_biases(model))
-    named = list(model.named_parameters())
-    live = [p for n, p in named if n not in absorbed]
-    grads = iter(torch.autograd.grad(loss, live))
-    return [torch.zeros_like(p) if n in absorbed else next(grads)
+    # and exactly zero for the parameters the model declares unread by the
+    # loss (`zero_grad_params`: family A's structure_params), as in
+    # `cvad_tpu`; any other parameter cut off from the loss raises
+    zero = set(bn_absorbed_biases(model)) | set(
+        getattr(model, "zero_grad_params", ()))
+    named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+    grads = iter(torch.autograd.grad(
+        loss, [p for n, p in named if n not in zero]))
+    return [torch.zeros_like(p) if n in zero else next(grads)
             for n, p in named]
 
 
@@ -242,9 +279,7 @@ def _family_b_task(cfg: ExperimentConfig) -> Task:
         """The reference's initialisation from `seed` and an empty bank, on
         CUDA unless `device` says 'cpu'."""
         model = MemoryVideoAutoEncoder(model_cfg, seed=seed)
-        model = model.to(resolve_device(device))
-        return TrainState(model, tx.init(flatten(model.parameters())
-                                         .detach()))
+        return _new_state(model, tx, device)
 
     def train_step(state: TrainState, batch: Mapping[str, torch.Tensor],
                    seed: int) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
@@ -300,12 +335,104 @@ def _family_b_task(cfg: ExperimentConfig) -> Task:
     return Task(model_cfg, tx, init_state, train_step, eval_step)
 
 
+def _family_c_task(cfg: ExperimentConfig) -> Task:
+    model_cfg: FamilyCConfig = cfg.model
+    if cfg.train.dtype != "float32" and model_cfg.dtype == "float32":
+        model_cfg = model_cfg.replace(dtype=cfg.train.dtype)
+    tx = build_optimizer(cfg.optim)
+    clamp = cfg.data.normalize_clamp
+
+    def init_state(seed: int, device=None) -> TrainState:
+        """The reference's initialisation from `seed`, on CUDA unless
+        `device` says 'cpu'."""
+        return _new_state(Simple3DCNNDetector(model_cfg, seed=seed), tx,
+                          device)
+
+    def train_step(state: TrainState, batch: Mapping[str, torch.Tensor],
+                   seed: int) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        """One step of the BCE over the batch's valid clips (the
+        BatchNorm statistics over them too); updates `state` in place."""
+        model = state.model
+        clips = prep_clips(batch["clips"], clamp)
+        valid = batch.get("valid")
+        gen = _generator(clips.device, seed, state.step)
+        with card_numerics():
+            scores = model.train()(clips, generator=gen, valid=valid)
+            loss = _masked_mean_1d(binary_cross_entropy(
+                scores.reshape(-1), batch["labels"].float()), valid)
+            grads = stop_bn_absorbed_biases(model, loss)
+        state = _apply_updates(state, tx, grads, loss.detach())
+        return state, {"loss": loss.detach()}
+
+    @torch.no_grad()
+    def eval_step(state: TrainState, batch: Mapping[str, torch.Tensor]
+                  ) -> Dict[str, torch.Tensor]:
+        """Per-clip scores, the labels and the per-clip BCE."""
+        clips = prep_clips(batch["clips"], clamp)
+        with card_numerics():
+            scores = state.model.eval()(clips).reshape(-1)
+        labels = batch["labels"].float()
+        return {"predictions": scores, "labels": labels,
+                "loss": binary_cross_entropy(scores, labels)}
+
+    return Task(model_cfg, tx, init_state, train_step, eval_step)
+
+
+def _family_a_task(cfg: ExperimentConfig) -> Task:
+    model_cfg: FamilyAConfig = cfg.model
+    if cfg.train.dtype != "float32" and model_cfg.dtype == "float32":
+        model_cfg = model_cfg.replace(dtype=cfg.train.dtype)
+    tx = build_optimizer(cfg.optim)
+    loss_cfg = cfg.loss
+    clamp = cfg.data.normalize_clamp
+    channels = cfg.data.channels
+
+    def init_state(seed: int, device=None) -> TrainState:
+        """`cvad_tpu`'s initialisation from `seed` for `data.channels`
+        input channels, the stem frozen where ``freeze_stem`` says so, on
+        CUDA unless `device` says 'cpu'."""
+        return _new_state(CausalPipelineDetector(model_cfg, channels,
+                                                 seed=seed), tx, device)
+
+    def train_step(state: TrainState, batch: Mapping[str, torch.Tensor],
+                   seed: int) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        """One step of `family_a_loss`; updates `state` in place (the
+        trainable parameters and Adam under the NaN guard, the BatchNorm
+        statistics whatever it says)."""
+        model = state.model
+        frames = prep_frames(batch["clips"], clamp)  # (B, T, C, H, W)
+        valid = batch.get("valid")
+        gen = _generator(frames.device, seed, state.step)
+        with card_numerics():
+            out = model.train()(frames, generator=gen, valid=valid)
+            loss, comps = family_a_loss(out, batch["labels"], loss_cfg,
+                                        valid=valid)
+            grads = stop_bn_absorbed_biases(model, loss)
+        state = _apply_updates(state, tx, grads, loss.detach())
+        return state, {"loss": loss.detach(),
+                       **{k: v.detach() for k, v in comps.items()}}
+
+    @torch.no_grad()
+    def eval_step(state: TrainState, batch: Mapping[str, torch.Tensor]
+                  ) -> Dict[str, torch.Tensor]:
+        """The blended scores, the causal scores, the direct softmax, the
+        adjacency and the labels."""
+        frames = prep_frames(batch["clips"], clamp)
+        with card_numerics():
+            out = state.model.eval()(frames)
+        return {"predictions": out["anomaly_scores"],
+                "causal_scores": out["causal_anomaly_scores"],
+                "direct_predictions": out["direct_predictions"],
+                "causal_graphs": out["adjacency_matrices"],
+                "labels": batch["labels"].float()}
+
+    return Task(model_cfg, tx, init_state, train_step, eval_step)
+
+
+TASKS = {"d": _family_d_task, "c": _family_c_task, "b": _family_b_task,
+         "a": _family_a_task}
+
+
 def build_task(cfg: ExperimentConfig) -> Task:
-    """The task of the config's model family (D or B)."""
-    if isinstance(cfg.model, FamilyBConfig):
-        return _family_b_task(cfg)
-    if isinstance(cfg.model, FamilyDConfig):
-        return _family_d_task(cfg)
-    raise NotImplementedError(
-        f"no task for {type(cfg.model).__name__}: the port trains families "
-        f"D and B; the others are ROADMAP Queue 1 items 9-11")
+    """The task of the config's model family (D, B, C or A)."""
+    return TASKS[family_of(cfg.model)](cfg)

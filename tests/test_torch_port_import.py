@@ -1,11 +1,13 @@
-"""The PyTorch port imports without JAX and loads nothing of `cvad_tpu`;
-its entry points default to CUDA and raise without it."""
+"""The PyTorch port imports without JAX and loads nothing of `cvad_tpu`
+(every module, families C and A included); its entry points default to
+CUDA and raise without it."""
 
 import json
 import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -41,6 +43,9 @@ def test_imports_without_jax_or_cvad_tpu():
                 "cvad_tpu_torch.ops.losses", "cvad_tpu_torch.ops.adjacency",
                 "cvad_tpu_torch.models.family_d",
                 "cvad_tpu_torch.models.family_b",
+                "cvad_tpu_torch.models.family_c",
+                "cvad_tpu_torch.models.family_a",
+                "cvad_tpu_torch.evaluation.block_correlation",
                 "cvad_tpu_torch.models.init", "cvad_tpu_torch.models.layers",
                 "cvad_tpu_torch.evaluation.scoring",
                 "cvad_tpu_torch.evaluation.serving",
@@ -132,6 +137,27 @@ def test_entry_points_default_to_cuda(tmp_path):
     with pytest.raises(RuntimeError):
         main(["train", "--preset", "memory_ae", "--epochs", "1",
               "--n-synthetic", "8", "--out", str(tmp_path / "cli_b")])
+    # families C and A: the scorers, the trainer, the tasks, the CLI
+    from cvad_tpu_torch.evaluation.block_correlation import \
+        block_channel_correlations
+    from cvad_tpu_torch.models import (CausalPipelineDetector,
+                                       Simple3DCNNDetector)
+
+    state_c = Simple3DCNNDetector().state_dict()
+    state_a = CausalPipelineDetector().state_dict()
+    for fam, st in (("c", state_c), ("a", state_a)):
+        with pytest.raises(RuntimeError):
+            make_score_fn(fam, st)
+    with pytest.raises(RuntimeError):
+        block_channel_correlations(state_c, np.zeros((1, 8, 64, 64, 1)))
+    for name in ("mini3d", "causal_pipeline", "causal_pipeline_v0"):
+        with pytest.raises(RuntimeError):
+            Trainer(preset(name), out_dir=str(tmp_path))
+        with pytest.raises(RuntimeError):
+            build_task(preset(name)).init_state(0)
+        with pytest.raises(RuntimeError):
+            main(["train", "--preset", name, "--epochs", "1",
+                  "--n-synthetic", "8", "--out", str(tmp_path / name)])
     # family B with the attention encoder
     from cvad_tpu_torch.config import FamilyBConfig
 

@@ -132,8 +132,8 @@ def test_unported_knobs_raise(tmp_path):
                         (dict(device_cache="on"), "item 15")):
         with pytest.raises(NotImplementedError, match=item):
             Trainer(_cfg(tmp_path, 1, **train), device="cpu")
-    with pytest.raises(NotImplementedError):
-        preset("family_c")
+    with pytest.raises(NotImplementedError, match="item 11"):
+        preset("bbox_viz")
 
 
 # -- resume ------------------------------------------------------------------

@@ -359,7 +359,8 @@ def test_cli_auc_matches_jax(J, tmp_path, tree, capsys):
 
 def test_cli_auc_family_b_and_unported(tmp_path, tree, capsys):
     """``auc --family b`` scores against the bank in the checkpoint, as the
-    library does; families a, c and e raise, naming the roadmap items."""
+    library does; family e raises, naming its roadmap item (families c and
+    a: tests/test_torch_port_family_c.py, tests/test_torch_port_train_a.py)."""
     from cvad_tpu_torch.models import MemoryVideoAutoEncoder
     from cvad_tpu_torch.models.family_b import MemoryBankState
 
@@ -378,8 +379,8 @@ def test_cli_auc_family_b_and_unported(tmp_path, tree, capsys):
     want = fa.dataset_frame_auc(make_family_b_score_fn(
         model.state_dict(), device="cpu"), preset("memory_ae").data, tree)
     assert got == {k: want[k] for k in got}
-    for fam in "ace":
-        with pytest.raises(NotImplementedError, match="items 9-11"):
+    for fam in "e":
+        with pytest.raises(NotImplementedError, match="item 11"):
             cli.main(["auc", "--data-root", tree, "--torch-checkpoint",
                       path, "--family", fam, "--device", "cpu"])
 
