@@ -187,6 +187,27 @@ Phases:
   video    (also) video_score_a: family A's best checkpoint from phase
            family_a scores the tree (16-frame windows at 240x360, stride 8,
            21 a video) with no port kernel launched, the CPU on 2 videos
+  steps_per_call  K train steps in one captured CUDA graph
+           (`train/graphs.py`) on every train path at full width: d (T=8,
+           B=256; K1, K2), d64 (T=64, B=128, conv1 on K5; K5, K2), b (LSTM,
+           B=256), b_attn (T=128, B=16; K6), c (B=8), a (16x240x360, B=4)
+           and a_remat: from one initial state, 8 eager float32 steps
+           against 2 replays of a graph of 4 steps on the same 8 batches;
+           every state-dict entry (parameters, BatchNorm statistics, family
+           B's bank and fill), Adam's moments, count and lr, `step` and the
+           summed metric vector bit-identical, and each kernel's launch
+           count through the replays (main paths graph_<path>) equal to
+           the eager steps'; `Trainer.fit` of family D (T=8, B=256, 1,536
+           clips: a chunk of 4 and 2 single steps an epoch, 2 epochs, eval
+           every epoch) with steps_per_call=4 and the device cache on (main
+           path steps_per_call_fit), the cache on at K=1 and off at K=4,
+           each bit-identical to steps_per_call=1 with the cache off
+           (history and state), and a run that dies right after epoch 2's
+           'mid' checkpoint at the chunk boundary, resumed bit-identically;
+           the fit seconds and the cache's fill time and bytes; each
+           path's step in f32 and bf16, eager and as graphs of 4 and 16
+           steps: per-step median of 20 calls (CUDA events) and busy share
+           (torch.profiler over one call)
   times    kernel, plain-version and library times (CUDA events), the
            bounds, per-bucket request latency of both families, bulk
            clips/s, the train step of both families at B=256, the
@@ -206,7 +227,9 @@ Phases:
            version and F.scaled_dot_product_attention (backward alone for
            the gradients, the names of the kernels SDPA ran beside), by
            CUDA events and on the card alone, with bounds at the 3xTF32
-           rate in float32 and the CUDA cores' beside them
+           rate in float32 and the CUDA cores' beside them;
+           the train-step rows of d, b, d64 and b_attn are phase
+           steps_per_call's eager rows
 The kernels phase also holds K4 (forward, input and weight gradient) and
 K5 (forward, weight gradient), called through their wrappers and
 autograd, against their plain versions at B=2, T=16, 16x16 (RGB with g=4,
@@ -233,7 +256,8 @@ call.
 Kernel launch counts are set to 0 just before each main path (serve + bulk,
 long_score, long_train, train, family_b_train, family_b_serve, attn_train,
 family_c_train, family_a_train, video_score_d, stream_d, video_score_b,
-video_score_d64, video_score_a) and read just after it; families C and A
+video_score_d64, video_score_a, graph_<path> (after the capture, over the
+replays), steps_per_call_fit) and read just after it; families C and A
 must read 0 for every kernel.  The last lines are the kernels summary, the card's
 nvidia-smi name and power limit, and {"ok": true, "device": {...}}.
 """
@@ -400,6 +424,15 @@ A_BF16_RTOL = 2e-2
 # validity threshold
 A_MARGIN = 1e-2
 A_PARAMS, A_ANCHOR_PARAMS = 7868720, 1318119
+# phase steps_per_call: SPC_STEPS eager steps against SPC_STEPS / SPC_K
+# replays of a captured graph of SPC_K steps on every train path
+# (SPC_FAMILIES, `step_config`); step times over SPC_CALLS calls, eager
+# and as graphs of SPC_TIMES_K steps; `Trainer.fit` on SPC_FIT_CLIPS
+# clips, 6 batches of 256 an epoch (one chunk of 4 and 2 single steps)
+SPC_SEED, SPC_K, SPC_STEPS, SPC_CALLS = 22, 4, 8, 20
+SPC_TIMES_K = (4, 16)
+SPC_FAMILIES = ("d", "d64", "b", "b_attn", "c", "a", "a_remat")
+SPC_FIT_CLIPS, SPC_FIT_EPOCHS = 1536, 2
 # the generators of phases family_c and family_a (their clips, and family
 # A's shared VAE draws), apart from the stream of the earlier phases
 C_SEED, A_SEED, A_NOISE_SEED = 13, 14, 21
@@ -1312,43 +1345,17 @@ def phase_bulk(state: dict, clips: np.ndarray, ref: np.ndarray):
 
 
 def counts() -> dict:
-    from cvad_tpu_torch.ops.pallas_conv import tfold_conv1
-    from cvad_tpu_torch.ops.pallas_kernels import (memory_min_cosine_distance,
-                                                   pairwise_l1_mean)
+    """Every kernel wrapper's launch counter (`train/graphs.py`)."""
+    from cvad_tpu_torch.train.graphs import read_counters
 
-    from cvad_tpu_torch.ops.flash_attention import flash_attention
-    from cvad_tpu_torch.ops.pallas_s2d import s2d_fold_matmul, s2d_group_conv
-
-    return {"tfold_conv1": tfold_conv1.launches,
-            "pairwise_l1_forward": pairwise_l1_mean.launches,
-            "pairwise_l1_backward": pairwise_l1_mean.backward_launches,
-            "memory_min_cosine": memory_min_cosine_distance.launches,
-            "s2d_group_forward": s2d_group_conv.launches,
-            "s2d_group_wgrad": s2d_group_conv.backward_launches,
-            "s2d_matmul_forward": s2d_fold_matmul.launches,
-            "s2d_matmul_dgrad": s2d_fold_matmul.dgrad_launches,
-            "s2d_matmul_wgrad": s2d_fold_matmul.wgrad_launches,
-            "flash_forward": flash_attention.launches,
-            "flash_dq": flash_attention.dq_launches,
-            "flash_dkv": flash_attention.dkv_launches}
+    return read_counters()
 
 
 def reset_counts() -> None:
-    from cvad_tpu_torch.ops.pallas_conv import tfold_conv1
-    from cvad_tpu_torch.ops.pallas_kernels import (memory_min_cosine_distance,
-                                                   pairwise_l1_mean)
+    from cvad_tpu_torch.train.graphs import launch_counters
 
-    from cvad_tpu_torch.ops.flash_attention import flash_attention
-    from cvad_tpu_torch.ops.pallas_s2d import s2d_fold_matmul, s2d_group_conv
-
-    tfold_conv1.launches = 0
-    pairwise_l1_mean.launches = pairwise_l1_mean.backward_launches = 0
-    memory_min_cosine_distance.launches = 0
-    s2d_group_conv.launches = s2d_group_conv.backward_launches = 0
-    s2d_fold_matmul.launches = s2d_fold_matmul.dgrad_launches = 0
-    s2d_fold_matmul.wgrad_launches = 0
-    flash_attention.launches = flash_attention.dq_launches = 0
-    flash_attention.dkv_launches = 0
+    for obj, attr in launch_counters().values():
+        setattr(obj, attr, 0)
 
 
 def train_config(batch: int, **train):
@@ -2646,6 +2653,220 @@ def stream_video(score_fn, cfg, video: tuple, ref: dict, card: str
     return launched
 
 
+def stack_batches(batches: list) -> dict:
+    return {k: torch.stack([b[k] for b in batches]) for k in batches[0]}
+
+
+def graph_vs_eager(rng: np.random.Generator, family: str) -> dict:
+    """From one initial state (seed 0), SPC_STEPS float32 eager steps
+    against SPC_STEPS / SPC_K replays of a captured graph of SPC_K steps
+    on the same batches: every state-dict entry (parameters, BatchNorm
+    statistics, family B's bank), Adam's moments, count and lr, `step`
+    and the summed metric vector bit-identical; the launch counts of the
+    replays (the counts set to 0 after the capture) equal the eager
+    steps'."""
+    from cvad_tpu_torch.train.graphs import StepGraph
+    from cvad_tpu_torch.train.tasks import build_task
+
+    cfg, batch_size, clip = step_config(family, "float32")
+    task = build_task(cfg)
+    seed = cfg.train.seed + 1
+    batches = step_batches(rng, SPC_STEPS, batch_size, clip)
+    t0 = time.perf_counter()
+    eager = task.init_state(0, "cuda")
+    reset_counts()
+    total, keys = None, None
+    for b in batches:
+        eager, m = task.train_step(eager, b, seed)
+        keys = sorted(m)
+        vec = torch.stack([m[k].float() for k in keys])
+        total = vec if total is None else total + vec
+    torch.cuda.synchronize()
+    eager_launches = counts()
+    eager_s = time.perf_counter() - t0
+    graphed = task.init_state(0, "cuda")
+    chunks = [stack_batches(batches[i:i + SPC_K])
+              for i in range(0, SPC_STEPS, SPC_K)]
+    t0 = time.perf_counter()
+    graph = StepGraph(task, graphed, seed, chunks[0])
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    reset_counts()
+    t0 = time.perf_counter()
+    g_total = None
+    for ch in chunks:
+        _, g_total = graph.replay(graphed, ch, g_total)
+    torch.cuda.synchronize()
+    graph_s = time.perf_counter() - t0
+    graph_launches = counts()
+    sa, sb = eager.model.state_dict(), graphed.model.state_dict()
+    differ = {k: float((sa[k].double() - sb[k].double()).abs().max())
+              for k in sa if not torch.equal(sa[k], sb[k])}
+    differ |= {f"opt.{k}": float((getattr(eager.opt_state, k).double()
+                                  - getattr(graphed.opt_state, k).double())
+                                 .abs().max())
+               for k in ("mu", "nu", "count", "lr")
+               if not torch.equal(getattr(eager.opt_state, k),
+                                  getattr(graphed.opt_state, k))}
+    out = {"family": family, "dtype": "float32", "B": batch_size,
+           "T": clip[0], "steps": SPC_STEPS, "K": SPC_K,
+           "replays": len(chunks), "metric_keys": keys,
+           "state_entries": len(sa) + 4, "differ": dict(list(
+               differ.items())[:8]), "n_differ": len(differ),
+           "step": [eager.step, graphed.step],
+           "metrics_equal": keys == graph.keys and bool(
+               torch.equal(total, g_total)),
+           "metric_sum": total.tolist(),
+           "eager_launches": {k: v for k, v in eager_launches.items() if v},
+           "graph_launches": {k: v for k, v in graph_launches.items() if v},
+           "eager_s": eager_s, "capture_s": capture_s, "replay_s": graph_s}
+    out["bit_identical"] = (not differ and eager.step == graphed.step
+                            and out["metrics_equal"])
+    del graph, eager, graphed, batches, chunks
+    torch.cuda.empty_cache()
+    return out, graph_launches
+
+
+class Interrupted(Exception):
+    pass
+
+
+def spc_fit(workdir: Path) -> tuple:
+    """`Trainer.fit` of family D (T=8, B=256, SPC_FIT_CLIPS train clips:
+    6 batches an epoch, one chunk of 4 and 2 single steps; eval every
+    epoch on 256 unshuffled clips) with steps_per_call=4 and the device
+    cache on against steps_per_call=1 with the cache off: history and
+    state bit-identical; a run with save_every_steps=4 that dies right
+    after epoch 2's 'mid' checkpoint (at the chunk boundary) and a new
+    trainer that resumes it, bit-identical to the uninterrupted run; the
+    fit seconds with the cache on and off at K = 1 and 4, and the cache's
+    fill time and bytes.  Returns the line and the K=4 cached fit's launch
+    counts (the counts set to 0 just before it)."""
+    from cvad_tpu_torch.data.batcher import BatchLoader
+    from cvad_tpu_torch.data.datasets import build_dataset
+    from cvad_tpu_torch.data.device_cache import DeviceClipCache
+    from cvad_tpu_torch.train.engine import Trainer
+
+    cfg = train_config(TRAIN_BATCH, num_epochs=SPC_FIT_EPOCHS, eval_every=1,
+                       save_interval=0)
+    t0 = time.perf_counter()
+    train_loader = BatchLoader(build_dataset(cfg.data, "Train",
+                                             SPC_FIT_CLIPS),
+                               TRAIN_BATCH, shuffle=True, seed=cfg.data.seed,
+                               transfer_dtype="uint8")
+    eval_loader = BatchLoader(build_dataset(cfg.data, "Test", EVAL_CLIPS),
+                              TRAIN_BATCH, transfer_dtype="uint8")
+    data_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cache = DeviceClipCache(train_loader, "cuda")
+    torch.cuda.synchronize()
+    fill = {"clips": len(train_loader.dataset), "bytes": cache.nbytes,
+            "fill_s": time.perf_counter() - t0}
+    del cache
+
+    def config(k: int, mode: str, **train):
+        return cfg.replace(train=cfg.train.replace(
+            steps_per_call=k, device_cache=mode, **train))
+
+    runs, fit_s, launches = {}, {}, None
+    for name, k, mode in (("k1_off", 1, "off"), ("k4_on", 4, "on"),
+                          ("k1_on", 1, "on"), ("k4_off", 4, "off")):
+        if name == "k4_on":
+            reset_counts()
+        t0 = time.perf_counter()
+        runs[name] = Trainer(config(k, mode), out_dir=str(workdir / name))
+        runs[name].fit(train_loader, eval_loader)
+        torch.cuda.synchronize()
+        fit_s[name] = time.perf_counter() - t0
+        if name == "k4_on":
+            launches = counts()
+
+    class Dying(Trainer):
+        def _save_mid(self, epoch, count, total_vec):
+            super()._save_mid(epoch, count, total_vec)
+            if epoch == SPC_FIT_EPOCHS:
+                raise Interrupted
+
+    mid_cfg = config(4, "on", save_every_steps=4)
+    died = False
+    try:
+        Dying(mid_cfg, out_dir=str(workdir / "mid")).fit(train_loader,
+                                                         eval_loader)
+    except Interrupted:
+        died = True
+    resumed = Trainer(mid_cfg, out_dir=str(workdir / "mid"))
+    resumed.restore()
+    mid = dict(resumed._mid_resume or {})
+    resumed.fit(train_loader, eval_loader)
+    ref = runs["k1_off"]
+    same = {name: same_run(ref, run) for name, run in runs.items()
+            if name != "k1_off"}
+    same["mid_resumed"] = same_run(ref, resumed)
+    steps = SPC_FIT_EPOCHS * (SPC_FIT_CLIPS // TRAIN_BATCH)
+    line = {"phase": "steps_per_call_fit", "batch": TRAIN_BATCH,
+            "train_clips": SPC_FIT_CLIPS, "epochs": SPC_FIT_EPOCHS,
+            "batches_per_epoch": SPC_FIT_CLIPS // TRAIN_BATCH, "K": 4,
+            "train_steps": steps, "data_s": data_s, "cache_fill": fill,
+            "fit_s": fit_s, "bit_identical_to_k1_off": same,
+            "died_after_mid": died,
+            "mid": {k: mid.get(k) for k in ("epoch", "count")},
+            "train_losses": ref.history.as_dict()["train_losses"],
+            "graphs": {n: len(r._multi.graphs) for n, r in runs.items()},
+            "caches": {n: sum(c is not None for _, c in
+                              r._device_caches.values())
+                       for n, r in runs.items()},
+            "launches": launches}
+    check(died and mid.get("epoch") == SPC_FIT_EPOCHS
+          and mid.get("count") == 4, f"the interrupted run: {died}, {mid}")
+    check(all(same.values()), f"K-step / cached fits vs K=1 uncached: "
+                              f"{same}")
+    check(line["caches"]["k4_on"] == 2 and line["caches"]["k1_on"] == 2
+          and line["caches"]["k4_off"] == 0, f"caches {line['caches']}")
+    check(line["graphs"]["k4_on"] == 1 and line["graphs"]["k1_off"] == 0,
+          f"graphs {line['graphs']}")
+    check(launches["pairwise_l1_forward"] >= steps
+          and launches["tfold_conv1"] >= steps,
+          f"K1/K2 launches {launches} over {steps} steps")
+    return line, launches
+
+
+def phase_steps_per_call(workdir: Path, card: str) -> tuple:
+    """Phase steps_per_call: K train steps in one CUDA graph, for every
+    train path at full width (`graph_vs_eager`), `Trainer.fit` with the
+    K-step call and the device cache (`spc_fit`), and the step times eager
+    and as graphs of 4 and 16 steps in f32 and bf16.  Returns the launch
+    counts of each path's replays and of the fit, and the times."""
+    rng = np.random.default_rng(SPC_SEED)
+    paths = {}
+    t_start = time.perf_counter()
+    for family in SPC_FAMILIES:
+        line, launched = graph_vs_eager(rng, family)
+        paths[f"graph_{family}"] = launched
+        emit({"phase": "steps_per_call", **line})
+        check(line["bit_identical"],
+              f"{family}: {SPC_K}-step graph replays differ from eager "
+              f"steps: {line['differ']}, step {line['step']}, metrics "
+              f"equal {line['metrics_equal']}")
+        check(line["eager_launches"] == line["graph_launches"],
+              f"{family}: launches eager {line['eager_launches']} vs "
+              f"graph {line['graph_launches']}")
+    line, paths["steps_per_call_fit"] = spc_fit(workdir)
+    emit(line)
+    times = []
+    for family in SPC_FAMILIES:
+        for dtype in ("float32", "bfloat16"):
+            for k in (1, *SPC_TIMES_K):
+                times.append(train_step_times(rng, dtype, family, k))
+                torch.cuda.empty_cache()
+    summary = [{k: t[k] for k in ("family", "dtype", "K", "median_ms",
+                                  "device_ms_per_step")}
+               | {"busy": t["breakdown"]["device_busy_share"]}
+               for t in times]
+    emit({"phase": "steps_per_call_times", "card": card, "calls": SPC_CALLS,
+          "summary": summary, "seconds": time.perf_counter() - t_start})
+    return paths, times
+
+
 def phase_video(state: dict, dev: dict, state_a: dict) -> dict:
     """Frame-folder video end to end on the card (see the module
     docstring), family A with `state_a`; returns each path's launch
@@ -3805,80 +4026,108 @@ def tfold_backward_times(rng: np.random.Generator) -> dict:
     return out
 
 
-def train_step_times(rng: np.random.Generator, dtype: str,
-                     family: str = "d") -> dict:
-    """The train step of family D (or B) at B=256 from uint8 clips already
-    on the card: CUDA events around each of 20 steps after 3 warm-up
-    steps.  Family B's labels are normal at the train split's rate.
-    family='d64' is the long-window step: T=64, B=128, conv1 on K5;
-    'd64_k1' the same step with the default lowering, conv1 on K1 (its
-    backward the whole-T folded conv's); 'b_attn' family B with the
-    attention encoder at B=16, T=128 (attention on K6, in float32 at
-    either dtype, as in `cvad_tpu`); 'c' family C (mini3d, B=8); 'a' and
-    'a_anchor' family A at full width (B=4, 16 x 240 x 360), the
-    causal_pipeline and causal_pipeline_v0 presets."""
-    from cvad_tpu_torch.train.tasks import build_task
-
-    batch_size = TRAIN_BATCH
+def step_config(family: str, dtype: str) -> tuple:
+    """(config, batch size, clip) of a train-step path: 'd' family D at
+    B=256, T=8; 'b' family B (LSTM) at B=256; 'd64' the long-window step
+    at T=64, B=128, conv1 on K5; 'd64_k1' the same step with the default
+    lowering, conv1 on K1 (its backward the whole-T folded conv's);
+    'b_attn' family B with the attention encoder at B=16, T=128 (attention
+    on K6, in float32 at either dtype, as in `cvad_tpu`); 'c' family C
+    (mini3d, B=8); 'a' and 'a_anchor' family A at full width (B=4, 16 x 240
+    x 360), the causal_pipeline and causal_pipeline_v0 presets; 'a_remat'
+    causal_pipeline with the backbone rematerialised."""
     if family == "b":
-        cfg, clip = b_train_config(TRAIN_BATCH, dtype=dtype), CLIP_B
-    elif family == "b_attn":
-        batch_size, clip = ATTN_BATCH, ATTN_CLIP
-        cfg = attn_config(ATTN_BATCH, dtype=dtype)
-    elif family == "c":
-        batch_size, clip = C_BATCH, C_CLIP
-        cfg = c_config(C_BATCH, dtype=dtype)
-    elif family in ("a", "a_anchor"):
-        batch_size, clip = A_BATCH, A_CLIP
+        return b_train_config(TRAIN_BATCH, dtype=dtype), TRAIN_BATCH, CLIP_B
+    if family == "b_attn":
+        return attn_config(ATTN_BATCH, dtype=dtype), ATTN_BATCH, ATTN_CLIP
+    if family == "c":
+        return c_config(C_BATCH, dtype=dtype), C_BATCH, C_CLIP
+    if family in ("a", "a_anchor", "a_remat"):
         cfg = a_config(A_BATCH, "causal_pipeline_v0" if family == "a_anchor"
                        else "causal_pipeline", dtype=dtype)
-    elif family in ("d64", "d64_k1"):
-        batch_size, clip = LONG_BATCH, LONG_CLIP
+        if family == "a_remat":
+            cfg = cfg.replace(model=cfg.model.replace(remat=True))
+        return cfg, A_BATCH, A_CLIP
+    if family in ("d64", "d64_k1"):
         cfg = long_config(LONG_BATCH, dtype=dtype)
         if family == "d64_k1":
             cfg = cfg.replace(model=cfg.model.replace(conv_group_impl="stack"))
-    else:
-        cfg, clip = train_config(TRAIN_BATCH, dtype=dtype), CLIP
-    t0 = time.perf_counter()
-    task = build_task(cfg)
-    state = task.init_state(0, "cuda")
-    batch = {"clips": torch.from_numpy(rng.integers(
+        return cfg, LONG_BATCH, LONG_CLIP
+    return train_config(TRAIN_BATCH, dtype=dtype), TRAIN_BATCH, CLIP
+
+
+def step_batches(rng: np.random.Generator, n: int, batch_size: int,
+                 clip: tuple) -> list:
+    """`n` train batches on the card as the engine feeds them: uint8
+    clips, labels normal at the train split's rate, the valid mask."""
+    return [{"clips": torch.from_numpy(rng.integers(
         0, 256, (batch_size,) + clip, dtype=np.uint8)).cuda(),
         "labels": torch.from_numpy((rng.uniform(size=batch_size)
                                     < B_ANOMALY_RATE).astype(np.float32))
-        .cuda()}
+        .cuda(),
+        "valid": torch.ones(batch_size, device="cuda")} for _ in range(n)]
 
-    def step():
-        nonlocal state
-        state, _ = task.train_step(state, batch, 1)
 
-    for _ in range(3):
-        step()
+def train_step_times(rng: np.random.Generator, dtype: str,
+                     family: str = "d", k: int = 1) -> dict:
+    """The train step of a path (`step_config`) from uint8 clips already on
+    the card: CUDA events around each of SPC_CALLS calls after warm-up
+    calls, a call one eager step (k = 1) or one replay of a captured
+    graph of k steps on k copies of the batch (`train/graphs.py`), with
+    the chunk's copy into the graph's buffers; times per optimizer step,
+    device time by kernel over one call (torch.profiler)."""
+    from cvad_tpu_torch.train.graphs import StepGraph
+    from cvad_tpu_torch.train.tasks import build_task
+
+    cfg, batch_size, clip = step_config(family, dtype)
+    t0 = time.perf_counter()
+    task = build_task(cfg)
+    state = task.init_state(0, "cuda")
+    batch = step_batches(rng, 1, batch_size, clip)[0]
+    if k == 1:
+        def call():
+            nonlocal state
+            state, _ = task.train_step(state, batch, 1)
+        warm = 3
+    else:
+        chunk = {n: v.expand(k, *v.shape) for n, v in batch.items()}
+        graph = StepGraph(task, state, 1, chunk)
+
+        def call():
+            graph.replay(state, chunk, None)
+        warm = 1
+    capture_s = time.perf_counter() - t0
+    for _ in range(warm):
+        call()
     ms = []
-    for _ in range(20):
+    for _ in range(SPC_CALLS):
         start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         start.record()
-        step()
+        call()
         stop.record()
         stop.synchronize()
-        ms.append(start.elapsed_time(stop))
+        ms.append(start.elapsed_time(stop) / k)
     med = statistics.median(ms)
-    return {"family": family, "dtype": dtype, "B": batch_size,
-            "T": clip[0], "steps": len(ms),
+    breakdown = device_breakdown(call, warm=False)
+    return {"family": family, "dtype": dtype, "K": k, "B": batch_size,
+            "T": clip[0], "calls": len(ms), "steps": len(ms) * k,
             "median_ms": med, "min_ms": min(ms), "max_ms": max(ms),
             "clips_per_s": batch_size / med * 1e3,
-            "breakdown": device_breakdown(step),
+            "device_ms_per_step": breakdown["device_ms"] / k,
+            "breakdown": breakdown, "setup_s": capture_s,
             "seconds": time.perf_counter() - t0}
 
 
-def device_breakdown(fn) -> dict:
-    """Device time by kernel over one call of `fn` (warm), from
+def device_breakdown(fn, warm: bool = True) -> dict:
+    """Device time by kernel over one call of `fn` (after one warm call
+    unless `warm` is False, for a caller that warmed it), from
     torch.profiler; busy share = summed device time over the call's wall
     time (the call ends in a synchronize)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -4057,17 +4306,21 @@ def main() -> int:
     for name, launched in phase_video(state, dev, state_a).items():
         paths[name] = launched
         emit({"phase": "main_path", "path": name, "launches": launched})
+    # K train steps in one CUDA graph, every train path (main paths
+    # graph_<family>: the replays' counts; steps_per_call_fit)
+    with tempfile.TemporaryDirectory(prefix="cvad_chip_smoke_") as tmp:
+        spc_paths, spc_times = phase_steps_per_call(Path(tmp), dev["card"])
+    for name, launched in spc_paths.items():
+        paths[name] = launched
+        emit({"phase": "main_path", "path": name, "launches": launched})
 
-    train_times = [train_step_times(rng, "float32"),
-                   train_step_times(rng, "bfloat16"),
-                   train_step_times(rng, "float32", "b"),
-                   train_step_times(rng, "bfloat16", "b"),
-                   train_step_times(rng, "float32", "d64"),
-                   train_step_times(rng, "bfloat16", "d64"),
-                   train_step_times(rng, "float32", "d64_k1"),
-                   train_step_times(rng, "bfloat16", "d64_k1"),
-                   train_step_times(rng, "float32", "b_attn"),
-                   train_step_times(rng, "bfloat16", "b_attn")]
+    # the eager rows of phase steps_per_call, and the K1 route at T=64
+    eager = {(t["family"], t["dtype"]): t for t in spc_times if t["K"] == 1}
+    train_times = [eager[(f, dt)] for f in ("d", "b", "d64")
+                   for dt in ("float32", "bfloat16")]
+    train_times += [train_step_times(rng, "float32", "d64_k1"),
+                    train_step_times(rng, "bfloat16", "d64_k1")]
+    train_times += [eager[("b_attn", dt)] for dt in ("float32", "bfloat16")]
     spent = {}  # seconds of each timing block
 
     def timed(name: str, fn, *args):
@@ -4096,7 +4349,8 @@ def main() -> int:
                    "dtype": "bfloat16", "input": "uint8",
                    "seconds": bulk_s,
                    "clips_per_s": BULK_CLIPS / statistics.median(bulk_s)},
-          "train_step": train_times, "pairwise_l1": pair_t,
+          "train_step": train_times, "steps_per_call": spc_times,
+          "pairwise_l1": pair_t,
           "tfold_conv1_backward_plain": k1_bwd, "memory_min_cosine": mem_t,
           "s2d": s2d_t, "flash_attention": flash_t, "seconds": spent,
           "total_s": time.perf_counter() - t_start})

@@ -2,6 +2,7 @@
 
     python -m cvad_tpu_torch.cli train --preset avenue_improved \\
         --epochs 80 --out results [--n-synthetic 256] [--resume] \\
+        [--profile-dir TRACE_DIR] \\
         [--dataset ucsd_ped2 --data-root TREE] [--set SEC.KEY=VAL ...] \\
         [--device cuda]
     python -m cvad_tpu_torch.cli train --preset memory_ae --out results_b
@@ -25,7 +26,8 @@ family_a_anchor), on synthetic clips
 or, with ``--dataset`` and ``--data-root``, on a frame-folder tree: it
 writes ``config.json``, the history, ``metrics.jsonl`` and the checkpoints
 under ``--out``; ``--resume`` continues from the newest checkpoint there
-(an intra-epoch 'mid' one included).  A trained
+(an intra-epoch 'mid' one included); ``--profile-dir`` writes a
+`torch.profiler` trace of one unrecorded epoch 0 before the run.  A trained
 ``checkpoints/best/model.pth`` is a reference-format ``.pth`` that ``serve``
 reads.  ``serve`` is `cmd_serve`: the HTTP scoring endpoint of
 `cvad_tpu_torch.evaluation.http_service` over a family-D or family-B
@@ -118,6 +120,15 @@ def cmd_train(args) -> int:
     train_loader, eval_loader = make_loaders(cfg, n_synthetic=args.n_synthetic)
     if args.resume:
         print(json.dumps({"resumed_from": trainer.restore()}))
+    if args.profile_dir:
+        # one unrecorded epoch 0 under the profiler before the run, as
+        # cvad_tpu's train does (it trains the state it profiles)
+        from cvad_tpu_torch.runtime.metrics import profile_trace
+
+        if trainer.state is None:  # --resume keeps the restored state
+            trainer.init_state()
+        with profile_trace(args.profile_dir, trainer.device):
+            trainer.train_epoch(train_loader, epoch=0, record=False)
     history = trainer.fit(train_loader, eval_loader)
     print(json.dumps({"final_loss": history["train_losses"][-1],
                       "epochs": len(history["epochs"]),
@@ -317,6 +328,9 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--epochs", type=int, default=None)
     t.add_argument("--out", default=None)
     t.add_argument("--n-synthetic", type=int, default=256)
+    t.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler Chrome trace of one "
+                        "unrecorded epoch before the run")
     t.add_argument("--resume", action="store_true",
                    help="continue from the latest checkpoint in out_dir "
                         "(intra-epoch 'mid' checkpoints included)")

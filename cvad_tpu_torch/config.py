@@ -13,14 +13,7 @@ gray from ``channels == 1``, as `cvad_tpu`'s datasets do),
 XLA conv (the port runs ``F.conv3d``), `FamilyAConfig.frame_hw`, which
 nothing reads, and
 `TrainConfig.normal_only`, which no code of `cvad_tpu` reads (family B's
-step trains on the normal clips).  Knobs of
-`TrainConfig` that have no port yet are carried and refused where they are
-read (`Trainer`), so that setting one never silently runs something else:
-
-- ``steps_per_call > 1`` (K steps per call): ROADMAP Queue 1 item 5;
-- ``device_cache='on'`` (the device clip cache): ROADMAP Queue 1 item 15;
-  ``'auto'`` resolves to off.
-
+step trains on the normal clips).
 `ParallelConfig` (the device mesh, ROADMAP Queue 1 item 14) is not
 carried.
 Configs are frozen dataclasses that write JSON as `cvad_tpu`'s do.
@@ -294,14 +287,28 @@ class TrainConfig(_Base):
     reload_best: bool = False
     out_dir: str = "results"
     history_name: str = "improved_training_history.json"
-    # K train steps per call: only 1 is ported (ROADMAP Queue 1 item 5)
+    # K train steps per call: on CUDA one captured graph replays K steps
+    # (train/graphs.py), on the CPU they run as a plain loop
     steps_per_call: int = 1
     # >0: rolling 'mid' checkpoint every N steps; restore resumes the
     # interrupted epoch at the exact batch
     save_every_steps: int = 0
-    # device clip cache: 'auto' resolves to off, 'on' is not ported (ROADMAP
-    # Queue 1 item 15)
+    # device-resident clip cache (data/device_cache.py): 'auto' uses it
+    # where the split is eligible and fits `device_cache_hbm_frac` of the
+    # device's memory, 'on' demands it, 'off' never uses it
     device_cache: str = "auto"
+    device_cache_hbm_frac: float = 0.5
+
+    def __post_init__(self):
+        if self.steps_per_call < 1:
+            raise ValueError(f"train.steps_per_call={self.steps_per_call}; "
+                             "at least 1")
+        if self.device_cache not in ("auto", "on", "off"):
+            raise ValueError(f"unknown train.device_cache "
+                             f"{self.device_cache!r}; auto, on or off")
+        if not 0 < self.device_cache_hbm_frac <= 1:
+            raise ValueError("train.device_cache_hbm_frac="
+                             f"{self.device_cache_hbm_frac}; in (0, 1]")
 
 
 @dataclass(frozen=True)

@@ -1,27 +1,35 @@
-"""Batching host feed.
+"""Batching host feed and its copy to the device.
 
-Port of `cvad_tpu/data/batcher.py::BatchLoader` (:20-175): the same
+Port of `cvad_tpu/data/batcher.py`: `BatchLoader` (:20-175) with the same
 ``default_rng(seed + epoch)`` shuffle, ``set_epoch``, ``iter_from``,
-``sample_batch`` and uint8 transfer, so the batch order is identical to
-`cvad_tpu`'s.  A producer thread collates batches into a bounded queue.
-`DevicePrefetcher` (pinned staging on a side stream) is not ported yet
-(ROADMAP Queue 1 item 15): the trainer copies each batch with a plain
-``.to(device)``.  Before collating a batch it calls the dataset's
-``warm_frames`` where it has one (the frame-folder datasets: one threaded
-native decode of every frame the batch still misses), and
+``sample_batch``, ``epoch_index_batches`` (the device clip cache's batch
+composition) and uint8 transfer, so the batch order is identical to
+`cvad_tpu`'s; and `DevicePrefetcher` (:178-219).  A producer thread
+collates batches into a bounded queue.  Before collating a batch it calls
+the dataset's ``warm_frames`` where it has one (the frame-folder datasets:
+one threaded native decode of every frame the batch still misses), and
 ``torch_layout`` collates (B, C, T, H, W) for the reference-layout adapter
-(`data/datasets.py::create_avenue_dataloaders`).  The knobs of the
-multi-host path (``max_batches``) and the device clip cache
-(``epoch_index_batches``) wait for their ports.
+(`data/datasets.py::create_avenue_dataloaders`).  The multi-host knob
+(``max_batches``) waits for the mesh (ROADMAP Queue 1 item 14).
 """
 
 from __future__ import annotations
 
 import queue
 import threading
-from typing import Dict, Iterator
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, Iterable, Iterator, List
 
 import numpy as np
+import torch
+
+
+def with_valid(batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """`batch` with the all-ones ``"valid"`` loss mask that `cvad_tpu`'s
+    ``pad_with_valid`` attaches to every batch the engine feeds (on one
+    device nothing is padded)."""
+    n = len(next(iter(batch.values())))
+    return {**batch, "valid": np.ones(n, np.float32)}
 
 
 class BatchLoader:
@@ -104,6 +112,14 @@ class BatchLoader:
         exactly (torch ``DistributedSampler.set_epoch`` analog)."""
         self._epoch = epoch - 1
 
+    def epoch_index_batches(self, epoch: int) -> List[np.ndarray]:
+        """The dataset indices of each of `epoch`'s batches, advancing the
+        shuffle epoch as iterating would: the composition the device clip
+        cache (`data/device_cache.py`) gathers on the device."""
+        self.set_epoch(epoch)
+        self._epoch += 1
+        return list(self._batch_indices())
+
     def iter_from(self, skip: int) -> Iterator[Dict[str, np.ndarray]]:
         """This epoch's iterator starting at batch index ``skip`` — identical
         shuffle, skipped batches never decoded (mid-epoch resume)."""
@@ -163,3 +179,71 @@ class BatchLoader:
                 cancel.set()  # normal end OR abandoned mid-epoch (gen.close)
 
         return gen()
+
+
+class DevicePrefetcher:
+    """Copy host batch k+1 to the device while batch k computes.
+
+    On CUDA a worker thread draws the next host batch and stages it in
+    pinned memory, the copy runs on a side stream (``non_blocking``), and
+    the consumer's stream waits on the copy's event before the batch is
+    handed out.  Each tensor is ``record_stream``-ed on the consumer's
+    stream, so its memory is not reused before the work queued there has
+    read it.  A pageable copy would instead block the host until the card
+    had finished everything queued before it.  On the CPU each batch is a
+    plain ``.to(device)``.
+    """
+
+    def __init__(self, host_batches: Iterable[Dict[str, np.ndarray]],
+                 device):
+        self.host_batches = host_batches
+        self.device = torch.device(device)
+
+    @staticmethod
+    def _tensors(batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        return {k: torch.from_numpy(np.ascontiguousarray(v))
+                for k, v in batch.items()}
+
+    def __iter__(self) -> Iterator[Dict[str, torch.Tensor]]:
+        if self.device.type != "cuda":
+            for batch in self.host_batches:
+                yield {k: v.to(self.device)
+                       for k, v in self._tensors(batch).items()}
+            return
+        side = torch.cuda.Stream(self.device)
+        it = iter(self.host_batches)
+        done = object()
+
+        def stage():
+            batch = next(it, done)
+            if batch is done:
+                return done
+            return {k: v.pin_memory() for k, v in
+                    self._tensors(batch).items()}
+
+        pending = None
+        with ThreadPoolExecutor(max_workers=1) as pool:
+            staged = pool.submit(stage)
+            while True:
+                host = staged.result()
+                if host is done:
+                    break
+                staged = pool.submit(stage)  # the next batch, meanwhile
+                with torch.cuda.stream(side):
+                    dev = {k: v.to(self.device, non_blocking=True)
+                           for k, v in host.items()}
+                    copied = torch.cuda.Event()
+                    copied.record(side)
+                if pending is not None:
+                    yield self._ready(*pending)
+                pending = (dev, copied)
+        if pending is not None:
+            yield self._ready(*pending)
+
+    def _ready(self, batch: Dict[str, torch.Tensor], copied
+               ) -> Dict[str, torch.Tensor]:
+        stream = torch.cuda.current_stream(self.device)
+        stream.wait_event(copied)
+        for t in batch.values():
+            t.record_stream(stream)
+        return batch

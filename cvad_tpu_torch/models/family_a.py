@@ -165,10 +165,12 @@ class MaskedPedestrianDetector(nn.Module):
 
 def fallback_slot0(boxes: torch.Tensor, valid: torch.Tensor, box
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Frames where no slot is valid get `box` in slot 0, made valid."""
+    """Frames where no slot is valid get `box` in slot 0, made valid.  The
+    box's coordinates enter as scalars: a tensor made from them would be a
+    host-to-device copy, which a captured CUDA graph refuses."""
     none = ~valid.any(dim=-1)  # (B, T)
-    fill = torch.tensor(box, dtype=boxes.dtype, device=boxes.device)
-    slot0 = torch.where(none[..., None], fill, boxes[..., 0, :])
+    slot0 = torch.stack([torch.where(none, v, boxes[..., 0, j])
+                         for j, v in enumerate(box)], dim=-1)
     boxes = torch.cat([slot0[..., None, :], boxes[..., 1:, :]], dim=-2)
     valid = torch.cat([(valid[..., 0] | none)[..., None], valid[..., 1:]],
                       dim=-1)

@@ -140,9 +140,12 @@ class DifferentiableCausalDiscovery(nn.Module):
 
 
 def acyclicity_constraint(adj: torch.Tensor) -> torch.Tensor:
-    """tr((batch-mean adjacency)^2), the stabilised NOTEARS surrogate."""
+    """tr((batch-mean adjacency)^2), the stabilised NOTEARS surrogate.  The
+    diagonal's sum, not ``torch.trace``: trace's backward fills the
+    diagonal with ``index_fill_`` of a tensor value, a host read that a
+    captured CUDA graph refuses."""
     m = adj.mean(dim=0)
-    return torch.trace(m @ m)
+    return torch.diagonal(m @ m).sum()
 
 
 class CausalAnomalyDetector(nn.Module):

@@ -75,7 +75,9 @@ def improved_loss(anomaly_scores: torch.Tensor, causal_adj: torch.Tensor,
                         cfg.focal_gamma, valid=valid)
 
     mean_adj = (causal_adj * v[:, None, None]).sum(0) / n_valid
-    acyclicity = torch.trace(mean_adj @ mean_adj)
+    # the diagonal's sum, not torch.trace, whose backward reads its
+    # gradient on the host (no CUDA graph can hold that)
+    acyclicity = torch.diagonal(mean_adj @ mean_adj).sum()
 
     edges = (causal_adj > cfg.edge_threshold).float()
     per_cell = causal_adj.shape[1] * causal_adj.shape[2]

@@ -1,16 +1,20 @@
 """Structured metric stream and step timing.
 
-Port of `cvad_tpu/runtime/metrics.py` (`MetricLogger`, `StepTimer`): an
-append-only JSONL stream with a console echo, and host-clock step timing.
-The JAX profiler hook (`profile_trace`, ``--profile-dir``) is not ported.
+Port of `cvad_tpu/runtime/metrics.py` (`MetricLogger`, `StepTimer`,
+`profile_trace`): an append-only JSONL stream with a console echo,
+host-clock step timing, and a `torch.profiler` trace (``train
+--profile-dir``) in place of `jax.profiler`'s.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import time
 from pathlib import Path
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Iterator, Optional
+
+import torch
 
 from cvad_tpu_torch.utils.json_utils import convert_to_json_serializable
 
@@ -60,3 +64,23 @@ class StepTimer:
                if rate > 0 and self.total_steps else 0.0)
         return {"step_time_s": dt, "elapsed_s": elapsed, "steps_per_s": rate,
                 "eta_s": eta}
+
+
+TRACE_NAME = "trace.json"
+
+
+@contextlib.contextmanager
+def profile_trace(log_dir: str, device=None) -> Iterator[Any]:
+    """Profile the block with `torch.profiler` and write a Chrome trace to
+    ``log_dir/trace.json``: CPU activity, and CUDA activity where `device`
+    is a CUDA device."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if device is not None and torch.device(device).type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        yield prof
+    out = Path(log_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(out / TRACE_NAME))

@@ -19,15 +19,17 @@ train step is one device-side select.  It keeps optax's order of arithmetic:
   adam with wd > 0: g + wd p before the moments (coupled L2);
 - the new parameters are p + u.
 
-The learning rate is a float32 tensor in the state (`set_lr` replaces it
-between epochs without a host sync); `HostScheduler` is the same plain
+The learning rate is a float32 tensor in the state.  `set_lr` writes it in
+place between epochs, without a host sync: a CUDA graph of K train steps
+(`train/graphs.py`) reads the tensors it was captured with at every
+replay, so a new tensor would go unseen.  `HostScheduler` is the same plain
 Python as `cvad_tpu`'s.
 """
 
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass, replace
+from dataclasses import dataclass
 from typing import Iterable, List, Optional, Sequence, Tuple
 
 import torch
@@ -146,8 +148,10 @@ def get_lr(state: OptState) -> float:
 
 
 def set_lr(state: OptState, lr: float) -> OptState:
-    """A state with the learning rate replaced (a device fill, no sync)."""
-    return replace(state, lr=torch.full_like(state.lr, lr))
+    """`state` with its learning rate set to `lr` in place (a device fill,
+    no sync), so that a captured train-step graph reads the new value."""
+    state.lr.fill_(lr)
+    return state
 
 
 class HostScheduler:

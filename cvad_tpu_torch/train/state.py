@@ -5,7 +5,14 @@ threaded through a donated jitted step; here `TrainState` holds the
 `nn.Module` whose parameters the train step updates in place, the
 optimizer's `OptState` over the flat parameter vector, and ``step``, a host
 int: every step advances it by one, skipped or not, so it never needs a
-device read.  `cvad_tpu` keeps family B's BatchNorm statistics and memory
+device read (a replay of K captured steps advances it by K).
+
+Every device tensor of the state is written in place: the parameters and
+buffers by the step and by `load_state_dict`, the moments, Adam's count and
+the learning rate too (`train/tasks.py::_apply_updates`,
+`train/optim.py::set_lr`).  A CUDA graph of K train steps
+(`train/graphs.py`) reads and writes the addresses it was captured with,
+so a restore or an lr change between replays must land in those tensors.  `cvad_tpu` keeps family B's BatchNorm statistics and memory
 bank in the state (``batch_stats``, ``extra``); here they are buffers of
 the model (``running_mean``/``running_var``, ``normal_memory``,
 ``memory_ptr``, ``memory_fill``), so ``state_dict`` and
@@ -52,13 +59,14 @@ class TrainState:
                               "count": o.count.cpu(), "lr": o.lr.cpu()},
                 "step": int(self.step)}
 
+    @torch.no_grad()
     def load_state_dict(self, d: Mapping) -> None:
-        """Inverse of `state_dict`, onto this state's device."""
+        """Inverse of `state_dict`: copied into this state's tensors, on
+        their device, so that a captured graph sees the restored state."""
         self.model.load_state_dict(d["model_state_dict"], strict=True)
-        dev = self.opt_state.mu.device
         o = d["optimizer"]
-        self.opt_state = OptState(mu=o["mu"], nu=o["nu"], count=o["count"],
-                                  lr=o["lr"]).to(dev)
+        for name in ("mu", "nu", "count", "lr"):
+            getattr(self.opt_state, name).copy_(o[name])
         self.step = int(d["step"])
 
 

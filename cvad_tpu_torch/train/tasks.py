@@ -24,7 +24,9 @@ keys from ``fold_in(rng, step)``, which is stateless, so a resumed run
 replays them.  Here each step seeds a fresh `torch.Generator` on the
 device from (seed, step) (`step_seed`) and draws the pseudo-labels, the
 dropout masks and family A's VAE noise from it; no generator state is
-carried between steps.  The two frameworks draw different bits from the
+carried between steps.  A captured graph of K steps gives each step slot
+its own generator, registered with the graph and seeded anew before each
+replay with the seed an eager step would take (`train/graphs.py`).  The two frameworks draw different bits from the
 same seed: tests set dropout to 0, pass ``pseudo_targets`` and put
 `cvad_tpu`'s VAE draw into `models/family_a.py::vae_noise`.
 
@@ -38,7 +40,8 @@ default, False.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Mapping, Sequence, Tuple
+from typing import (Callable, Dict, List, Mapping, Optional, Sequence,
+                    Tuple)
 
 import torch
 from torch import nn
@@ -55,8 +58,8 @@ from cvad_tpu_torch.models.layers import MaskedBatchNorm
 from cvad_tpu_torch.ops.losses import (binary_cross_entropy, family_a_loss,
                                        improved_loss, pseudo_labels)
 from cvad_tpu_torch.runtime.device import resolve_device
-from cvad_tpu_torch.train.optim import (OptState, Optimizer, build_optimizer,
-                                        flatten, global_norm, unflatten)
+from cvad_tpu_torch.train.optim import (Optimizer, build_optimizer, flatten,
+                                        global_norm, unflatten)
 from cvad_tpu_torch.train.state import TrainState, trainable
 
 
@@ -125,20 +128,21 @@ def _apply_updates(state: TrainState, tx: Optimizer,
     """Clip + optimizer update under the NaN guard: a non-finite loss or
     raw-gradient norm leaves the parameters, both moments and Adam's count
     untouched (one device-side select, no host branch); ``step`` advances
-    either way."""
+    either way.  Every tensor is written in place, so that a captured graph
+    of K steps (`train/graphs.py`) reads at each replay what its last
+    replay wrote."""
     params = state.params()
     p = flatten(params)
     g = flatten(grads)
     norm = global_norm(g)
-    updates, new = tx.update(g, state.opt_state, p, norm)
+    opt = state.opt_state
+    updates, new = tx.update(g, opt, p, norm)
     ok = torch.isfinite(loss) & torch.isfinite(norm)
-    old = state.opt_state
     torch._foreach_copy_(params, unflatten(torch.where(ok, p + updates, p),
                                            params))
-    state.opt_state = OptState(mu=torch.where(ok, new.mu, old.mu),
-                               nu=torch.where(ok, new.nu, old.nu),
-                               count=torch.where(ok, new.count, old.count),
-                               lr=old.lr)
+    for name in ("mu", "nu", "count"):
+        old = getattr(opt, name)
+        old.copy_(torch.where(ok, getattr(new, name), old))
     state.step += 1
     return state
 
@@ -161,13 +165,17 @@ def _family_d_task(cfg: ExperimentConfig) -> Task:
         return _new_state(model, tx, device)
 
     def train_step(state: TrainState, batch: Mapping[str, torch.Tensor],
-                   seed: int) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+                   seed: int, gen: Optional[torch.Generator] = None
+                   ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         """One step; updates `state` in place and returns it with the
-        step's metrics as 0-d device tensors."""
+        step's metrics as 0-d device tensors.  `gen`, where given, is the
+        step's generator already seeded with ``step_seed(seed,
+        state.step)`` (a captured graph's slot, `train/graphs.py`)."""
         model = state.model
         clips = prep_clips(batch["clips"], clamp)
         valid = batch.get("valid")
-        gen = _generator(clips.device, seed, state.step)
+        if gen is None:
+            gen = _generator(clips.device, seed, state.step)
         if "pseudo_targets" in batch:
             targets = batch["pseudo_targets"]
         else:
@@ -282,12 +290,14 @@ def _family_b_task(cfg: ExperimentConfig) -> Task:
         return _new_state(model, tx, device)
 
     def train_step(state: TrainState, batch: Mapping[str, torch.Tensor],
-                   seed: int) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+                   seed: int, gen: Optional[torch.Generator] = None
+                   ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         """One step on the normal clips; updates `state` in place (the
         parameters and Adam under the NaN guard, the BatchNorm statistics
-        and the bank whatever the guard says) and returns it with the
-        step's metrics as 0-d device tensors.  `seed` is unused: the step
-        draws nothing."""
+        and the bank whatever the guard says; the bank is copied into the
+        model's buffers) and returns it with the step's metrics as 0-d
+        device tensors.  `seed` and `gen` are unused: the step draws
+        nothing."""
         model = state.model
         x = prep_frames(batch["clips"], clamp)  # (B, T, C, H, W)
         b, t = x.shape[:2]
@@ -349,13 +359,16 @@ def _family_c_task(cfg: ExperimentConfig) -> Task:
                           device)
 
     def train_step(state: TrainState, batch: Mapping[str, torch.Tensor],
-                   seed: int) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+                   seed: int, gen: Optional[torch.Generator] = None
+                   ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         """One step of the BCE over the batch's valid clips (the
-        BatchNorm statistics over them too); updates `state` in place."""
+        BatchNorm statistics over them too); updates `state` in place.
+        `gen` as in family D's step."""
         model = state.model
         clips = prep_clips(batch["clips"], clamp)
         valid = batch.get("valid")
-        gen = _generator(clips.device, seed, state.step)
+        if gen is None:
+            gen = _generator(clips.device, seed, state.step)
         with card_numerics():
             scores = model.train()(clips, generator=gen, valid=valid)
             loss = _masked_mean_1d(binary_cross_entropy(
@@ -395,14 +408,16 @@ def _family_a_task(cfg: ExperimentConfig) -> Task:
                                                  seed=seed), tx, device)
 
     def train_step(state: TrainState, batch: Mapping[str, torch.Tensor],
-                   seed: int) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+                   seed: int, gen: Optional[torch.Generator] = None
+                   ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         """One step of `family_a_loss`; updates `state` in place (the
         trainable parameters and Adam under the NaN guard, the BatchNorm
-        statistics whatever it says)."""
+        statistics whatever it says).  `gen` as in family D's step."""
         model = state.model
         frames = prep_frames(batch["clips"], clamp)  # (B, T, C, H, W)
         valid = batch.get("valid")
-        gen = _generator(frames.device, seed, state.step)
+        if gen is None:
+            gen = _generator(frames.device, seed, state.step)
         with card_numerics():
             out = model.train()(frames, generator=gen, valid=valid)
             loss, comps = family_a_loss(out, batch["labels"], loss_cfg,

@@ -180,6 +180,9 @@ def test_train_forward_matches_jax(monkeypatch):
         want, mutated = jax.jit(lambda v, x, key: _jax_model(cfg).apply(
             v, x, rng=key, train=True, deterministic=False,
             mutable=["batch_stats"]))(v, jnp.asarray(x), key)
+    # `v` may alias the port model's buffers, which its train forward
+    # below updates in place: JAX must have read them first
+    jax.block_until_ready((want, mutated))
     monkeypatch.setattr(family_a, "vae_noise",
                         lambda shape, dtype, device, gen:
                         torch.from_numpy(noise).to(device, dtype))

@@ -165,6 +165,9 @@ def test_forward_matches_jax():
             want, mutated = jm.apply(v, jnp.asarray(x), train=True,
                                      deterministic=False,
                                      mutable=["batch_stats"])
+    # `v` may alias the model's buffers, which its train forward below
+    # updates in place: JAX must have read them first
+    jax.block_until_ready((want, mutated))
     with torch.no_grad():
         got = model.train()(xt).numpy()
     np.testing.assert_allclose(got, np.asarray(want), rtol=0, atol=1e-5)

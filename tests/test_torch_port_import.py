@@ -1,6 +1,7 @@
 """The PyTorch port imports without JAX and loads nothing of `cvad_tpu`
-(every module, families C and A included); its entry points default to
-CUDA and raise without it."""
+(every module, families C and A, the device clip cache and the K-step
+graphs included); its entry points default to CUDA and raise without
+it."""
 
 import json
 import os
@@ -58,6 +59,7 @@ def test_imports_without_jax_or_cvad_tpu():
                 "cvad_tpu_torch.data.synthetic",
                 "cvad_tpu_torch.data.datasets",
                 "cvad_tpu_torch.data.batcher",
+                "cvad_tpu_torch.data.device_cache",
                 "cvad_tpu_torch.data.frames",
                 "cvad_tpu_torch.data.labels",
                 "cvad_tpu_torch.data.ground_truth",
@@ -66,7 +68,9 @@ def test_imports_without_jax_or_cvad_tpu():
                 "cvad_tpu_torch.evaluation.streaming",
                 "cvad_tpu_torch.evaluation.frame_auc",
                 "cvad_tpu_torch.train.optim", "cvad_tpu_torch.train.state",
-                "cvad_tpu_torch.train.tasks", "cvad_tpu_torch.train.engine"):
+                "cvad_tpu_torch.train.tasks", "cvad_tpu_torch.train.engine",
+                "cvad_tpu_torch.train.graphs",
+                "cvad_tpu_torch.runtime.device"):
         assert mod in res["imported"]
     bad = [m for m in res["loaded"]
            if m.split(".")[0] in ("cvad_tpu", "jax", "jaxlib", "flax",

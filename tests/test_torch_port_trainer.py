@@ -128,10 +128,20 @@ def test_build_dataset_refuses_folder_datasets():
 
 
 def test_unported_knobs_raise(tmp_path):
-    for train, item in ((dict(steps_per_call=2), "item 5"),
-                        (dict(device_cache="on"), "item 15")):
-        with pytest.raises(NotImplementedError, match=item):
+    """K steps per call and the device cache are ported
+    (tests/test_torch_port_steps.py, tests/test_torch_port_cache.py): a
+    K below 1, an unknown cache mode and a memory share outside (0, 1]
+    raise; ``Trainer`` takes K > 1 and 'on'.  The bbox_viz preset (ROADMAP
+    Queue 1 item 11) is still refused."""
+    for train, what in ((dict(steps_per_call=0), "steps_per_call"),
+                        (dict(device_cache="always"), "device_cache"),
+                        (dict(device_cache_hbm_frac=0.0), "hbm_frac"),
+                        (dict(device_cache_hbm_frac=1.5), "hbm_frac")):
+        with pytest.raises(ValueError, match=what):
             Trainer(_cfg(tmp_path, 1, **train), device="cpu")
+    trainer = Trainer(_cfg(tmp_path, 1, steps_per_call=2, device_cache="on"),
+                      device="cpu")
+    assert trainer.cfg.train.steps_per_call == 2
     with pytest.raises(NotImplementedError, match="item 11"):
         preset("bbox_viz")
 
