@@ -187,6 +187,31 @@ Phases:
   video    (also) video_score_a: family A's best checkpoint from phase
            family_a scores the tree (16-frame windows at 240x360, stride 8,
            21 a video) with no port kernel launched, the CPU on 2 videos
+  family_e  family E (bbox_viz) at its full default width (517,505
+           parameters, seeded), through a reference-format .pth loaded
+           with strict=True: 128 clips (8x64x64x3) on the card and on the
+           CPU, TF32 off: scores and adjacency within 1e-5, features within
+           1e-5 of their largest; a second card call bit-identical; then
+           make_score_fn('e') through VideoScorer over phase video's tree
+           (path video-e, every kernel count 0) and on the CPU over every
+           video: windows within 1e-5, every per-video frame AUC equal
+  report   `cli report` end to end (path report): the port's writer puts
+           phase video's sizes in RGB PPM (12 videos of 180 240x360
+           frames, ~560 MB) in a temporary directory; the CPU scores every
+           window with the fixture, and the threshold keeps the top k
+           (k >= 5) where no window lies within 1e-4 of it and no two kept
+           within 2e-6; `report` with the fixture on the card (the counts
+           set to 0 just before and read just after: K1 at least once a
+           scored batch, every other 0) and on the CPU, detector 'auto'
+           (offline: the motion detector): the same clip ids, videos,
+           frame ranges, video distribution and backend ('motion'),
+           scores within 1e-5, each clip's _info.json the same; the first
+           clip's frames drawn by the numpy path with each run's score
+           equal; the HTML holds a row a clip and links every file listed;
+           whether matplotlib and cv2 are present and how many PNG, MP4
+           and JSON files were written (no PNG without matplotlib, no MP4
+           without cv2); the phase's seconds (tree, CPU pre-pass, each
+           report) beside the card's name and power limit
   steps_per_call  K train steps in one captured CUDA graph
            (`train/graphs.py`) on every train path at full width: d (T=8,
            B=256; K1, K2), d64 (T=64, B=128, conv1 on K5; K5, K2), b (LSTM,
@@ -256,9 +281,9 @@ call.
 Kernel launch counts are set to 0 just before each main path (serve + bulk,
 long_score, long_train, train, family_b_train, family_b_serve, attn_train,
 family_c_train, family_a_train, video_score_d, stream_d, video_score_b,
-video_score_d64, video_score_a, graph_<path> (after the capture, over the
-replays), steps_per_call_fit) and read just after it; families C and A
-must read 0 for every kernel.  The last lines are the kernels summary, the card's
+video_score_d64, video_score_a, video-e, report, graph_<path> (after the
+capture, over the replays), steps_per_call_fit) and read just after it;
+families C, A and E must read 0 for every kernel.  The last lines are the kernels summary, the card's
 nvidia-smi name and power limit, and {"ok": true, "device": {...}}.
 """
 
@@ -378,10 +403,25 @@ VIDEO_CPU_VIDEOS, VIDEO_DECODED = 2, 8
 # tolerances: card vs CPU per window and frame (f32), per-video frame AUC,
 # and the stream (B=1) against the batched scorer (B<=64) on the card
 VIDEO_CPU_TOL, VIDEO_AUC_TOL, STREAM_TOL = 1e-4, 1e-3, 1e-5
+# phase family_e: the bbox_viz model at its full default width from its own
+# seed, E_CLIPS clips card vs CPU within E_TOL (features within E_TOL of
+# their largest magnitude), TF32 off; then every video of phase video's
+# tree, the card's per-video frame AUCs equal to the CPU's
+E_SEED, E_CLIPS, E_TOL = 15, 128, 1e-5
+# phase report: phase video's sizes in RGB PPM (12 videos of 180 240x360
+# frames), its own seed; `cli report` with the fixture on the card and on
+# the CPU, at a threshold between two CPU window scores that keeps
+# REPORT_MIN_CLIPS to REPORT_MAX_CLIPS clips, no window within
+# REPORT_MARGIN of it and no two kept scores within REPORT_TIE of each
+# other (their order gives the clip ids; the fixture's windows card vs CPU
+# differ by up to 5.3e-7, PR 12); scores within REPORT_TOL
+REPORT_SEED, REPORT_MARGIN, REPORT_TIE, REPORT_TOL = 16, 1e-4, 2e-6, 1e-5
+REPORT_MIN_CLIPS, REPORT_MAX_CLIPS = 5, 40
 # family C (phase family_c): the mini3d preset's clip and batch; its fit
 # on synthetic clips (2 epochs, and 1 + a resumed 1)
 C_CLIP, C_BATCH, C_TRAIN_CLIPS, C_EVAL_CLIPS = (8, 64, 64, 1), 8, 256, 64
 C_PARAMS = 18337
+E_PARAMS = 517505
 # family A (phase family_a) at full width: the causal_pipeline preset's
 # clip (16 gray frames of 240x360) and batch; its fit (2 epochs, and 1 + a
 # resumed 1, the cosine schedule's length fixed at 2)
@@ -2915,8 +2955,242 @@ def phase_video(state: dict, dev: dict, state_a: dict) -> dict:
             if name == "video_score_d":
                 paths["stream_d"] = stream_video(
                     d_fn, cfg_d, videos[0], results[videos[0][0]], card)
+        paths["video-e"] = phase_family_e(videos, labels, card)
     emit({"phase": "video_vs_cpu", "paths": vs_cpu, "card": card})
     return paths
+
+
+def phase_family_e(videos: list, labels: dict, card: str) -> dict:
+    """Family E (see the module docstring) on phase video's tree; returns
+    the launch counts of path video-e."""
+    from cvad_tpu_torch.config import DataConfig
+    from cvad_tpu_torch.evaluation.scoring import make_score_fn
+    from cvad_tpu_torch.models import BBoxVizDetector
+    from cvad_tpu_torch.runtime.checkpoint import load_torch_state_dict
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="cvad_family_e_") as tmp:
+        path = Path(tmp) / "bbox_viz.pth"  # the reference's .pth format
+        torch.save({"model_state_dict": BBoxVizDetector(
+            seed=E_SEED).state_dict()}, path)
+        state = load_torch_state_dict(str(path))
+    params = sum(v.numel() for v in state.values())
+    models = {}
+    for dev in ("cuda", "cpu"):
+        m = BBoxVizDetector()
+        m.load_state_dict(state, strict=True)
+        models[dev] = m.to(dev).eval()
+    clips = np.random.default_rng(E_SEED).uniform(
+        0, 1, (E_CLIPS, 8, 64, 64, 3)).astype(np.float32)
+
+    def forward(dev: str) -> list:
+        x = torch.from_numpy(clips).to(dev).permute(0, 4, 1, 2, 3)
+        with torch.inference_mode(), no_tf32():
+            return [o.cpu().numpy() for o in models[dev](x.contiguous())]
+
+    card_out, again, cpu_out = forward("cuda"), forward("cuda"), forward("cpu")
+    errs = {name: float(np.abs(a - b).max()) for name, a, b in zip(
+        ("score", "adjacency", "features"), card_out, cpu_out)}
+    feat_max = float(np.abs(cpu_out[2]).max())
+    model_s = time.perf_counter() - t0
+    emit({"phase": "family_e", "part": "model", "params": params,
+          "clips": E_CLIPS, "max_abs_err": errs, "features_max": feat_max,
+          "bit_identical_repeat": all(np.array_equal(a, b) for a, b in
+                                      zip(card_out, again)),
+          "score_mean": float(card_out[0].mean()), "seconds": model_s,
+          "card": card})
+    check(params == E_PARAMS and card_out[0].shape == (E_CLIPS,)
+          and card_out[1].shape == (E_CLIPS, 16, 16)
+          and card_out[2].shape == (E_CLIPS, 1024),
+          f"family E: {params} parameters, shapes "
+          f"{[o.shape for o in card_out]}")
+    check(all(np.isfinite(o).all() for o in card_out),
+          "family E outputs finite")
+    check(errs["score"] <= E_TOL and errs["adjacency"] <= E_TOL
+          and errs["features"] <= E_TOL * feat_max,
+          f"family E card vs CPU: {errs} (features' largest {feat_max})")
+    check(all(np.array_equal(a, b) for a, b in zip(card_out, again)),
+          "family E: a second card call is not bit-identical")
+
+    cfg = DataConfig(channels=3, clip_len=8, stride=4, frame_size=(64, 64))
+    launched, report, results = video_path(
+        "video-e", make_score_fn("e", state), cfg, videos, labels, None,
+        card)
+    cpu_report, cpu, _, _ = score_videos(
+        make_score_fn("e", state, device="cpu"), cfg, videos, labels)
+    win_err = max(float(np.abs(cpu[v]["scores"] - results[v]["scores"]).max())
+                  for v, _ in videos)
+    auc = {v: (report["per_video_auc"][v], cpu_report["per_video_auc"][v])
+           for v, _ in videos}
+    total_s = time.perf_counter() - t0
+    emit({"phase": "family_e", "part": "video_vs_cpu", "videos": len(videos),
+          "max_window_err": win_err, "per_video_auc_card_cpu": auc,
+          "frame_auc": [report["frame_auc"], cpu_report["frame_auc"]],
+          "seconds": total_s, "card": card})
+    check(win_err <= E_TOL, f"video-e windows card vs CPU: {win_err}")
+    check(all(a == b for a, b in auc.values()),
+          f"video-e per-video AUCs differ card vs CPU: {auc}")
+    check(total_s < 30, f"phase family_e took {total_s} s")
+    return launched
+
+
+def report_threshold(scores: np.ndarray) -> tuple:
+    """The threshold that keeps the top k of `scores` (k from
+    REPORT_MIN_CLIPS up) where no score lies within REPORT_MARGIN of it
+    and no two kept ones within REPORT_TIE; returns (threshold, k)."""
+    s = np.sort(scores)[::-1].astype(np.float64)
+    for k in range(REPORT_MIN_CLIPS, min(REPORT_MAX_CLIPS, len(s) - 1) + 1):
+        if (s[k - 1] - s[k] > 2 * REPORT_MARGIN
+                and np.diff(s[:k]).max() < -REPORT_TIE):
+            return float((s[k - 1] + s[k]) / 2), k
+    raise RuntimeError("chip_smoke check failed: no report threshold keeps "
+                       f"{REPORT_MIN_CLIPS}-{REPORT_MAX_CLIPS} windows apart "
+                       f"from the rest by {2 * REPORT_MARGIN}")
+
+
+def same_reports(a: Path, b: Path) -> dict:
+    """Two report directories hold the same clips (ids, videos, frame
+    ranges, the video distribution and the backend 'motion'), scores
+    within REPORT_TOL, each clip's ``_info.json`` the same way; returns
+    the largest score difference and the first report."""
+    ra, rb = (json.loads((d / "anomaly_detection_report.json").read_text())
+              for d in (a, b))
+    err = 0.0
+    check(ra["detection_backend"] == rb["detection_backend"] == "motion"
+          and ra["video_distribution"] == rb["video_distribution"]
+          and ra["total_clips_analyzed"] == rb["total_clips_analyzed"]
+          == len(ra["clips"]) == len(rb["clips"]),
+          f"reports differ: {ra['detection_backend']}, "
+          f"{ra['video_distribution']} vs {rb['detection_backend']}, "
+          f"{rb['video_distribution']}")
+    for ca, cb in zip(ra["clips"], rb["clips"]):
+        check((ca["clip_id"], ca["video_id"], ca["frame_range"])
+              == (cb["clip_id"], cb["video_id"], cb["frame_range"]),
+              f"report clips differ: {ca} vs {cb}")
+        ia, ib = ([json.loads(p.read_text()) for p in
+                   (d / ca["clip_id"]).glob("*_info.json")] for d in (a, b))
+        check(len(ia) == len(ib) == 1, f"{ca['clip_id']}: info files")
+        ia, ib = ia[0], ib[0]
+        err = max(err, abs(ca["anomaly_score"] - cb["anomaly_score"]),
+                  abs(ia.pop("anomaly_score") - ib.pop("anomaly_score")))
+        check(ia == ib, f"{ca['clip_id']}: info {ia} vs {ib}")
+    check(err <= REPORT_TOL, f"report scores differ by {err}")
+    return {"max_score_err": err, "report": ra}
+
+
+def phase_report(dev: dict) -> dict:
+    """`cli report` end to end on the card and on the CPU (see the module
+    docstring); returns the launch counts of path report."""
+    import importlib.util
+
+    from cvad_tpu_torch import cli
+    from cvad_tpu_torch.config import DataConfig
+    from cvad_tpu_torch.data.frames import scan_video_folders
+    from cvad_tpu_torch.data.synthetic import write_synthetic_video_tree
+    from cvad_tpu_torch.evaluation import bbox
+    from cvad_tpu_torch.evaluation.scoring import (ScoredClip, VideoScorer,
+                                                   make_family_d_score_fn)
+    from cvad_tpu_torch.runtime.checkpoint import load_torch_state_dict
+
+    card = dev["card"]
+    have = {m: importlib.util.find_spec(m) is not None
+            for m in ("matplotlib", "cv2")}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="cvad_report_") as tmp:
+        root = Path(tmp) / "tree"
+        write_synthetic_video_tree(
+            str(root), splits=("Test",), videos_per_split=VIDEO_VIDEOS,
+            frames_per_video=VIDEO_FRAMES, hw=VIDEO_HW, channels=3,
+            fmt="ppm", seed=REPORT_SEED)
+        write_s = time.perf_counter() - t0
+        videos = scan_video_folders(str(root / "Test"))
+        check(len(videos) == VIDEO_VIDEOS
+              and all(len(f) == VIDEO_FRAMES for _, f in videos),
+              f"the report tree holds {len(videos)} videos")
+
+        # the CPU's window scores choose the threshold
+        t1 = time.perf_counter()
+        cfg = DataConfig(channels=3, clip_len=8, stride=4,
+                         frame_size=(64, 64))
+        scorer = VideoScorer(make_family_d_score_fn(
+            load_torch_state_dict(str(CKPT)), device="cpu"), cfg)
+        scores = np.concatenate([scorer.score_video(f)["scores"]
+                                 for _, f in videos])
+        threshold, k = report_threshold(scores)
+        choose_s = time.perf_counter() - t1
+        args = [str(root / "Test"), "--checkpoint", str(CKPT),
+                "--threshold", repr(threshold), "--max-clips", str(k)]
+
+        out, seconds = {}, {}
+        for name, extra in (("cuda", []), ("cpu", ["--device", "cpu"])):
+            out[name] = Path(tmp) / f"report_{name}"
+            if name == "cuda":
+                reset_counts()
+            t1 = time.perf_counter()
+            check(cli.main(["report", *args, "--out", str(out[name]),
+                            *extra]) == 0, f"report on {name} failed")
+            seconds[name] = time.perf_counter() - t1
+            if name == "cuda":
+                launched = counts()
+        compared = same_reports(out["cuda"], out["cpu"])
+        rep = compared.pop("report")
+        check(rep["total_clips_analyzed"] == k,
+              f"report kept {rep['total_clips_analyzed']} clips, not {k}")
+
+        # the first clip's frames drawn by the numpy path with each run's
+        # score: the same decoded frames, detections and boxes
+        first = rep["clips"][0]
+        frames = dict(videos)[first["video_id"]]
+        lo, hi = first["frame_range"]
+        viz = bbox.AnomalyVisualizer(None, "motion")
+        cv2_of = bbox._cv2
+        bbox._cv2 = lambda: None
+        try:
+            drawn = [viz.annotated_frames(ScoredClip(
+                first["video_id"], lo, json.loads(
+                    (out[name] / "anomaly_detection_report.json").read_text()
+                )["clips"][0]["anomaly_score"], tuple(frames[lo:hi + 1])))
+                for name in ("cuda", "cpu")]
+        finally:
+            bbox._cv2 = cv2_of
+        persons = sum(drawn[0][1])
+        check(all(np.array_equal(a, b) for a, b in zip(drawn[0][0],
+                                                         drawn[1][0]))
+              and drawn[0][1] == drawn[1][1],
+              "the first clip's annotated frames differ between the runs")
+
+        html = (out["cuda"] / "anomaly_detection_report.html").read_text()
+        listed = [f"{c['clip_id']}/{f}" for c in rep["clips"]
+                  for f in c["files"].values() if f]
+        check(all(f"<td>{c['clip_id']}</td>" in html for c in rep["clips"])
+              and all(f'href="{f}"' in html for f in listed),
+              "the HTML report misses a clip or one of its files")
+        written = {ext: len(list(out["cuda"].rglob(f"*.{ext}")))
+                   for ext in ("png", "mp4", "json")}
+        check(have["matplotlib"] or written["png"] == 0,
+              "a PNG was written without matplotlib")
+        check(have["cv2"] or written["mp4"] == 0,
+              "an MP4 was written without cv2")
+    total_s = time.perf_counter() - t0
+    emit({"phase": "report", "videos": len(videos),
+          "frames": len(videos) * VIDEO_FRAMES, "windows": len(scores),
+          "threshold": threshold, "clips": k,
+          "score_range": [float(scores.min()), float(scores.max())],
+          "max_score_err": compared["max_score_err"],
+          "detection_backend": rep["detection_backend"],
+          "persons_in_first_clip": persons, "written": written,
+          "have": have, "links": len(listed),
+          "seconds": {"write_tree": write_s, "cpu_scores": choose_s,
+                      "report_cuda": seconds["cuda"],
+                      "report_cpu": seconds["cpu"], "total": total_s},
+          "launches": launched, "card": card})
+    batches = len(videos)  # one batch a video (44 windows, batches of 64)
+    check(launched["tfold_conv1"] >= batches
+          and all(v == 0 for key, v in launched.items()
+                  if key != "tfold_conv1"),
+          f"report launched {launched} for {batches} scored batches")
+    check(total_s < 30, f"phase report took {total_s} s")
+    return launched
 
 
 def no_dropout(model: torch.nn.Module) -> torch.nn.Module:
@@ -4303,9 +4577,14 @@ def main() -> int:
         emit({"phase": "main_path", "path": "family_a_train",
               "launches": paths["family_a_train"]})
     # main path 7: frame-folder video (each path resets the counts first)
+    # and phase family_e on the same tree (path video-e)
     for name, launched in phase_video(state, dev, state_a).items():
         paths[name] = launched
         emit({"phase": "main_path", "path": name, "launches": launched})
+    # the anomaly report on an RGB tree (resets the counts first)
+    paths["report"] = phase_report(dev)
+    emit({"phase": "main_path", "path": "report",
+          "launches": paths["report"]})
     # K train steps in one CUDA graph, every train path (main paths
     # graph_<family>: the replays' counts; steps_per_call_fit)
     with tempfile.TemporaryDirectory(prefix="cvad_chip_smoke_") as tmp:

@@ -13,21 +13,20 @@ take and that the tests hold the kernel against.
 Layout is torch's own (N, C, T, H, W) inside the models; the public scoring
 functions take (N, T, H, W, C) clips as `cvad_tpu`'s do.
 
-Ported so far (slice 1, family-D serving; slice 2, family-D training):
-  runtime     -> device selection, `.pth` loading, JAX-params and optax-state
-                 conversion, training checkpoints, history, metric log
-  ops         -> T-folded conv1 kernel (K1, differentiable), masked pairwise
-                 L1 kernel (K2, forward and backward), their build, the
-                 family-D loss
-  models      -> `CausalAnomalyDetector` (family D), dropout from a generator
-  data        -> synthetic clips, `SyntheticClipDataset`, `BatchLoader`
-  train       -> optimizer and schedulers, train state, the family-D steps,
-                 `Trainer`
-  evaluation  -> scorers, bucketed batching service, HTTP front-end, eval
-                 metrics
-  cli         -> `train`, `serve`
+Ported: every family (D, B with the LSTM or attention, C, A; E scores
+only) and every kernel (K1-K6):
+  runtime     -> device selection, `.pth` loading, carries to and from
+                 `cvad_tpu`'s variables, checkpoints, history, metrics, the
+                 device probe (`doctor`)
+  ops         -> the kernels and their plain versions, their build, losses
+  models      -> families D, B, C, A and E
+  data        -> synthetic clips, frame folders, decode, batching, the
+                 device clip cache
+  train       -> optimizer and schedulers, the tasks, `Trainer`, K steps
+                 as one CUDA graph
+  evaluation  -> scorers, video scoring and frame AUC, serving, the
+                 detectors, bbox localization and reports, plots
+  utils       -> JSON, training diagnosis, the smoke gate
+  cli         -> `train`, `eval`, `serve`, `synth`, `score`, `report`,
+                 `auc`, `plots`, `diagnose`, `smoke`, `doctor`
 """
-
-__version__ = "0.1.0"
-
-from cvad_tpu_torch import config as config  # noqa: F401

@@ -13,11 +13,19 @@
     python -m cvad_tpu_torch.cli synth --out TREE --videos 2 --frames 24 \\
         [--write-gt] [--format pgm]
     python -m cvad_tpu_torch.cli score TREE/Test [--checkpoint CKPT.pth]
+    python -m cvad_tpu_torch.cli report TREE/Test [--checkpoint CKPT.pth] \\
+        [--threshold 0.3] [--max-clips 10] [--detector auto] [--out DIR]
     python -m cvad_tpu_torch.cli auc --data-root TREE \\
-        (--torch-checkpoint CKPT.pth [--family d|b|c|a] | --out RUN \
+        (--torch-checkpoint CKPT.pth [--family d|b|c|a|e] | --out RUN \
         [--step best])
     python -m cvad_tpu_torch.cli eval --out RUN [--step latest] \\
         [--dataset ucsd_ped2 --data-root TREE]
+    python -m cvad_tpu_torch.cli plots HISTORY.json [--out PNG]
+    python -m cvad_tpu_torch.cli plots --block-correlation [--run RUN \\
+        --step latest] [--preset family_c] [--out PNG]
+    python -m cvad_tpu_torch.cli diagnose HISTORY.json
+    python -m cvad_tpu_torch.cli smoke [--data-root TREE]
+    python -m cvad_tpu_torch.cli doctor [--probe-timeout 60]
 
 ``train`` is `cvad_tpu/cli.py::cmd_train` for families D (presets
 avenue_improved, family_d), B (memory_ae, family_b), C (mini3d, family_c)
@@ -27,7 +35,8 @@ or, with ``--dataset`` and ``--data-root``, on a frame-folder tree: it
 writes ``config.json``, the history, ``metrics.jsonl`` and the checkpoints
 under ``--out``; ``--resume`` continues from the newest checkpoint there
 (an intra-epoch 'mid' one included); ``--profile-dir`` writes a
-`torch.profiler` trace of one unrecorded epoch 0 before the run.  A trained
+`torch.profiler` trace of one unrecorded epoch 0 before the run.  Family E
+(bbox_viz) scores only, as in `cvad_tpu`.  A trained
 ``checkpoints/best/model.pth`` is a reference-format ``.pth`` that ``serve``
 reads.  ``serve`` is `cmd_serve`: the HTTP scoring endpoint of
 `cvad_tpu_torch.evaluation.http_service` over a family-D or family-B
@@ -35,13 +44,23 @@ reads.  ``serve`` is `cmd_serve`: the HTTP scoring endpoint of
 dynamic request coalescing.  ``synth`` writes a UCSD-style frame-folder
 tree (`cmd_synth`); ``score`` scores every sliding window of every video
 under a folder with a family-D ``.pth`` and keeps the windows above the
-threshold (`cmd_score`); ``auc`` is the frame-level ROC-AUC against the
-tree's ground truth (`cmd_auc`) from a ``.pth`` of family D, B, C or A
-(the model config of ``--preset`` where it is that family's, else the
-family's default) or from a training run's checkpoint of any ported
-family; ``eval`` evaluates a training run's checkpoint on the test split
-(`cmd_eval`).  Everything runs on CUDA unless
-``--device cpu``.
+threshold (`cmd_score`); ``report`` does the same, then localizes people
+in each kept clip (``--detector``: auto, motion, yolov5 or opencv; the
+last two need local weights), draws score-tiered boxes and writes the
+per-clip and aggregate JSON and HTML reports (`cmd_report`; PNG grids and
+heatmaps where matplotlib is present, MP4s where cv2 is); ``auc`` is the
+frame-level ROC-AUC against the tree's ground truth (`cmd_auc`) from a
+``.pth`` of family D, B, C, A or E (the model config of ``--preset``
+where it is that family's, else the family's default) or from a training
+run's checkpoint of any trained family; ``eval`` evaluates a training
+run's checkpoint on the test split (`cmd_eval`).  ``plots`` draws a
+history's dashboard, or with ``--block-correlation`` family C's per-block
+channel correlations from a run's checkpoint or a fresh init;
+``diagnose`` reads a history for warnings; ``smoke`` is the pre-training
+gate (family C's forward on the device, and a dataset's dtypes);
+``doctor`` reports the native decoder, the optional modules and the CUDA
+devices (asked in a child process) and exits 1 when no card answers.
+Everything runs on CUDA unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -228,6 +247,30 @@ def cmd_score(args) -> int:
     return 0
 
 
+def cmd_report(args) -> int:
+    """`cmd_score`'s windows above ``--threshold``, localized and
+    annotated, with the per-clip and aggregate JSON and HTML reports under
+    ``--out`` (`evaluation/bbox.py`)."""
+    from cvad_tpu_torch.evaluation.bbox import AnomalyVisualizer
+    from cvad_tpu_torch.evaluation.scoring import (VideoScorer,
+                                                   make_family_d_score_fn)
+    from cvad_tpu_torch.runtime.checkpoint import load_torch_state_dict
+
+    cfg = DataConfig(clip_len=args.clip_len, stride=args.stride,
+                     frame_size=(args.frame_size, args.frame_size), channels=3)
+    scorer = VideoScorer(make_family_d_score_fn(
+        load_torch_state_dict(args.checkpoint), device=args.device), cfg)
+    clips = scorer.extract_anomalous_clips(args.video_root,
+                                           threshold=args.threshold,
+                                           max_clips=args.max_clips)
+    viz = AnomalyVisualizer(scorer, detector_backend=args.detector)
+    summary = viz.create_report(clips, args.out)
+    print(json.dumps({"clips": summary["total_clips_analyzed"],
+                      "report": str(Path(args.out)
+                                    / "anomaly_detection_report.html")}))
+    return 0
+
+
 def cmd_auc(args) -> int:
     """Frame-level ROC-AUC against the tree's ground truth (UCSD ``_gt``
     masks, Avenue ``.mat`` volumes, ``.npy`` vectors), scored from a
@@ -287,6 +330,127 @@ def _try_restore(trainer, step):
         return trainer.restore(step)
     except FileNotFoundError:
         return None
+
+
+def cmd_diagnose(args) -> int:
+    from cvad_tpu_torch.utils.diagnose import diagnose_training_issues
+
+    result = diagnose_training_issues(history_file=args.history)
+    print(json.dumps(result["warnings"]))
+    return 0
+
+
+def cmd_smoke(args) -> int:
+    """Pre-training gate (``minicausal_vad_complete3.py:503-561``): family
+    C's forward on the device, and with ``--data-root`` the dtypes of a
+    few of the dataset's samples."""
+    from cvad_tpu_torch.utils.diagnose import (debug_dataset_dtypes,
+                                               smoke_test_model)
+
+    result = smoke_test_model(verbose=False, device=args.device)
+    if args.data_root:
+        from cvad_tpu_torch.data.datasets import build_dataset
+
+        cfg = DataConfig(dataset=args.dataset, root=args.data_root)
+        recs = debug_dataset_dtypes(build_dataset(cfg), verbose=False)
+        result["dataset_samples"] = recs
+        result["ok"] = result["ok"] and not any(
+            r.get("float64") or "error" in r for r in recs)
+    print(json.dumps(result))
+    return 0 if result["ok"] else 1
+
+
+def cmd_plots(args) -> int:
+    if args.block_correlation:
+        return _cmd_block_correlation(args)
+    from cvad_tpu_torch.evaluation.plots import visualize_training_results
+    from cvad_tpu_torch.utils.json_utils import safe_json_load
+
+    if not args.history:
+        print("plots needs a history JSON (or --block-correlation)",
+              file=sys.stderr)
+        return 1
+    history = safe_json_load(args.history)
+    if history is None:
+        print(f"cannot read history: {args.history}", file=sys.stderr)
+        return 1
+    path = visualize_training_results(history, args.out)
+    print(path or "matplotlib unavailable")
+    return 0 if path else 1
+
+
+def _cmd_block_correlation(args) -> int:
+    """Per-block channel-correlation heatmaps of family C (the analysis
+    behind the reference's ``Figure 2025-09-04 180626.png``) from a run's
+    checkpoint (``--run``, ``--step``) or a fresh init, on the first batch
+    of the test split."""
+    from cvad_tpu_torch.data.batcher import BatchLoader
+    from cvad_tpu_torch.data.datasets import build_dataset
+    from cvad_tpu_torch.evaluation.block_correlation import (
+        block_channel_correlations, plot_block_correlations)
+    from cvad_tpu_torch.train.engine import Trainer
+    from cvad_tpu_torch.train.tasks import build_task
+
+    cfg = preset(args.preset)
+    if args.data_root:
+        cfg = cfg.replace(data=cfg.data.replace(root=args.data_root))
+    if args.run:
+        cfg = cfg.replace(train=cfg.train.replace(out_dir=args.run))
+    cfg = _apply_overrides(cfg, args.set)
+    sample = BatchLoader(build_dataset(cfg.data, "Test", 32),
+                         cfg.data.batch_size, shuffle=False).sample_batch()
+    restored = None
+    if args.run:
+        trainer = Trainer(cfg, device=args.device)
+        step = int(args.step) if str(args.step).isdigit() else args.step
+        restored = _try_restore(trainer, step)
+        if restored is None:
+            print(json.dumps({"error": "no checkpoint found",
+                              "out_dir": cfg.train.out_dir}))
+            return 1
+        state = trainer.state
+    else:  # fresh init: a structure-only figure
+        from cvad_tpu_torch.runtime.device import resolve_device
+
+        state = build_task(cfg).init_state(cfg.train.seed,
+                                           resolve_device(args.device))
+    mats = block_channel_correlations(state.model.state_dict(),
+                                      sample["clips"], cfg.model,
+                                      device=args.device)
+    path = plot_block_correlations(mats, args.out)
+    print(json.dumps({
+        "out": path, "restored": restored,
+        "blocks": [m.shape[0] for m in mats],
+        "mean_abs_offdiag": [round(float(
+            (np.abs(m).sum() - m.shape[0]) / (m.size - m.shape[0])), 4)
+            for m in mats]}))
+    return 0 if path else 1
+
+
+def cmd_doctor(args) -> int:
+    """Environment report: the native decoder and its formats, the
+    optional modules, nvcc, and the CUDA devices (asked in a child process
+    with a hard timeout).  One JSON object; exit 1 when no card answers."""
+    import importlib.util
+
+    from cvad_tpu_torch.data.native_decoder import (load_library,
+                                                    supported_suffixes)
+    from cvad_tpu_torch.ops._build import _nvcc
+    from cvad_tpu_torch.runtime.doctor import probe_devices
+
+    info: dict = {"native_decoder": load_library() is not None,
+                  "native_formats": sorted(supported_suffixes())}
+    for mod in ("PIL", "cv2", "matplotlib", "sklearn", "scipy"):
+        info[f"has_{mod.lower()}"] = importlib.util.find_spec(mod) is not None
+    try:
+        info["nvcc"] = _nvcc()
+    except RuntimeError:
+        info["nvcc"] = None
+    status, detail = probe_devices(args.probe_timeout)
+    info["device_probe"] = status
+    info["devices" if status == "ok" else "device_probe_detail"] = detail
+    print(json.dumps(info))
+    return 0 if status == "ok" else 1
 
 
 def cmd_synth(args) -> int:
@@ -352,18 +516,27 @@ def build_parser() -> argparse.ArgumentParser:
     _device_arg(ev)
     ev.set_defaults(fn=cmd_eval)
 
-    sc = sub.add_parser("score", help="score every window of every video "
-                                      "under a folder (family D)")
-    sc.add_argument("video_root")
-    sc.add_argument("--checkpoint", default=str(FIXTURE))
-    sc.add_argument("--threshold", type=float, default=0.3)
-    sc.add_argument("--clip-len", type=int, default=8)
-    sc.add_argument("--stride", type=int, default=4)
-    sc.add_argument("--frame-size", type=int, default=64)
-    sc.add_argument("--max-clips", type=int, default=10)
-    sc.add_argument("--out", default="anomaly_output")
-    _device_arg(sc)
-    sc.set_defaults(fn=cmd_score)
+    for name, fn, what in (
+            ("score", cmd_score, "score every window of every video under a "
+                                 "folder (family D)"),
+            ("report", cmd_report, "score, localize and annotate the "
+                                   "anomalous windows; JSON and HTML "
+                                   "reports (family D)")):
+        sc = sub.add_parser(name, help=what)
+        sc.add_argument("video_root")
+        sc.add_argument("--checkpoint", default=str(FIXTURE))
+        sc.add_argument("--threshold", type=float, default=0.3)
+        sc.add_argument("--clip-len", type=int, default=8)
+        sc.add_argument("--stride", type=int, default=4)
+        sc.add_argument("--frame-size", type=int, default=64)
+        sc.add_argument("--max-clips", type=int, default=10)
+        sc.add_argument("--out", default="anomaly_output")
+        if name == "report":
+            sc.add_argument("--detector", default="auto",
+                            help="auto|motion|yolov5|opencv (auto: the "
+                                 "ladder, motion without local weights)")
+        _device_arg(sc)
+        sc.set_defaults(fn=fn)
 
     au = sub.add_parser("auc", help="frame-level ROC-AUC against the "
                                     "tree's ground truth")
@@ -374,8 +547,7 @@ def build_parser() -> argparse.ArgumentParser:
     au.add_argument("--torch-checkpoint", default=None,
                     help="score from a reference-format .pth")
     au.add_argument("--family", default="d", choices=list("abcde"),
-                    help="model family of --torch-checkpoint (d, b, c and "
-                         "a are ported)")
+                    help="model family of --torch-checkpoint")
     au.add_argument("--out", default=None,
                     help="training out_dir holding the checkpoints")
     au.add_argument("--step", default="best",
@@ -422,6 +594,40 @@ def build_parser() -> argparse.ArgumentParser:
                     help="comma list of client payload dtypes to warm up "
                          "(e.g. float32,uint8)")
     sv.set_defaults(fn=cmd_serve)
+
+    d = sub.add_parser("diagnose", help="warnings from a training history")
+    d.add_argument("history")
+    d.set_defaults(fn=cmd_diagnose)
+
+    sm = sub.add_parser("smoke", help="pre-training model + dataset gate")
+    sm.add_argument("--data-root", default=None)
+    sm.add_argument("--dataset", default="ucsd_ped2")
+    _device_arg(sm)
+    sm.set_defaults(fn=cmd_smoke)
+
+    pl = sub.add_parser("plots", help="a history's dashboard, or family C's "
+                                      "per-block correlations")
+    pl.add_argument("history", nargs="?", default=None)
+    pl.add_argument("--out", default="training_results.png")
+    pl.add_argument("--block-correlation", action="store_true",
+                    dest="block_correlation",
+                    help="per-conv-block channel-correlation heatmaps")
+    pl.add_argument("--run", default=None,
+                    help="training run dir whose checkpoint to analyze "
+                         "(omit for a fresh-init structure figure)")
+    pl.add_argument("--step", default="latest",
+                    help="checkpoint to restore: latest|best|mid|<epoch>")
+    pl.add_argument("--preset", default="family_c")
+    pl.add_argument("--data-root", default=None, dest="data_root")
+    pl.add_argument("--set", action="append", default=[],
+                    help="config override SEC.KEY=VAL (repeatable)")
+    _device_arg(pl)
+    pl.set_defaults(fn=cmd_plots)
+
+    dr = sub.add_parser("doctor", help="environment report (decoder, "
+                                       "optional modules, CUDA devices)")
+    dr.add_argument("--probe-timeout", type=float, default=60.0)
+    dr.set_defaults(fn=cmd_doctor)
     return p
 
 

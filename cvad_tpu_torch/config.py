@@ -1,8 +1,8 @@
-"""Configuration for the port's slices: families D, B, C and A, serving,
+"""Configuration for the port's slices: families D, B, C, A and E, serving,
 training and scoring.
 
 An own copy of the fields of `cvad_tpu.config` that the paths of families
-D, B, C and A read; the port imports nothing of `cvad_tpu`.  `FamilyDConfig`'s conv1 lowering knobs (`conv1_mode`,
+D, B, C, A and E read; the port imports nothing of `cvad_tpu`.  `FamilyDConfig`'s conv1 lowering knobs (`conv1_mode`,
 `conv_stack`, `conv_group_impl`) take every value `cvad_tpu` documents and
 route as there (`models/family_d.py::conv1_route`): where `cvad_tpu` runs
 the s2d group kernel (K5), so does the port; every other lowering is an
@@ -220,6 +220,22 @@ class FamilyAConfig(_Base):
 
 
 @dataclass(frozen=True)
+class FamilyEConfig(_Base):
+    """The bbox-visualization stand-in model
+    (``avenue_training_script_bbox.py:51-101``): Conv3d 3->32, ReLU, max
+    pool 2, Conv3d 32->64, ReLU, adaptive average pool to (1, 4, 4), 1,024
+    features; a causal head to a 16x16 sigmoid adjacency and a sigmoid
+    classifier.  Scoring only: it has no train task, in `cvad_tpu` or
+    here."""
+
+    name: str = "family_e"
+    in_channels: int = 3
+    conv_channels: Tuple[int, int] = (32, 64)
+    causal_dim: int = 16
+    hidden: int = 256
+
+
+@dataclass(frozen=True)
 class LossConfig(_Base):
     """Family-D loss weights: focal anomaly 1.0, acyclicity 0.01, sparsity
     0.001, consistency 0.01, structure 0.01; focal alpha/gamma 0.25/2.0;
@@ -316,7 +332,8 @@ class ExperimentConfig(_Base):
     """One config per entry point."""
 
     model: Union[FamilyDConfig, FamilyBConfig, FamilyCConfig,
-                 FamilyAConfig] = field(default_factory=FamilyDConfig)
+                 FamilyAConfig, FamilyEConfig] = field(
+                     default_factory=FamilyDConfig)
     data: DataConfig = field(default_factory=DataConfig)
     loss: LossConfig = field(default_factory=LossConfig)
     optim: OptimConfig = field(default_factory=OptimConfig)
@@ -325,7 +342,7 @@ class ExperimentConfig(_Base):
 
 # the model config of each family letter (the CLI's ``--family``)
 FAMILY_CONFIGS = {"d": FamilyDConfig, "b": FamilyBConfig, "c": FamilyCConfig,
-                  "a": FamilyAConfig}
+                  "a": FamilyAConfig, "e": FamilyEConfig}
 
 
 def family_of(model_cfg: Any) -> str:
@@ -348,9 +365,8 @@ FAMILY_E_PRESETS = ("bbox_viz", "family_e", "avenue_training_script_bbox")
 
 
 def preset(name: str) -> ExperimentConfig:
-    """Named presets of the ported families, as `cvad_tpu.config.preset`
-    writes them (:356-410); family E's waits for its slice (ROADMAP Queue 1
-    item 11)."""
+    """Named presets of every family, as `cvad_tpu.config.preset` writes
+    them (:356-412)."""
     if name in FAMILY_D_PRESETS:
         return ExperimentConfig()
     if name in FAMILY_C_PRESETS:
@@ -402,6 +418,6 @@ def preset(name: str) -> ExperimentConfig:
             optim=base.optim.replace(lr=1e-4),
             train=base.train.replace(num_epochs=10),
         )
-    raise NotImplementedError(
-        f"preset {name!r} is not ported; family E "
-        f"({', '.join(FAMILY_E_PRESETS)}) is ROADMAP Queue 1 item 11")
+    if name in FAMILY_E_PRESETS:
+        return ExperimentConfig(model=FamilyEConfig())
+    raise KeyError(f"unknown preset: {name!r}")

@@ -1,2 +1,3 @@
-"""Evaluation: video scoring (windows, streams, frame AUC), family-D and
-family-B scorers, metrics, the batching service and its HTTP front-end."""
+"""Evaluation: video scoring (windows, streams, frame AUC), the scorers of
+every family, metrics, the batching service and its HTTP front-end, the
+person detectors, bbox localization and reports, and the plots."""

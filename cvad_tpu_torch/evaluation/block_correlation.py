@@ -3,9 +3,9 @@
 Port of `cvad_tpu/evaluation/block_correlation.py::block_channel_correlations`
 (:20-49): one eval forward captures each conv block's BatchNorm output,
 ReLU is applied here (the block's output), and its channels are correlated
-over every (sample, time, space) position.  The three-panel figure
-(`plot_block_correlations`, ``cli plots``) waits for the plots module
-(ROADMAP Queue 1 item 11).
+over every (sample, time, space) position; `plot_block_correlations`
+(:52-77) draws them as the three-panel figure of ``cli plots
+--block-correlation``.
 """
 
 from __future__ import annotations
@@ -47,3 +47,31 @@ def block_channel_correlations(state: Mapping[str, torch.Tensor],
         np.fill_diagonal(corr, 1.0)
         mats.append(corr)
     return mats
+
+
+def plot_block_correlations(mats: List[np.ndarray], out_path: str,
+                            title: str = "Per-block feature correlations"
+                            ) -> Optional[str]:
+    """One heatmap a block, in the layout of the reference's shipped
+    ``Figure 2025-09-04 180626.png``.  Returns the written path, or None
+    without matplotlib."""
+    from cvad_tpu_torch.evaluation.plots import _plt
+
+    plt = _plt()
+    if plt is None:
+        return None
+    fig, axes = plt.subplots(1, len(mats), figsize=(5 * len(mats), 4.4))
+    axes = np.atleast_1d(axes)
+    for i, (ax, corr) in enumerate(zip(axes, mats)):
+        im = ax.imshow(corr, cmap="coolwarm", vmin=-1.0, vmax=1.0)
+        c = corr.shape[0]
+        ax.set_title(f"Block {i + 1} ({c}x{c})")
+        ax.set_xlabel("channel")
+        if i == 0:
+            ax.set_ylabel("channel")
+        fig.colorbar(im, ax=ax, fraction=0.046)
+    fig.suptitle(title)
+    fig.tight_layout()
+    fig.savefig(out_path, dpi=150)
+    plt.close(fig)
+    return out_path

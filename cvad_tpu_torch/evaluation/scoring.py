@@ -7,11 +7,11 @@ Port of `cvad_tpu/evaluation/scoring.py`: `ScoredClip`, `VideoScorer`
 batches of `batch_size`, the per-frame curve the mean of the windows
 covering each frame), `make_family_d_score_fn`,
 `make_family_d_bulk_score_fn`, `make_family_b_score_fn`, `make_score_fn`
-(families 'd', 'b', 'c' and 'a') and `aggregate_frame_scores`.  The public
+(families 'd', 'b', 'c', 'a' and 'e') and `aggregate_frame_scores`.  The public
 functions take (N, T, H, W, C) clips, float32 in [0, 1] or raw uint8 pixels,
 as `cvad_tpu`'s do; the clips are copied to the device once, normalised
 there (uint8 / 255) and permuted there to the model's layout, (N, C, T,
-H, W) for families D and C, (N, T, C, H, W) for families B and A.  The model runs in
+H, W) for families D, C and E, (N, T, C, H, W) for families B and A.  The model runs in
 ``eval()`` (no dropout; BatchNorm on running statistics) under
 ``torch.inference_mode()``.
 
@@ -32,10 +32,11 @@ import numpy as np
 import torch
 
 from cvad_tpu_torch.config import (DataConfig, FamilyAConfig, FamilyBConfig,
-                                   FamilyCConfig, FamilyDConfig, LossConfig)
+                                   FamilyCConfig, FamilyDConfig, FamilyEConfig,
+                                   LossConfig)
 from cvad_tpu_torch.data.datasets import ClipDataset
 from cvad_tpu_torch.data.frames import clip_windows, scan_video_folders
-from cvad_tpu_torch.models import (CausalAnomalyDetector,
+from cvad_tpu_torch.models import (BBoxVizDetector, CausalAnomalyDetector,
                                    CausalPipelineDetector,
                                    MemoryVideoAutoEncoder,
                                    Simple3DCNNDetector)
@@ -308,13 +309,36 @@ def make_family_a_score_fn(state: Mapping[str, torch.Tensor],
     return score
 
 
+def make_family_e_score_fn(state: Mapping[str, torch.Tensor],
+                           cfg: Optional[FamilyEConfig] = None, *,
+                           device=None) -> Callable:
+    """Family-E scorer: (N, T, H, W, C) uint8 or float32 clips -> scores
+    (N,) as numpy, the classifier's sigmoid (dropout off).  `state` is the
+    model's state dict (the reference ``.pth`` keys); `device` defaults to
+    CUDA and raises without it.  uint8 clips are divided by 255, as the
+    port's other scorers do (`cvad_tpu` casts them without dividing)."""
+    dev = resolve_device(device)
+    model = BBoxVizDetector(cfg)
+    model.load_state_dict(state, strict=True)
+    model = model.to(dev).eval()
+
+    def score(batch: np.ndarray) -> np.ndarray:
+        if len(batch) == 0:
+            return np.zeros(0, np.float32)
+        x = prep_clips(torch.from_numpy(np.ascontiguousarray(batch)).to(dev))
+        with torch.inference_mode(), _no_tf32():
+            return model(x)[0].cpu().numpy()
+
+    return score
+
+
 def make_score_fn(family: str, state: Mapping[str, torch.Tensor],
                   memory=None, *, cfg=None, device=None) -> Callable:
-    """Per-family batch -> scores dispatcher (`cvad_tpu`'s, for the ported
-    families): family 'd' returns (scores, adjacency), family 'b' scores
-    against the bank in `state` unless `memory` is given, families 'c' and
-    'a' return scores.  `cfg` is the family's model config where it is
-    not the default."""
+    """Per-family batch -> scores dispatcher (`cvad_tpu`'s): family 'd'
+    returns (scores, adjacency), family 'b' scores against the bank in
+    `state` unless `memory` is given, families 'c', 'a' and 'e' return
+    scores.  `cfg` is the family's model config where it is not the
+    default."""
     if family == "d":
         return make_family_d_score_fn(state, cfg, device=device)
     if family == "b":
@@ -323,7 +347,6 @@ def make_score_fn(family: str, state: Mapping[str, torch.Tensor],
         return make_family_c_score_fn(state, cfg, device=device)
     if family == "a":
         return make_family_a_score_fn(state, cfg, device=device)
-    raise NotImplementedError(
-        f"family {family!r} has no scorer in the port yet; families 'd', "
-        f"'b', 'c' and 'a' are ported (family 'e' is ROADMAP Queue 1 item "
-        f"11)")
+    if family == "e":
+        return make_family_e_score_fn(state, cfg, device=device)
+    raise KeyError(f"unknown family {family!r}")

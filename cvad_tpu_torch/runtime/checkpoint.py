@@ -1,4 +1,4 @@
-"""Checkpoints of families D, B, C and A for the port.
+"""Checkpoints of families D, B, C, A and E for the port.
 
 The port's state dicts ARE the reference's: `CausalAnomalyDetector`'s module
 names give the keys of ``best_improved_model.pth``,
@@ -7,7 +7,8 @@ names give the keys of ``best_improved_model.pth``,
 `Simple3DCNNDetector`'s those of ``SimpleVideoAnomalyDetector`` and
 `CausalPipelineDetector`'s those of the reference
 ``CausalAnomalyDetector`` of ``causal_anomaly_detection.py`` (or, in the
-anchor variant, of ``video_anomaly_detection.py``).  This module
+anchor variant, of ``video_anomaly_detection.py``) and `BBoxVizDetector`'s
+those of ``avenue_training_script_bbox.py``'s.  This module
 
 - loads the three ``.pth`` formats the reference writes;
 - keeps training checkpoints (`CheckpointManager`, the torch-native
@@ -411,6 +412,47 @@ def to_jax_family_c(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
     for idx, name in FAMILY_C_DENSES:
         params[name] = _dense_to(state, f"classifier.{idx}")
     return {"params": params, "batch_stats": stats}
+
+
+# family E: state-dict prefix -> (flax module path, kind); own copy of
+# cvad_tpu/runtime/checkpoint.py::_FAMILY_E_MAP (:448-455).  Both sides
+# flatten the features channel major, so the dense weights carry as they are.
+FAMILY_E_KEYS = {
+    "encoder.0": ("enc_conv0/conv", "conv3d"),
+    "encoder.3": ("enc_conv3/conv", "conv3d"),
+    "causal_net.0": ("causal_0", "dense"),
+    "causal_net.2": ("causal_2", "dense"),
+    "classifier.0": ("cls_0", "dense"),
+    "classifier.3": ("cls_3", "dense"),
+}
+
+
+def from_jax_family_e(variables: Mapping[str, Any]
+                      ) -> Dict[str, torch.Tensor]:
+    """`cvad_tpu` family-E variables ``{'params': ...}`` (numpy or array
+    leaves) -> the port's state dict (the mirror of `cvad_tpu`'s
+    ``export_family_e_torch_state``, :482-497)."""
+    params = variables["params"]
+    out: Dict[str, torch.Tensor] = {}
+    for prefix, (flax_path, kind) in FAMILY_E_KEYS.items():
+        node = _node(params, flax_path)
+        out[f"{prefix}.weight"] = _t(np.transpose(np.asarray(node["kernel"]),
+                                                  _TO_TORCH[kind]))
+        out[f"{prefix}.bias"] = _t(node["bias"])
+    return out
+
+
+def to_jax_family_e(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The port's family-E state dict -> `cvad_tpu` variables
+    ``{'params': ...}`` with numpy leaves (inverse of `from_jax_family_e`,
+    the mirror of ``import_torch_family_e``, :458-479)."""
+    params: Dict[str, Any] = {}
+    for prefix, (flax_path, kind) in FAMILY_E_KEYS.items():
+        w = state[f"{prefix}.weight"].detach().cpu().numpy()
+        _put(params, flax_path, {
+            "kernel": np.ascontiguousarray(np.transpose(w, _TO_FLAX[kind])),
+            "bias": state[f"{prefix}.bias"].detach().cpu().numpy().copy()})
+    return {"params": params}
 
 
 def family_a_feature_permutation(pool_hw=(4, 6), channels: int = 256

@@ -449,5 +449,11 @@ TASKS = {"d": _family_d_task, "c": _family_c_task, "b": _family_b_task,
 
 
 def build_task(cfg: ExperimentConfig) -> Task:
-    """The task of the config's model family (D, B, C or A)."""
-    return TASKS[family_of(cfg.model)](cfg)
+    """The task of the config's model family (D, B, C or A).  Family E
+    scores only: `cvad_tpu` has no train task for it, nor has the port."""
+    family = family_of(cfg.model)
+    if family not in TASKS:
+        raise NotImplementedError(
+            f"family {family.upper()} has no train task; it scores only "
+            f"(make_score_fn({family!r}, ...))")
+    return TASKS[family](cfg)

@@ -1,7 +1,8 @@
 """The PyTorch port imports without JAX and loads nothing of `cvad_tpu`
-(every module, families C and A, the device clip cache and the K-step
-graphs included); its entry points default to CUDA and raise without
-it."""
+(every module, families C, A and E, the device clip cache, the K-step
+graphs, the localization and report modules, the plots, the diagnosis
+and the doctor included); its entry points default to CUDA and raise
+without it."""
 
 import json
 import os
@@ -46,7 +47,13 @@ def test_imports_without_jax_or_cvad_tpu():
                 "cvad_tpu_torch.models.family_b",
                 "cvad_tpu_torch.models.family_c",
                 "cvad_tpu_torch.models.family_a",
+                "cvad_tpu_torch.models.family_e",
                 "cvad_tpu_torch.evaluation.block_correlation",
+                "cvad_tpu_torch.evaluation.bbox",
+                "cvad_tpu_torch.evaluation.detectors",
+                "cvad_tpu_torch.evaluation.plots",
+                "cvad_tpu_torch.utils.diagnose",
+                "cvad_tpu_torch.runtime.doctor",
                 "cvad_tpu_torch.models.init", "cvad_tpu_torch.models.layers",
                 "cvad_tpu_torch.evaluation.scoring",
                 "cvad_tpu_torch.evaluation.serving",
@@ -162,6 +169,15 @@ def test_entry_points_default_to_cuda(tmp_path):
         with pytest.raises(RuntimeError):
             main(["train", "--preset", name, "--epochs", "1",
                   "--n-synthetic", "8", "--out", str(tmp_path / name)])
+    # family E, the report and the smoke gate
+    from cvad_tpu_torch.models import BBoxVizDetector
+
+    with pytest.raises(RuntimeError):
+        make_score_fn("e", BBoxVizDetector().state_dict())
+    with pytest.raises(RuntimeError):
+        main(["report", str(tmp_path), "--checkpoint", ckpt])
+    with pytest.raises(RuntimeError):
+        main(["smoke"])
     # family B with the attention encoder
     from cvad_tpu_torch.config import FamilyBConfig
 

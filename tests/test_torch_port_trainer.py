@@ -131,8 +131,8 @@ def test_unported_knobs_raise(tmp_path):
     """K steps per call and the device cache are ported
     (tests/test_torch_port_steps.py, tests/test_torch_port_cache.py): a
     K below 1, an unknown cache mode and a memory share outside (0, 1]
-    raise; ``Trainer`` takes K > 1 and 'on'.  The bbox_viz preset (ROADMAP
-    Queue 1 item 11) is still refused."""
+    raise; ``Trainer`` takes K > 1 and 'on'.  Family E (the bbox_viz
+    preset) scores only, as in `cvad_tpu`: its trainer is refused."""
     for train, what in ((dict(steps_per_call=0), "steps_per_call"),
                         (dict(device_cache="always"), "device_cache"),
                         (dict(device_cache_hbm_frac=0.0), "hbm_frac"),
@@ -142,8 +142,10 @@ def test_unported_knobs_raise(tmp_path):
     trainer = Trainer(_cfg(tmp_path, 1, steps_per_call=2, device_cache="on"),
                       device="cpu")
     assert trainer.cfg.train.steps_per_call == 2
-    with pytest.raises(NotImplementedError, match="item 11"):
-        preset("bbox_viz")
+    assert type(preset("bbox_viz").model).__name__ == "FamilyEConfig"
+    with pytest.raises(NotImplementedError, match="no train task"):
+        Trainer(preset("bbox_viz"), out_dir=str(tmp_path / "e"),
+                device="cpu")
 
 
 # -- resume ------------------------------------------------------------------

@@ -359,8 +359,9 @@ def test_cli_auc_matches_jax(J, tmp_path, tree, capsys):
 
 def test_cli_auc_family_b_and_unported(tmp_path, tree, capsys):
     """``auc --family b`` scores against the bank in the checkpoint, as the
-    library does; family e raises, naming its roadmap item (families c and
-    a: tests/test_torch_port_family_c.py, tests/test_torch_port_train_a.py)."""
+    library does; read as family e, its ``.pth`` is refused by the strict
+    load (families c, a and e: tests/test_torch_port_family_c.py,
+    tests/test_torch_port_train_a.py, tests/test_torch_port_family_e.py)."""
     from cvad_tpu_torch.models import MemoryVideoAutoEncoder
     from cvad_tpu_torch.models.family_b import MemoryBankState
 
@@ -379,10 +380,11 @@ def test_cli_auc_family_b_and_unported(tmp_path, tree, capsys):
     want = fa.dataset_frame_auc(make_family_b_score_fn(
         model.state_dict(), device="cpu"), preset("memory_ae").data, tree)
     assert got == {k: want[k] for k in got}
-    for fam in "e":
-        with pytest.raises(NotImplementedError, match="item 11"):
-            cli.main(["auc", "--data-root", tree, "--torch-checkpoint",
-                      path, "--family", fam, "--device", "cpu"])
+    # every family is ported; a .pth of another family is refused by the
+    # strict load
+    with pytest.raises(RuntimeError, match="BBoxVizDetector"):
+        cli.main(["auc", "--data-root", tree, "--torch-checkpoint",
+                  path, "--family", "e", "--device", "cpu"])
 
 
 def test_cli_train_eval_auc_on_folder_dataset(J, tmp_path, tree, capsys):
