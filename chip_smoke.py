@@ -212,6 +212,26 @@ Phases:
            and JSON files were written (no PNG without matplotlib, no MP4
            without cv2); the phase's seconds (tree, CPU pre-pass, each
            report) beside the card's name and power limit
+  export   every family's scorer through `cli export` on the card from a
+           reference-format .pth, then `load_scorer`: D (the fixture,
+           8x64x64x3; K1), D at T=64 (the fixture, conv_group_impl='s2d';
+           K5), B with the LSTM (seeded, 300 bank rows; K3), B with
+           attention (bench.py's flash configuration, T=128; K6 forward
+           and K3), C, A (16x240x360x1) and E (seeded); at buckets 1, 8
+           and 32 (A 1 and 4) every output within 1e-5 of the eager scorer
+           and its `ScorerModule` (TF32 off), uint8 clips at the first
+           bucket, each kernel's launch count through the artefact equal
+           to the eager scorer's on the same clips (paths
+           export_<artefact>, the counts set to 0 just before), a second
+           call bit-identical, export and load seconds and the buckets'
+           median latencies beside the eager scorer's; a fresh process
+           that imports only `cvad_tpu_torch.ops` loads the D and
+           B-attention artefacts with `torch.export.load` and scores them
+           (within 1e-5, no model module imported); one HTTP round trip
+           each from the A and B-attention artefacts (A's detections as
+           "graphs") within 1e-5; `cli serve D.pt2 --probe-timeout 120` in
+           its own process: the device probe passes, /healthz gives the
+           artefact's clip shape, one request within 1e-5
   steps_per_call  K train steps in one captured CUDA graph
            (`train/graphs.py`) on every train path at full width: d (T=8,
            B=256; K1, K2), d64 (T=64, B=128, conv1 on K5; K5, K2), b (LSTM,
@@ -281,8 +301,9 @@ call.
 Kernel launch counts are set to 0 just before each main path (serve + bulk,
 long_score, long_train, train, family_b_train, family_b_serve, attn_train,
 family_c_train, family_a_train, video_score_d, stream_d, video_score_b,
-video_score_d64, video_score_a, video-e, report, graph_<path> (after the
-capture, over the replays), steps_per_call_fit) and read just after it;
+video_score_d64, video_score_a, video-e, report, export_<artefact>,
+graph_<path> (after the capture, over the replays), steps_per_call_fit)
+and read just after it;
 families C, A and E must read 0 for every kernel.  The last lines are the kernels summary, the card's
 nvidia-smi name and power limit, and {"ok": true, "device": {...}}.
 """
@@ -476,6 +497,12 @@ SPC_FIT_CLIPS, SPC_FIT_EPOCHS = 1536, 2
 # the generators of phases family_c and family_a (their clips, and family
 # A's shared VAE draws), apart from the stream of the earlier phases
 C_SEED, A_SEED, A_NOISE_SEED = 13, 14, 21
+# phase export: each family's scorer through `cli export` on the card, at
+# these request buckets (family A's: it is 16 240x360 frames a clip),
+# every output within EXPORT_TOL of the eager scorer (float32, TF32 off),
+# EXPORT_LAT_CALLS calls a latency median; its own generator
+EXPORT_SEED, EXPORT_TOL, EXPORT_LAT_CALLS = 23, 1e-5, 5
+EXPORT_BUCKETS, EXPORT_BUCKETS_A = (1, 8, 32), (1, 4)
 # the port's CUDA kernels by symbol name (cvad_tpu_torch/csrc/*.cu), picked
 # out of the profiler's rows
 PORT_KERNELS = ("tfold_conv1_", "pairwise_", "memory_min_cosine_",
@@ -3193,6 +3220,318 @@ def phase_report(dev: dict) -> dict:
     return launched
 
 
+def export_cases(rng: np.random.Generator) -> list:
+    """The artefacts of phase export: (name, family, state dict, the
+    `cli export` arguments past the family, the model config, the clip,
+    the buckets, the kernel counters the artefact must advance)."""
+    from cvad_tpu_torch.config import (FamilyAConfig, FamilyBConfig,
+                                       FamilyCConfig, FamilyDConfig)
+    from cvad_tpu_torch.models import (BBoxVizDetector,
+                                       CausalPipelineDetector,
+                                       MemoryVideoAutoEncoder,
+                                       Simple3DCNNDetector)
+    from cvad_tpu_torch.models.family_b import MemoryBankState
+    from cvad_tpu_torch.runtime.checkpoint import load_torch_state_dict
+
+    fixture = load_torch_state_dict(str(CKPT))
+    attn = FamilyBConfig(**ATTN_MODEL)
+    model = MemoryVideoAutoEncoder(attn, seed=0)
+    memory = torch.zeros(attn.memory_size, attn.latent_dim)
+    memory[:B_FILL] = torch.from_numpy(
+        rng.normal(size=(B_FILL, attn.latent_dim)).astype(np.float32))
+    fill = torch.tensor(B_FILL, dtype=torch.int32)
+    model.set_memory_bank(MemoryBankState(memory, fill, fill))
+    attn_args = ["--preset", "memory_ae", "--clip-len", str(ATTN_CLIP[0])]
+    for key, value in ATTN_MODEL.items():
+        attn_args += ["--set", f"model.{key}={value}"]
+    return [
+        ("d", "d", fixture, [], FamilyDConfig(), CLIP, EXPORT_BUCKETS,
+         {"tfold_conv1"}),
+        ("d64", "d", fixture, ["--set", "model.conv_group_impl=s2d",
+                               "--clip-len", str(LONG_CLIP[0])],
+         FamilyDConfig(conv_group_impl="s2d"), LONG_CLIP, EXPORT_BUCKETS,
+         {"s2d_group_forward"}),
+        ("b", "b", b_checkpoint_state(rng), [], FamilyBConfig(), CLIP_B,
+         EXPORT_BUCKETS, {"memory_min_cosine"}),
+        ("b_attn", "b", model.state_dict(), attn_args, attn, ATTN_CLIP,
+         EXPORT_BUCKETS, {"flash_forward", "memory_min_cosine"}),
+        ("c", "c", Simple3DCNNDetector(seed=C_SEED).state_dict(), [],
+         FamilyCConfig(), C_CLIP, EXPORT_BUCKETS, set()),
+        ("a", "a", CausalPipelineDetector(FamilyAConfig(), in_channels=1,
+                                          seed=A_SEED).state_dict(), [],
+         FamilyAConfig(), A_CLIP, EXPORT_BUCKETS_A, set()),
+        ("e", "e", BBoxVizDetector(seed=E_SEED).state_dict(), [], None, CLIP,
+         EXPORT_BUCKETS, set())]
+
+
+def outputs(out) -> tuple:
+    """A scorer's outputs as a tuple (scores first)."""
+    return out if isinstance(out, tuple) else (out,)
+
+
+def median_ms(fn, x, calls: int) -> float:
+    """Median host milliseconds of `calls` calls of a scorer (each returns
+    numpy, so each ends with the card's work)."""
+    times = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn(x)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def export_case(case: tuple, rng: np.random.Generator, workdir: Path
+                ) -> tuple:
+    """One artefact of phase export: `cli export` on the card from a
+    reference-format .pth, `load_scorer`, then at each bucket the
+    artefact against the eager scorer (scores) and the eager
+    `ScorerModule` (every output) within EXPORT_TOL, the kernel counts of
+    the artefact's calls (the counts set to 0 just before them) equal to
+    the eager scorer's on the same clips, a second call bit-identical,
+    uint8 clips at the first bucket, and each bucket's median latency.
+    Returns the line, the artefact's counts and the loaded scorer."""
+    import contextlib
+
+    from cvad_tpu_torch import cli
+    from cvad_tpu_torch.evaluation.scoring import make_score_fn
+    from cvad_tpu_torch.evaluation.serving import load_scorer, scorer_module
+
+    name, family, state, args, cfg, clip, buckets, kernels = case
+    pth, out = workdir / f"{name}.pth", workdir / f"{name}.pt2"
+    torch.save({"model_state_dict": state}, pth)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as said:
+        rc = cli.main(["export", str(pth), "--family", family, "--out",
+                       str(out), *args])
+    export_s = time.perf_counter() - t0
+    check(rc == 0, f"cli export of {name}: {said.getvalue()[-300:]}")
+    blob = out.read_bytes()
+    t0 = time.perf_counter()
+    fn = load_scorer(blob)
+    load_s = time.perf_counter() - t0
+    check(fn.clip_shape == tuple(clip) and fn.device.type == "cuda",
+          f"{name}: artefact clip {fn.clip_shape} on {fn.device}")
+    eager = make_score_fn(family, state, cfg=cfg)
+    module = scorer_module(family, state, cfg)
+    xs = [rng.uniform(0, 1, (b,) + tuple(clip)).astype(np.float32)
+          for b in buckets]
+    reset_counts()
+    got = [fn(x) for x in xs]
+    torch.cuda.synchronize()
+    launched = counts()
+    reset_counts()
+    ref = [eager(x) for x in xs]
+    torch.cuda.synchronize()
+    eager_launched = counts()
+    err, again_equal = 0.0, True
+    for x, g, r in zip(xs, got, ref):
+        g, r = outputs(g), outputs(r)
+        with torch.inference_mode(), no_tf32():
+            want = outputs(module(torch.from_numpy(x).cuda()))
+        check(len(g) == len(want), f"{name}: {len(g)} outputs")
+        err = max(err, float(np.abs(g[0] - r[0]).max()),
+                  *(float(np.abs(a.astype(np.float64)
+                                 - w.cpu().numpy()).max())
+                    for a, w in zip(g, want)))
+        again_equal &= all(np.array_equal(a, b)
+                           for a, b in zip(g, outputs(fn(x))))
+    u8 = (xs[0] * 255).astype(np.uint8)
+    err_u8 = float(np.abs(outputs(fn(u8))[0] - outputs(eager(u8))[0]).max())
+    latency = [{"bucket": b, "ms": median_ms(fn, x, EXPORT_LAT_CALLS),
+                "eager_ms": median_ms(eager, x, EXPORT_LAT_CALLS)}
+               for b, x in zip(buckets, xs)]
+    line = {"artefact": name, "family": family, "clip": list(clip),
+            "bytes": len(blob), "export_s": export_s, "load_s": load_s,
+            "max_abs_err": err, "max_abs_err_uint8": err_u8,
+            "second_call_bit_identical": again_equal,
+            "launches": {k: v for k, v in launched.items() if v},
+            "eager_launches": {k: v for k, v in eager_launched.items() if v},
+            "latency": latency}
+    check(err <= EXPORT_TOL and err_u8 <= EXPORT_TOL,
+          f"{name}: artefact vs eager {err}, uint8 {err_u8}")
+    check(again_equal, f"{name}: a second call differs")
+    check(launched == eager_launched,
+          f"{name}: launches {line['launches']} vs eager "
+          f"{line['eager_launches']}")
+    check({k for k, v in launched.items() if v} == kernels
+          and all(launched[k] >= len(buckets) for k in kernels),
+          f"{name}: kernels launched {line['launches']}, expected {kernels}")
+    return line, launched, fn, xs
+
+
+_LOADER = r"""
+import json, sys
+import numpy as np
+import torch
+import cvad_tpu_torch.ops  # the kernels' custom ops, and nothing else
+out = {}
+for name, path, clips in json.loads(sys.argv[1]):
+    program = torch.export.load(path)
+    x = torch.from_numpy(np.load(clips)).cuda()
+    c = torch.backends.cudnn
+    with torch.inference_mode(), c.flags(
+            enabled=c.enabled, benchmark=c.benchmark,
+            deterministic=c.deterministic, allow_tf32=False):
+        y = program.module()(x)
+    y = y if isinstance(y, tuple) else (y,)
+    np.savez(clips + ".out.npz", *[o.cpu().numpy() for o in y])
+print(json.dumps({"modules": sorted(m for m in sys.modules
+                                    if m.startswith("cvad_tpu_torch"))}))
+"""
+
+
+def start_loader(workdir: Path, scored: dict) -> tuple:
+    """Start a fresh process that imports only `cvad_tpu_torch.ops`, loads
+    the D and B-attention artefacts with `torch.export.load` and scores
+    their first bucket (`finish_loader` reads it)."""
+    jobs = []
+    for name in ("d", "b_attn"):
+        np.save(workdir / f"{name}_clips.npy", scored[name][1][0])
+        jobs.append((name, str(workdir / f"{name}.pt2"),
+                     str(workdir / f"{name}_clips.npy")))
+    proc = subprocess.Popen([sys.executable, "-c", _LOADER,
+                             json.dumps(jobs)], cwd=ROOT,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    return proc, jobs, time.perf_counter()
+
+
+def finish_loader(started: tuple, scored: dict) -> dict:
+    """The ops-only loader's outputs within EXPORT_TOL of this process's,
+    and no model, train or evaluation module imported there."""
+    proc, jobs, t0 = started
+    try:
+        out, err_text = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
+    check(proc.returncode == 0,
+          f"the ops-only loader failed: {err_text[-500:]}")
+    modules = json.loads(out.strip().splitlines()[-1])["modules"]
+    err = 0.0
+    for name, _, clips in jobs:
+        want = outputs(scored[name][0](scored[name][1][0]))
+        with np.load(clips + ".out.npz") as f:
+            got = [f[f"arr_{i}"] for i in range(len(f.files))]
+        check(len(got) == len(want), f"loader: {name} outputs")
+        err = max(err, *(float(np.abs(a - b).max())
+                         for a, b in zip(got, want)))
+    model_code = [m for m in modules if not m.startswith(
+        ("cvad_tpu_torch.ops", "cvad_tpu_torch.runtime"))
+        and m != "cvad_tpu_torch"]
+    check(not model_code, f"the ops-only loader imported {model_code}")
+    check(err <= EXPORT_TOL, f"the ops-only loader's scores differ: {err}")
+    return {"artefacts": [j[0] for j in jobs], "modules": modules,
+            "max_abs_err": err, "seconds": time.perf_counter() - t0}
+
+
+def export_http(scored: dict, rng: np.random.Generator) -> list:
+    """One HTTP round trip each from the A and B-attention artefacts
+    (`ClipScoringService.from_exported`): scores, and family A's
+    detections as "graphs", within EXPORT_TOL of the direct scorer."""
+    from cvad_tpu_torch.evaluation.http_service import ScoringHTTPServer
+    from cvad_tpu_torch.evaluation.serving import ClipScoringService
+
+    out = []
+    for name in ("a", "b_attn"):
+        fn = scored[name][0]
+        srv = ScoringHTTPServer(ClipScoringService(
+            fn, buckets=(1, 4), clip_shape=fn.clip_shape), port=0)
+        host, port = srv.start()
+        try:
+            x = rng.uniform(0, 1, (3,) + fn.clip_shape).astype(np.float32)
+            t0 = time.perf_counter()
+            rep = post(f"http://{host}:{port}/score", npz(x),
+                       "application/octet-stream")
+            ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            srv.close()
+        direct = outputs(fn(x))
+        err = float(np.abs(np.asarray(rep["scores"]) - direct[0]).max())
+        if name == "a":
+            err = max(err, float(np.abs(np.asarray(rep["graphs"])
+                                        - direct[1]).max()))
+        else:
+            check(rep["graphs"] is None, "family B replied graphs")
+        check(set(rep) == {"scores", "graphs", "n"} and rep["n"] == 3
+              and err <= EXPORT_TOL, f"HTTP {name}: {err}, keys {set(rep)}")
+        out.append({"artefact": name, "clips": 3, "ms": ms,
+                    "max_abs_err": err})
+    return out
+
+
+def export_serve(workdir: Path, scored: dict) -> dict:
+    """`cli serve D.pt2 --probe-timeout 120` in its own process: the device
+    probe passes, the server answers /healthz at the artefact's clip shape
+    and scores 8 clips within EXPORT_TOL of the direct scorer; then it is
+    stopped."""
+    import select
+
+    fn, xs = scored["d"]
+    x = xs[1]
+    t0 = time.perf_counter()
+    errors = workdir / "serve.err"
+    with open(errors, "w") as err_file:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "cvad_tpu_torch.cli", "serve",
+             str(workdir / "d.pt2"), "--port", "0", "--probe-timeout", "120"],
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=err_file, text=True)
+    try:
+        ready, _, _ = select.select([proc.stdout], [], [], 300)
+        said = proc.stdout.readline() if ready else ""
+        check(said.startswith("{"), f"cli serve said {said!r}, exit "
+                                    f"{proc.poll()}: "
+                                    f"{errors.read_text()[-500:]}")
+        started = json.loads(said)
+        check("port" in started, f"cli serve said {started}")
+        base = f"http://{started['host']}:{started['port']}"
+        health = get(base + "/healthz")
+        rep = post(base + "/score", npz(x), "application/octet-stream")
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    err = float(np.abs(np.asarray(rep["scores"]) - fn(x)[0]).max())
+    check(tuple(health["clip_shape"]) == CLIP and err <= EXPORT_TOL,
+          f"cli serve: clip {health['clip_shape']}, error {err}")
+    return {"device": started.get("device"), "clip_shape": health[
+        "clip_shape"], "clips": len(x), "max_abs_err": err,
+        "seconds": time.perf_counter() - t0}
+
+
+def phase_export(card: str) -> dict:
+    """Phase export (see the module docstring); returns the launch counts
+    of each artefact's calls (paths export_<artefact>)."""
+    rng = np.random.default_rng(EXPORT_SEED)
+    t_start = time.perf_counter()
+    paths, scored, lines = {}, {}, []
+    with tempfile.TemporaryDirectory(prefix="cvad_export_") as tmp:
+        workdir = Path(tmp)
+        for case in export_cases(rng):
+            line, launched, fn, xs = export_case(case, rng, workdir)
+            emit({"phase": "export", **line})
+            lines.append(line)
+            paths[f"export_{line['artefact']}"] = launched
+            scored[line["artefact"]] = (fn, xs)
+            torch.cuda.empty_cache()
+        started = start_loader(workdir, scored)  # runs beside the next two
+        try:
+            http = export_http(scored, rng)
+            serve = export_serve(workdir, scored)
+        finally:
+            loader = finish_loader(started, scored)
+    emit({"phase": "export_summary", "card": card, "loader": loader,
+          "http": http, "serve": serve,
+          "export_s": {ln["artefact"]: ln["export_s"] for ln in lines},
+          "load_s": {ln["artefact"]: ln["load_s"] for ln in lines},
+          "seconds": time.perf_counter() - t_start})
+    return paths
+
+
 def no_dropout(model: torch.nn.Module) -> torch.nn.Module:
     """Every ``nn.Dropout`` of `model` at p = 0: the card's and the CPU's
     generators draw different masks."""
@@ -4585,6 +4924,11 @@ def main() -> int:
     paths["report"] = phase_report(dev)
     emit({"phase": "main_path", "path": "report",
           "launches": paths["report"]})
+    # every family's scorer exported, loaded and served (each artefact's
+    # calls reset the counts first: paths export_<artefact>)
+    for name, launched in phase_export(dev["card"]).items():
+        paths[name] = launched
+        emit({"phase": "main_path", "path": name, "launches": launched})
     # K train steps in one CUDA graph, every train path (main paths
     # graph_<family>: the replays' counts; steps_per_call_fit)
     with tempfile.TemporaryDirectory(prefix="cvad_chip_smoke_") as tmp:

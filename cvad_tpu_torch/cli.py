@@ -9,7 +9,12 @@
     python -m cvad_tpu_torch.cli train --preset mini3d --out results_c
     python -m cvad_tpu_torch.cli train --preset causal_pipeline --out results_a
     python -m cvad_tpu_torch.cli serve CKPT.pth --port 8700 \\
-        --buckets 1,8,32,128 --device cuda [--warmup] [--family b]
+        --buckets 1,8,32,128 --device cuda [--warmup] [--family b] \\
+        [--probe-timeout 120]
+    python -m cvad_tpu_torch.cli export CKPT.pth --family a|b|c|d|e \\
+        --out scorer.pt2 [--clip-len 128] [--preset P --set SEC.KEY=VAL] \\
+        [--device cuda]
+    python -m cvad_tpu_torch.cli serve scorer.pt2 --port 8700
     python -m cvad_tpu_torch.cli synth --out TREE --videos 2 --frames 24 \\
         [--write-gt] [--format pgm]
     python -m cvad_tpu_torch.cli score TREE/Test [--checkpoint CKPT.pth]
@@ -40,8 +45,11 @@ under ``--out``; ``--resume`` continues from the newest checkpoint there
 ``checkpoints/best/model.pth`` is a reference-format ``.pth`` that ``serve``
 reads.  ``serve`` is `cmd_serve`: the HTTP scoring endpoint of
 `cvad_tpu_torch.evaluation.http_service` over a family-D or family-B
-``.pth`` checkpoint (``--family``), with bucket-padded batching and
-dynamic request coalescing.  ``synth`` writes a UCSD-style frame-folder
+``.pth`` checkpoint (``--family``) or an exported scorer of any family,
+with bucket-padded batching and dynamic request coalescing, after a device
+check (``--probe-timeout``).  ``export`` writes a family's scorer as a
+`torch.export` archive (`cmd_export`).
+``synth`` writes a UCSD-style frame-folder
 tree (`cmd_synth`); ``score`` scores every sliding window of every video
 under a folder with a family-D ``.pth`` and keeps the windows above the
 threshold (`cmd_score`); ``report`` does the same, then localizes people
@@ -156,10 +164,82 @@ def cmd_train(args) -> int:
     return 0
 
 
+def cmd_export(args) -> int:
+    """A family's scorer from a reference-format ``.pth`` as one
+    `torch.export` archive that ``load_scorer``, ``serve`` and
+    `ClipScoringService.from_exported` run with no model code.  The model
+    config is ``--preset``'s (the family's own preset by default) with the
+    ``--set`` overrides; the clip shape is its data config's, T from
+    ``--clip-len`` where given (family A's channels from the checkpoint's
+    conv1).  The artefact runs on ``--device``, where it was traced."""
+    from cvad_tpu_torch.evaluation import serving
+    from cvad_tpu_torch.runtime.checkpoint import load_torch_state_dict
+
+    cfg = _apply_overrides(preset(args.preset or f"family_{args.family}"),
+                           args.set)
+    model_cfg = _family_model(cfg, args.family)
+    if model_cfg is None:
+        print(json.dumps({"error": f"preset {args.preset!r} is not of "
+                                   f"family {args.family!r}"}))
+        return 1
+    state = load_torch_state_dict(args.torch_checkpoint)
+    channels = (state["backbone.conv1.weight"].shape[1]
+                if args.family == "a" else cfg.data.channels)
+    clip = (args.clip_len or cfg.data.clip_len, *cfg.data.frame_size,
+            channels)
+    blob = serving.EXPORTERS[args.family](state, clip_shape=clip,
+                                          cfg=model_cfg, device=args.device)
+    Path(args.out).write_bytes(blob)
+    print(json.dumps({"out": args.out, "bytes": len(blob)}))
+    return 0
+
+
+def _serving_device(args):
+    """The device `serve` runs on, ``--device``, checked before the device
+    probe and any model load: the file must be servable
+    (`http_service.servable_kind`: not empty or unreadable, no ``.pth`` of
+    family A, C or E), an exported scorer must have been exported for that
+    device (each a `ValueError`); CUDA asked for on a host without it
+    raises `resolve_device`'s `RuntimeError`, as every entry point does."""
+    from cvad_tpu_torch.evaluation.http_service import servable_kind
+    from cvad_tpu_torch.evaluation.serving import artefact_meta
+    from cvad_tpu_torch.runtime.device import resolve_device
+
+    kind = servable_kind(args.model, args.family)
+    device = resolve_device(args.device)
+    if kind == "artefact":
+        runs_on = artefact_meta(Path(args.model).read_bytes())["device"]
+        if runs_on != device.type:
+            raise ValueError(f"{args.model} was exported for {runs_on}, not "
+                             f"{device.type}: serve it with --device "
+                             f"{runs_on}, or export it on {device.type}")
+    return device
+
+
 def cmd_serve(args) -> int:
+    """The HTTP scoring endpoint over a family-D or family-B ``.pth``
+    (``--family``) or an exported scorer of any family, on ``--device``
+    (CUDA by default).  A file that cannot be served there exits 1 with a
+    JSON error (`_serving_device`).  Serving on CUDA, the device check of
+    `cvad_tpu`'s ``serve`` runs next (a child process with
+    ``--probe-timeout`` seconds; 0 skips it): a card that does not answer
+    exits 1 with a JSON error before any model loads."""
     from cvad_tpu_torch.evaluation.http_service import (ScoringHTTPServer,
                                                         service_from_path)
 
+    try:
+        device = _serving_device(args)
+    except ValueError as e:
+        print(json.dumps({"error": str(e)}))
+        return 1
+    if args.probe_timeout > 0 and device.type == "cuda":
+        from cvad_tpu_torch.runtime.doctor import probe_devices
+
+        status, detail = probe_devices(args.probe_timeout)
+        if status != "ok":
+            print(json.dumps({"error": "accelerator unreachable",
+                              "device_probe": status, "detail": detail}))
+            return 1
     svc = service_from_path(
         args.model, family=args.family,
         buckets=tuple(int(b) for b in args.buckets.split(",")),
@@ -171,7 +251,7 @@ def cmd_serve(args) -> int:
         svc.warmup(dtypes=tuple(d.strip() for d in
                                 args.warmup_dtypes.split(",") if d.strip()))
     print(json.dumps({"host": srv.host, "port": srv.port,
-                      "buckets": list(svc.buckets), "device": args.device}),
+                      "buckets": list(svc.buckets), "device": str(device)}),
           flush=True)
     try:
         srv.serve_forever()
@@ -575,12 +655,31 @@ def build_parser() -> argparse.ArgumentParser:
                          "frame-level anomaly segments")
     sy.set_defaults(fn=cmd_synth)
 
+    x = sub.add_parser("export", help="a family's scorer as one "
+                                      "torch.export archive")
+    x.add_argument("torch_checkpoint")
+    x.add_argument("--family", default="d", choices=list("abcde"),
+                   help="which family the .pth belongs to")
+    x.add_argument("--out", default="scorer.pt2")
+    x.add_argument("--preset", default=None,
+                   help="the model config's preset (default: family_<f>)")
+    x.add_argument("--clip-len", type=int, default=None, dest="clip_len",
+                   help="frames a clip (default: the preset's)")
+    x.add_argument("--set", action="append", metavar="SEC.KEY=VAL")
+    _device_arg(x)
+    x.set_defaults(fn=cmd_export)
+
     sv = sub.add_parser("serve", help="HTTP scoring endpoint")
-    sv.add_argument("model", help="reference-format .pth checkpoint")
+    sv.add_argument("model", help="reference-format .pth checkpoint or an "
+                                  "exported scorer (cli export)")
     sv.add_argument("--family", default="d",
-                    help="model family of the checkpoint: 'd' (default) or "
-                         "'b'")
+                    help="model family of a .pth: 'd' (default) or 'b' "
+                         "(A, C and E serve from an exported scorer)")
     _device_arg(sv)
+    sv.add_argument("--probe-timeout", type=float, default=120.0,
+                    dest="probe_timeout",
+                    help="seconds for the device check before the model "
+                         "loads, when serving on CUDA (0 skips it)")
     sv.add_argument("--host", default="127.0.0.1")
     sv.add_argument("--port", type=int, default=8700,
                     help="0 binds an ephemeral port (printed at startup)")

@@ -22,11 +22,15 @@ batches.  Standard library only:
 
 and returns JSON ``{"scores": [...], "graphs": [[...]] | null, "n": N}``.
 
-Family B's service returns ``"graphs": null``: its model has no graph.
-The port serves family-D and family-B ``.pth`` checkpoints; start it with::
+Family B's and C's services return ``"graphs": null``: their scorers have
+no graph; an exported family-A scorer returns its detections there, as
+`cvad_tpu`'s does.  The port serves family-D and family-B ``.pth``
+checkpoints, and exported scorers (``cli export``) of every family, which
+carry their own clip shape; start it with::
 
     python -m cvad_tpu_torch.cli serve best_improved_model.pth --port 8700
     python -m cvad_tpu_torch.cli serve --family b CKPT.pth --port 8700
+    python -m cvad_tpu_torch.cli serve scorer.pt2 --port 8700
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from __future__ import annotations
 import io
 import json
 import threading
+import zipfile
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional, Tuple
 
@@ -42,26 +47,76 @@ import numpy as np
 from cvad_tpu_torch.evaluation.serving import (BatchingServer,
                                                ClipScoringService)
 
-# (T, H, W, C) of one clip per ported family (`cvad_tpu`'s table, :47-53)
-FAMILY_CLIP_SHAPES = {"b": (8, 64, 64, 1), "d": (8, 64, 64, 3)}
+# (T, H, W, C) of one clip per family (`cvad_tpu`'s table, :47-53)
+FAMILY_CLIP_SHAPES = {"a": (16, 240, 360, 1), "b": (8, 64, 64, 1),
+                      "c": (8, 64, 64, 1), "d": (8, 64, 64, 3),
+                      "e": (8, 64, 64, 3)}
 
 
 def service_from_path(path: str, family: str = "d",
                       buckets=(1, 8, 32, 128), device=None
                       ) -> ClipScoringService:
     """A scoring service over a reference-format ``.pth`` checkpoint of
-    family D or B, on `device` (CUDA unless the caller asks for the CPU).
-    Family B scores against the memory bank the checkpoint holds (all
-    ``memory_fill`` rows of a port checkpoint; ``memory_ptr`` rows of a
-    reference one) and returns scores only."""
-    if family not in FAMILY_CLIP_SHAPES:
-        raise NotImplementedError(
-            f"the port serves families 'd' and 'b'; serving family "
-            f"{family!r} needs its model and scorer in cvad_tpu_torch (see "
-            f"ROADMAP.md Queue 1)")
+    family D or B, on `device` (CUDA unless the caller asks for the CPU),
+    or over an exported scorer of any family (`serving.export_scorer` and
+    the family exporters, ``cli export``), which runs on the device it was
+    exported on at its own clip shape; `family` and `device` matter only
+    for a ``.pth``.  The two are told apart by their zip members, not by
+    their first bytes (both are zip files).  Family B scores against the
+    memory bank the checkpoint holds (all ``memory_fill`` rows of a port
+    checkpoint; ``memory_ptr`` rows of a reference one) and returns scores
+    only.  A ``.pth`` of family A, C or E raises `ValueError`: as in
+    `cvad_tpu`, those families serve from an exported scorer."""
+    if servable_kind(path, family) == "artefact":
+        with open(path, "rb") as f:
+            return ClipScoringService.from_exported(f.read(), buckets=buckets)
     return ClipScoringService.from_torch_checkpoint(
         path, family, device=device, buckets=buckets,
         clip_shape=FAMILY_CLIP_SHAPES[family])
+
+
+def servable_kind(path: str, family: str = "d") -> str:
+    """`checkpoint_kind` of a file to serve, with a ``.pth`` of a family
+    other than D and B refused by a `ValueError` that names ``cli export``
+    (those families serve from an exported scorer, as in `cvad_tpu`)."""
+    kind = checkpoint_kind(path)
+    if kind == "pth" and family not in ("d", "b"):
+        raise ValueError(f"no direct-checkpoint serving path for family "
+                         f"{family!r}; run 'python -m cvad_tpu_torch.cli "
+                         f"export --family {family}' and serve the exported "
+                         f"scorer")
+    return kind
+
+
+def artefact_kind(archive: zipfile.ZipFile) -> str:
+    """'artefact' for a `torch.export.save` archive, 'pth' for a
+    `torch.save` one, by their members (both are zip files)."""
+    names = archive.namelist()
+    if any(n.endswith("/archive_format") for n in names):
+        return "artefact"
+    if any(n.endswith("/data.pkl") or n == "data.pkl" for n in names):
+        return "pth"
+    raise ValueError("a zip file that is neither a torch.export archive "
+                     "nor a torch.save checkpoint")
+
+
+def checkpoint_kind(path: str) -> str:
+    """'artefact' (a `torch.export.save` archive) or 'pth' (a `torch.save`
+    checkpoint, zip or legacy pickle); an empty or unreadable file raises
+    `ValueError`."""
+    with open(path, "rb") as f:
+        head = f.read(2)
+    if not head:
+        raise ValueError(f"{path}: empty file is not a checkpoint or an "
+                         f"exported scorer")
+    if head[:1] == b"\x80":  # a legacy (non-zip) torch.save pickle
+        return "pth"
+    try:
+        with zipfile.ZipFile(path) as z:
+            return artefact_kind(z)
+    except (zipfile.BadZipFile, ValueError) as e:
+        raise ValueError(f"{path}: not a torch checkpoint or an exported "
+                         f"scorer ({e})") from e
 
 
 def _parse_clips(body: bytes, content_type: str,

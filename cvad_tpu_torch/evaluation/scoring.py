@@ -9,11 +9,12 @@ covering each frame), `make_family_d_score_fn`,
 `make_family_d_bulk_score_fn`, `make_family_b_score_fn`, `make_score_fn`
 (families 'd', 'b', 'c', 'a' and 'e') and `aggregate_frame_scores`.  The public
 functions take (N, T, H, W, C) clips, float32 in [0, 1] or raw uint8 pixels,
-as `cvad_tpu`'s do; the clips are copied to the device once, normalised
-there (uint8 / 255) and permuted there to the model's layout, (N, C, T,
-H, W) for families D, C and E, (N, T, C, H, W) for families B and A.  The model runs in
-``eval()`` (no dropout; BatchNorm on running statistics) under
-``torch.inference_mode()``.
+as `cvad_tpu`'s do; the clips are copied to the device once and normalised
+there (uint8 / 255).  Each family's scorer is its `serving.ScorerModule`,
+the module the exporters trace: it permutes the clips to the model's
+layout, (N, C, T, H, W) for families D, C and E, (N, T, C, H, W) for
+families B and A, and runs the model in ``eval()`` (no dropout; BatchNorm
+on running statistics), here under ``torch.inference_mode()``.
 
 Precision on the card: a float32 convolution goes through cuDNN in TF32 by
 default, which keeps about three decimal digits.  The scorers run the model
@@ -36,11 +37,7 @@ from cvad_tpu_torch.config import (DataConfig, FamilyAConfig, FamilyBConfig,
                                    LossConfig)
 from cvad_tpu_torch.data.datasets import ClipDataset
 from cvad_tpu_torch.data.frames import clip_windows, scan_video_folders
-from cvad_tpu_torch.models import (BBoxVizDetector, CausalAnomalyDetector,
-                                   CausalPipelineDetector,
-                                   MemoryVideoAutoEncoder,
-                                   Simple3DCNNDetector)
-from cvad_tpu_torch.models.family_b import MemoryBankState
+from cvad_tpu_torch.evaluation.serving import clip_scorer, scorer_module
 from cvad_tpu_torch.runtime.device import resolve_device
 
 
@@ -147,25 +144,24 @@ def prep_frames(clips: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 1, 4, 2, 3).contiguous()
 
 
-def _no_tf32():
-    cudnn = torch.backends.cudnn
-    return cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
-                       deterministic=cudnn.deterministic, allow_tf32=False)
+def _scorer(family: str, state: Mapping[str, torch.Tensor], cfg, *,
+            device, memory=None, loss_cfg=None, first: bool = False,
+            empty=None) -> Callable:
+    """A family's eager scorer: its `serving.ScorerModule` (the one
+    definition, which the exporters trace too) called on numpy clips by
+    `serving.clip_scorer`; `first` keeps the first output only, `empty` is
+    what an empty batch returns (no scores by default)."""
+    module = scorer_module(family, state, cfg, memory, loss_cfg, device)
+    run = clip_scorer(module, resolve_device(device))
+    none = np.zeros(0, np.float32) if empty is None else empty
 
+    def score(batch: np.ndarray):
+        if len(batch) == 0:
+            return none
+        out = run(batch)
+        return out[0] if first else out
 
-def _load(state: Mapping[str, torch.Tensor], cfg: FamilyDConfig,
-          device: torch.device) -> CausalAnomalyDetector:
-    model = CausalAnomalyDetector(cfg)
-    model.load_state_dict(state, strict=True)
-    return model.to(device).eval()
-
-
-def _forward(model: CausalAnomalyDetector, clips: np.ndarray,
-             device: torch.device) -> Tuple[np.ndarray, np.ndarray]:
-    x = prep_clips(torch.from_numpy(np.ascontiguousarray(clips)).to(device))
-    with torch.inference_mode(), _no_tf32():
-        scores, adj, _ = model(x)
-        return (scores.reshape(-1).cpu().numpy(), adj.cpu().numpy())
+    return score
 
 
 def _empty(cfg: FamilyDConfig) -> Tuple[np.ndarray, np.ndarray]:
@@ -180,15 +176,7 @@ def make_family_d_score_fn(state: Mapping[str, torch.Tensor],
     (N, d, d)) as numpy.  `state` is the model's state dict (the reference
     ``.pth`` keys); `device` defaults to CUDA and raises without it."""
     cfg = cfg or FamilyDConfig()
-    dev = resolve_device(device)
-    model = _load(state, cfg, dev)
-
-    def score(batch: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
-        if len(batch) == 0:
-            return _empty(cfg)
-        return _forward(model, batch, dev)
-
-    return score
+    return _scorer("d", state, cfg, device=device, empty=_empty(cfg))
 
 
 def make_family_d_bulk_score_fn(state: Mapping[str, torch.Tensor],
@@ -201,8 +189,7 @@ def make_family_d_bulk_score_fn(state: Mapping[str, torch.Tensor],
     `dtype` unless `cfg` is given, whose dtype then holds.  Returns
     (scores (N,), adjacency (N, d, d)) as numpy."""
     cfg = cfg or FamilyDConfig(dtype=dtype)
-    dev = resolve_device(device)
-    model = _load(state, cfg, dev)
+    run = _scorer("d", state, cfg, device=device, empty=_empty(cfg))
 
     def score(clips: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
         n = len(clips)
@@ -215,7 +202,7 @@ def make_family_d_bulk_score_fn(state: Mapping[str, torch.Tensor],
             if keep < batch:
                 part = np.concatenate(
                     [part, np.repeat(part[-1:], batch - keep, axis=0)])
-            s, adj = _forward(model, part, dev)
+            s, adj = run(part)
             s_parts.append(s[:keep])
             a_parts.append(adj[:keep])
         return np.concatenate(s_parts), np.concatenate(a_parts)
@@ -236,28 +223,8 @@ def make_family_b_score_fn(state: Mapping[str, torch.Tensor], memory=None,
     numpy), replaces the bank it holds.  As in `cvad_tpu`, the clips are not
     clamped to family B's (0.001, 0.999) here: the eval step clamps them,
     the scorer does not.  `device` defaults to CUDA and raises without it."""
-    cfg = cfg or FamilyBConfig()
-    w = loss_cfg or LossConfig()
-    dev = resolve_device(device)
-    model = MemoryVideoAutoEncoder(cfg)
-    model.load_state_dict(state, strict=True)
-    model = model.to(dev).eval()
-    if memory is not None:
-        model.set_memory_bank(MemoryBankState(*(
-            torch.as_tensor(np.asarray(v)).to(dev) for v in memory)))
-
-    def score(batch: np.ndarray) -> np.ndarray:
-        if len(batch) == 0:
-            return np.zeros(0, np.float32)
-        x = prep_frames(torch.from_numpy(np.ascontiguousarray(batch)).to(dev))
-        with torch.inference_mode(), _no_tf32():
-            out = model(x)
-            recon = ((out["reconstructed"] - x) ** 2).mean((1, 2, 3, 4))
-            s = w.b_score_recon * recon + w.b_score_memory * \
-                out["anomaly_score"]
-            return s.cpu().numpy()
-
-    return score
+    return _scorer("b", state, cfg, device=device, memory=memory,
+                   loss_cfg=loss_cfg)
 
 
 def make_family_c_score_fn(state: Mapping[str, torch.Tensor],
@@ -267,20 +234,7 @@ def make_family_c_score_fn(state: Mapping[str, torch.Tensor],
     (N,) as numpy, the classifier's sigmoid.  `state` is the model's state
     dict (the reference ``.pth`` keys); `device` defaults to CUDA and
     raises without it."""
-    cfg = cfg or FamilyCConfig()
-    dev = resolve_device(device)
-    model = Simple3DCNNDetector(cfg)
-    model.load_state_dict(state, strict=True)
-    model = model.to(dev).eval()
-
-    def score(batch: np.ndarray) -> np.ndarray:
-        if len(batch) == 0:
-            return np.zeros(0, np.float32)
-        x = prep_clips(torch.from_numpy(np.ascontiguousarray(batch)).to(dev))
-        with torch.inference_mode(), _no_tf32():
-            return model(x).reshape(-1).cpu().numpy()
-
-    return score
+    return _scorer("c", state, cfg, device=device)
 
 
 def make_family_a_score_fn(state: Mapping[str, torch.Tensor],
@@ -292,21 +246,7 @@ def make_family_a_score_fn(state: Mapping[str, torch.Tensor],
     `state` is the model's state dict (the reference ``.pth`` keys; its
     conv1 gives the input channels); `device` defaults to CUDA and raises
     without it."""
-    cfg = cfg or FamilyAConfig()
-    dev = resolve_device(device)
-    model = CausalPipelineDetector(
-        cfg, in_channels=state["backbone.conv1.weight"].shape[1])
-    model.load_state_dict(state, strict=True)
-    model = model.to(dev).eval()
-
-    def score(batch: np.ndarray) -> np.ndarray:
-        if len(batch) == 0:
-            return np.zeros(0, np.float32)
-        x = prep_frames(torch.from_numpy(np.ascontiguousarray(batch)).to(dev))
-        with torch.inference_mode(), _no_tf32():
-            return model(x)["anomaly_scores"].cpu().numpy()
-
-    return score
+    return _scorer("a", state, cfg, device=device, first=True)
 
 
 def make_family_e_score_fn(state: Mapping[str, torch.Tensor],
@@ -317,19 +257,7 @@ def make_family_e_score_fn(state: Mapping[str, torch.Tensor],
     model's state dict (the reference ``.pth`` keys); `device` defaults to
     CUDA and raises without it.  uint8 clips are divided by 255, as the
     port's other scorers do (`cvad_tpu` casts them without dividing)."""
-    dev = resolve_device(device)
-    model = BBoxVizDetector(cfg)
-    model.load_state_dict(state, strict=True)
-    model = model.to(dev).eval()
-
-    def score(batch: np.ndarray) -> np.ndarray:
-        if len(batch) == 0:
-            return np.zeros(0, np.float32)
-        x = prep_clips(torch.from_numpy(np.ascontiguousarray(batch)).to(dev))
-        with torch.inference_mode(), _no_tf32():
-            return model(x)[0].cpu().numpy()
-
-    return score
+    return _scorer("e", state, cfg, device=device, first=True)
 
 
 def make_score_fn(family: str, state: Mapping[str, torch.Tensor],

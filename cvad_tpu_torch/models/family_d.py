@@ -31,7 +31,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from cvad_tpu_torch.config import FamilyDConfig
-from cvad_tpu_torch.models.layers import TFoldConv1, dropout
+from cvad_tpu_torch.models.layers import (TFoldConv1, adaptive_avg_pool3d,
+                                          dropout, window_overlap)
 from cvad_tpu_torch.ops.pallas_conv import fold_group_size
 
 
@@ -78,6 +79,18 @@ def conv1_route(cfg: FamilyDConfig, t: int, h: int, w: int, on_cpu: bool
     return "s2d" if gi == "s2d" else "tfold"
 
 
+def pool3d(x: torch.Tensor, out: Tuple[int, int, int]) -> torch.Tensor:
+    """The adaptive average pool of conv3's output (N, C, T, H, W):
+    `F.adaptive_avg_pool3d` where at most two windows share an input cell
+    (its CUDA backward's atomic sums of two terms have one result), else
+    `layers.adaptive_avg_pool3d`, whose backward sums in a fixed order (at
+    16x16 frames, (2, 2, 2) -> (4, 4, 4), eight windows share each cell)."""
+    shared = math.prod(window_overlap(i, o) for i, o in zip(x.shape[2:], out))
+    if shared > 2:
+        return adaptive_avg_pool3d(x, out)
+    return F.adaptive_avg_pool3d(x, out)
+
+
 def _conv(conv: nn.Conv3d, x: torch.Tensor) -> torch.Tensor:
     """`conv` applied in x's dtype."""
     return F.conv3d(x, conv.weight.to(x.dtype), conv.bias.to(x.dtype),
@@ -113,7 +126,7 @@ class CompactFeatureExtractor(nn.Module):
         x = F.relu(_conv(self.conv3d_3, x))
         # (2, 8, 8) -> (4, 4, 4) at 8x64x64 clips: T is oversampled; at 64
         # frames (16, 8, 8) -> (4, 4, 4)
-        x = F.adaptive_avg_pool3d(x, self.pool_out)
+        x = pool3d(x, self.pool_out)
         # NCTHW flattens channel-major, the order the reference fc expects
         x = x.reshape(x.shape[0], -1)
         x = F.linear(x, self.fc.weight.to(x.dtype), self.fc.bias.to(x.dtype))

@@ -26,6 +26,9 @@ convolution runs by one of two routes, which the model picks
 `adaptive_avg_pool2d` and `mlp` are the counterparts of `cvad_tpu`'s
 helpers of the same names (:504-595) for families C and A; `run_seq`
 applies such a stack in a compute dtype with dropout from a generator.
+`adaptive_avg_pool3d` is family D's pool where more than two windows share
+an input cell (`family_d.pool3d`): its backward repeats bit for bit on the
+card, `F.adaptive_avg_pool3d`'s does not there.
 """
 
 from __future__ import annotations
@@ -171,12 +174,36 @@ def adaptive_avg_pool2d(x: torch.Tensor, out: Tuple[int, int]
     oh, ow = out
     if h % oh == 0 and w % ow == 0:
         return x.reshape(n, c, oh, h // oh, ow, w // ow).mean((3, 5))
+    return _pool_axis(_pool_axis(x, 2, oh), 3, ow)
 
-    def pool(a: torch.Tensor, dim: int, size: int, o: int) -> torch.Tensor:
-        return torch.cat([a.narrow(dim, s, e - s).mean(dim, keepdim=True)
-                          for s, e in adaptive_slices(size, o)], dim)
 
-    return pool(pool(x, 2, h, oh), 3, w, ow)
+def _pool_axis(a: torch.Tensor, dim: int, o: int) -> torch.Tensor:
+    """The mean of each of `adaptive_slices`' windows along `dim`."""
+    return torch.cat([a.narrow(dim, s, e - s).mean(dim, keepdim=True)
+                      for s, e in adaptive_slices(a.shape[dim], o)], dim)
+
+
+def window_overlap(in_size: int, out_size: int) -> int:
+    """The most adaptive-pool windows that share one input cell along an
+    axis of `in_size` pooled to `out_size`."""
+    share = [0] * in_size
+    for s, e in adaptive_slices(in_size, out_size):
+        for i in range(s, e):
+            share[i] += 1
+    return max(share)
+
+
+def adaptive_avg_pool3d(x: torch.Tensor, out: Tuple[int, int, int]
+                        ) -> torch.Tensor:
+    """(N, C, T, H, W) -> (N, C, ot, oh, ow) over ``F.adaptive_avg_pool3d``'s
+    windows, as the mean of each window along T, then H, then W
+    (`narrow`, `mean`, `cat`).  Its backward is autograd's, which adds the
+    gradients an input cell takes from the windows sharing it in a fixed
+    order; `F.adaptive_avg_pool3d`'s CUDA backward adds them with atomics,
+    in no fixed order once more than two windows share a cell."""
+    for dim, o in zip((2, 3, 4), out):
+        x = _pool_axis(x, dim, o)
+    return x
 
 
 ACTIVATIONS = {"sigmoid": nn.Sigmoid, "relu": nn.ReLU, "tanh": nn.Tanh}

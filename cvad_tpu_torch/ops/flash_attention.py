@@ -25,6 +25,11 @@ Layout is `cvad_tpu`'s: q, k, v (B, H, T, Dh), float32 or bfloat16.
   else; there is no fallback.
   ``flash_attention.launches``, ``.dq_launches`` and ``.dkv_launches``
   count kernel launches.
+- The forward is the `torch.library` custom op
+  ``cvad_torch::flash_attention_forward`` (`flash_attention_forward`: O
+  and the logsumexp; on the CPU the plain version's, the logsumexp
+  computed only there), which the Function's forward calls and
+  `torch.export` records.
 """
 
 from __future__ import annotations
@@ -46,12 +51,23 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         ) -> torch.Tensor:
     """Plain version of K6: softmax(q k^T * sm_scale [causal]) v over
     (B, H, T, Dh), the twin of `cvad_tpu`'s jnp path; output in v's type."""
+    return _attend(_scaled_logits(q, k, causal, sm_scale), v)
+
+
+def _scaled_logits(q: torch.Tensor, k: torch.Tensor, causal: bool,
+                   sm_scale: float) -> torch.Tensor:
+    """float32 q k^T * sm_scale (B, H, T, T), -1e30 above the diagonal
+    where `causal`."""
     t = q.shape[2]
     logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * sm_scale
     if causal:
         mask = torch.tril(torch.ones((t, t), dtype=torch.bool,
                                      device=q.device))
         logits = torch.where(mask, logits, torch.full_like(logits, -1e30))
+    return logits
+
+
+def _attend(logits: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     weights = torch.softmax(logits, dim=-1).to(v.dtype)
     return torch.einsum("bhqk,bhkd->bhqd", weights, v)
 
@@ -174,16 +190,38 @@ def _route(x: torch.Tensor) -> str:
                        f"{x.device}")
 
 
+@torch.library.custom_op("cvad_torch::flash_attention_forward",
+                         mutates_args=())
+def flash_attention_forward(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, causal: bool, sm_scale: float
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K6's forward as the op ``torch.ops.cvad_torch.flash_attention_forward``:
+    contiguous q, k, v (B, H, T, Dh) of one type -> (O in their type, the
+    float32 logsumexp (B, H, T)).  CUDA tensors launch the kernel (its grid
+    made here from the shapes), CPU tensors take the plain version."""
+    if _route(q) == "cuda":
+        return _launch_forward(q, k, v, causal, sm_scale)
+    logits = _scaled_logits(q, k, causal, sm_scale)
+    return _attend(logits, v), torch.logsumexp(logits, dim=-1)
+
+
+@flash_attention_forward.register_fake
+def _(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+      sm_scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    return (torch.empty_like(q),
+            q.new_empty(q.shape[:3], dtype=torch.float32))
+
+
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, sm_scale):
         ctx.causal, ctx.sm_scale = causal, sm_scale
+        o, lse = flash_attention_forward(q, k, v, causal, sm_scale)
         if _route(q) == "cuda":
-            o, lse = _launch_forward(q, k, v, causal, sm_scale)
             ctx.save_for_backward(q, k, v, o, lse)
-            return o
-        ctx.save_for_backward(q, k, v)
-        return attention_reference(q, k, v, causal=causal, sm_scale=sm_scale)
+        else:
+            ctx.save_for_backward(q, k, v)
+        return o
 
     @staticmethod
     def backward(ctx, g):

@@ -20,6 +20,11 @@ every T output at once.  Here:
   runs its float32 weight gradient ~16x slower on the H100 (3 input
   channels; PERF.md).
 
+The forward is the `torch.library` custom op ``cvad_torch::tfold_conv1``
+(`tfold_conv1_forward`, with a fake that gives the output's shape), which
+the autograd Function's forward calls; `torch.export` records it, so an
+exported scorer runs K1 on the card.
+
 Bias and ReLU stay with the caller, as in `cvad_tpu`.
 """
 
@@ -183,16 +188,33 @@ def tfold_conv1_backward_reference(grad_y: torch.Tensor, x: torch.Tensor,
     return gx, gw
 
 
+@torch.library.custom_op("cvad_torch::tfold_conv1", mutates_args=())
+def tfold_conv1_forward(x: torch.Tensor, weight: torch.Tensor
+                        ) -> torch.Tensor:
+    """K1's forward as the op ``torch.ops.cvad_torch.tfold_conv1``: a CUDA
+    x launches the kernel (its launch plan, `k1_rows`, made here from the
+    shapes and the card's SM count), a CPU x takes
+    `tfold_conv1_reference`.  `torch.export` records the op, so an
+    exported scorer runs whatever the op runs on its device."""
+    if x.device.type == "cuda":
+        return _launch(x, weight)
+    if x.device.type == "cpu":
+        return tfold_conv1_reference(x, weight)
+    raise RuntimeError(f"tfold_conv1 runs on cuda or cpu, not {x.device}")
+
+
+@tfold_conv1_forward.register_fake
+def _(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    b, _, t, h, w = x.shape
+    return x.new_empty((b, weight.shape[0], t, (h - 1) // 2 + 1,
+                        (w - 1) // 2 + 1))
+
+
 class _TFoldConv1(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, weight):
         ctx.save_for_backward(x, weight)
-        if x.device.type == "cuda":
-            return _launch(x, weight)
-        if x.device.type == "cpu":
-            return tfold_conv1_reference(x, weight)
-        raise RuntimeError(f"tfold_conv1 runs on cuda or cpu, not "
-                           f"{x.device}")
+        return tfold_conv1_forward(x, weight)
 
     @staticmethod
     def backward(ctx, grad_y):

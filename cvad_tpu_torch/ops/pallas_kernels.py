@@ -22,7 +22,9 @@ score, out[b] = clamp(min_{j < fill} (1 - clip(q^_b . m^_j, -1, 1)), 0, 2)
   stays on the device: no call reads it on the host.  The kernels take
   any B, M and D, as `cvad_tpu`'s kernel takes any D (:93-113);
   `memory_plan` picks their tile and split of D from the shapes and the
-  card's SM count.
+  card's SM count, inside the `torch.library` custom op
+  ``cvad_torch::memory_min_cosine`` (`memory_min_cosine_forward`) that the
+  Function's forward calls and `torch.export` records.
 
 K2, `pairwise_l1_mean`: for flat (B, N) and mask (B,) in {0, 1} it returns
 (avg, n_pairs): the mean over unordered pairs i<j with both rows in the mask
@@ -203,15 +205,30 @@ def _launch_memory(query: torch.Tensor, memory: torch.Tensor,
     return out
 
 
+@torch.library.custom_op("cvad_torch::memory_min_cosine", mutates_args=())
+def memory_min_cosine_forward(query: torch.Tensor, memory: torch.Tensor,
+                              fill: torch.Tensor) -> torch.Tensor:
+    """K3 as the op ``torch.ops.cvad_torch.memory_min_cosine``: float32
+    query (B, D), memory (M, D) and a one-element int fill on one device
+    -> (B,) float32.  CUDA tensors launch the kernels (their plan,
+    `memory_plan`, made here from the shapes and the card's SM count), CPU
+    tensors take `memory_min_cosine_distance_reference`."""
+    if _route(query) == "cuda":
+        return _launch_memory(query, memory, fill)
+    return memory_min_cosine_distance_reference(query, memory, fill)
+
+
+@memory_min_cosine_forward.register_fake
+def _(query: torch.Tensor, memory: torch.Tensor, fill: torch.Tensor
+      ) -> torch.Tensor:
+    return query.new_empty(query.shape[:1], dtype=torch.float32)
+
+
 class _MemoryMinCosine(torch.autograd.Function):
     @staticmethod
     def forward(ctx, query, memory, fill):
-        if _route(query) == "cuda":
-            out = _launch_memory(query, memory, fill)
-        else:
-            out = memory_min_cosine_distance_reference(query, memory, fill)
         ctx.save_for_backward(query, memory, fill)
-        return out
+        return memory_min_cosine_forward(query, memory, fill)
 
     @staticmethod
     def backward(ctx, g):

@@ -34,7 +34,10 @@ each an (M, K) x (K, N) product with K = (g+2)*4C and N = g*O.
   never asks for it.
 
 CUDA tensors launch the kernels or raise; CPU tensors take the plain
-versions.  ``s2d_fold_matmul.launches``, ``.dgrad_launches`` and
+versions.  K5's forward is the `torch.library` custom op
+``cvad_torch::s2d_group_conv`` (`s2d_group_conv_forward`), which its
+Function's forward calls and `torch.export` records.
+``s2d_fold_matmul.launches``, ``.dgrad_launches`` and
 ``.wgrad_launches``, and ``s2d_group_conv.launches`` and
 ``.backward_launches`` (its weight gradient) count kernel launches.  The
 weight gradients are summed in float32 and cast to the weight's dtype, as
@@ -529,17 +532,35 @@ s2d_fold_matmul.wgrad_launches = 0
 # ---------------------------------------------------------------------------
 
 
+@torch.library.custom_op("cvad_torch::s2d_group_conv", mutates_args=())
+def s2d_group_conv_forward(xg: torch.Tensor, wdp: torch.Tensor, g: int,
+                           cin: int, cout: int) -> torch.Tensor:
+    """K5's forward as the op ``torch.ops.cvad_torch.s2d_group_conv``: xg
+    (rows, Hc, Wc, nslab*kp) x the padded folded kernel wdp (4, kp, g*cout)
+    -> (rows, Hc-1, Wc-1, nslab*g*cout).  CUDA tensors launch the kernel
+    (its geometry, `_group_geometry`, read here from the shapes), CPU
+    tensors take `_xla_slabs_core`."""
+    if _device(xg, "s2d_group_conv") == "cpu":
+        return _xla_slabs_core(xg, wdp, xg.shape[-1] // wdp.shape[1])
+    y = _launch_group_forward(xg, wdp, g, cin, cout)
+    s2d_group_conv.launches += 1
+    return y
+
+
+@s2d_group_conv_forward.register_fake
+def _(xg: torch.Tensor, wdp: torch.Tensor, g: int, cin: int, cout: int
+      ) -> torch.Tensor:
+    rows, hc, wc, ktot = xg.shape
+    return xg.new_empty((rows, hc - 1, wc - 1,
+                         ktot // wdp.shape[1] * wdp.shape[2]))
+
+
 class _S2DGroupConv(torch.autograd.Function):
     @staticmethod
     def forward(ctx, xg, wdp, g, cin, cout):
         ctx.save_for_backward(xg, wdp)
         ctx.geo = (g, cin, cout)
-        n = xg.shape[-1] // wdp.shape[1]
-        if _device(xg, "s2d_group_conv") == "cpu":
-            return _xla_slabs_core(xg, wdp, n)
-        y = _launch_group_forward(xg, wdp, g, cin, cout)
-        s2d_group_conv.launches += 1
-        return y
+        return s2d_group_conv_forward(xg, wdp, g, cin, cout)
 
     @staticmethod
     def backward(ctx, ct):

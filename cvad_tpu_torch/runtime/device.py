@@ -26,6 +26,14 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     return dev
 
 
+def no_tf32():
+    """cuDNN's flags as they are, with TF32 off: the scorers' float32
+    numerics on the card (the matmul flag stays at its default, off)."""
+    cudnn = torch.backends.cudnn
+    return cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                       deterministic=cudnn.deterministic, allow_tf32=False)
+
+
 _SMS = {}
 
 

@@ -176,11 +176,15 @@ def test_batching_server_reports_failed_batch():
     assert stats["errors_total"] == 1
 
 
-def test_service_from_path_serves_family_d_only():
-    """Of the families, only D and B (tests/test_torch_port_train_b.py)
-    have a scorer in the port; the others raise."""
-    with pytest.raises(NotImplementedError, match="families 'd' and 'b'"):
-        service_from_path(CKPT, family="c", device="cpu")
+def test_service_from_path_refuses_pth_of_a_c_e():
+    """A `.pth` serves directly for families D and B only
+    (tests/test_torch_port_train_b.py for B); for A, C and E it raises the
+    `ValueError` that points to ``cli export``, as `cvad_tpu` does: those
+    families serve from an exported scorer
+    (tests/test_torch_port_export.py)."""
+    for family in "ace":
+        with pytest.raises(ValueError, match="cli export"):
+            service_from_path(CKPT, family=family, device="cpu")
 
 
 def _post(url, body, ctype):
