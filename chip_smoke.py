@@ -253,6 +253,21 @@ Phases:
            path's step in f32 and bf16, eager and as graphs of 4 and 16
            steps: per-step median of 20 calls (CUDA events) and busy share
            (torch.profiler over one call)
+  parallel (main path parallel) the multi-device layer on an NCCL process
+           group of world size 1 (one card; NCCL takes one rank a card),
+           started in this process from a file:// rendezvous and destroyed
+           after: family D at full width (B=256, uint8 64x64 clips) through
+           the mesh Trainer, 4 eager steps then one captured 4-step graph
+           with NCCL's collectives inside it, and family B at memory_ae's
+           width (B=64) one step and eval, each bit-identical to the same
+           run with no process group (parameters, BatchNorm statistics,
+           bank, both Adam moments, metric sums, predictions); the sharded
+           scorers of D (the fixture) and C (seed 0) equal to the plain
+           ones bit for bit on 64 clips; temporal_sharded_forward at time
+           axis 1 on 16 clips of T=64 (conv1 on F.conv3d) within 1e-5 of
+           the model's forward (K1); K1, K2 and K3 launched, the
+           collectives' calls; the eager step time (median of 20, CUDA
+           events) of the mesh trainer beside the plain one
   times    kernel, plain-version and library times (CUDA events), the
            bounds, per-bucket request latency of both families, bulk
            clips/s, the train step of both families at B=256, the
@@ -302,8 +317,8 @@ Kernel launch counts are set to 0 just before each main path (serve + bulk,
 long_score, long_train, train, family_b_train, family_b_serve, attn_train,
 family_c_train, family_a_train, video_score_d, stream_d, video_score_b,
 video_score_d64, video_score_a, video-e, report, export_<artefact>,
-graph_<path> (after the capture, over the replays), steps_per_call_fit)
-and read just after it;
+graph_<path> (after the capture, over the replays), steps_per_call_fit,
+parallel) and read just after it;
 families C, A and E must read 0 for every kernel.  The last lines are the kernels summary, the card's
 nvidia-smi name and power limit, and {"ok": true, "device": {...}}.
 """
@@ -503,6 +518,18 @@ C_SEED, A_SEED, A_NOISE_SEED = 13, 14, 21
 # EXPORT_LAT_CALLS calls a latency median; its own generator
 EXPORT_SEED, EXPORT_TOL, EXPORT_LAT_CALLS = 23, 1e-5, 5
 EXPORT_BUCKETS, EXPORT_BUCKETS_A = (1, 8, 32), (1, 4)
+# phase parallel: an NCCL process group of one rank; family D at full
+# width, PAR_EAGER eager steps then one captured graph of PAR_K steps at
+# B=PAR_BATCH, family B (memory_ae) one step and eval at B=PAR_B_BATCH,
+# the sharded scorers on PAR_SCORE_CLIPS clips, the T=64 halo forward on
+# PAR_T64_CLIPS clips within PAR_T64_TOL (F.conv3d against K1), step times
+# over PAR_TIME_CALLS eager steps; its own generator
+PAR_SEED, PAR_BATCH, PAR_EAGER, PAR_K = 24, 256, 4, 4
+PAR_B_BATCH, PAR_SCORE_CLIPS, PAR_T64_CLIPS, PAR_T64_TOL = 64, 64, 16, 1e-5
+PAR_TIME_CALLS = 20
+COLLECTIVES = ("gather", "gather_backward", "all_reduce_sum",
+               "all_reduce_sum_backward", "reduce_gradients",
+               "halo_exchange", "halo_exchange_backward")
 # the port's CUDA kernels by symbol name (cvad_tpu_torch/csrc/*.cu), picked
 # out of the profiler's rows
 PORT_KERNELS = ("tfold_conv1_", "pairwise_", "memory_min_cosine_",
@@ -4731,6 +4758,200 @@ def train_step_times(rng: np.random.Generator, dtype: str,
             "seconds": time.perf_counter() - t0}
 
 
+def state_differ(a, b) -> dict:
+    """The entries of two train states (state dict, Adam's moments, count,
+    lr) that are not bit-identical, with their largest difference."""
+    sa, sb = a.model.state_dict(), b.model.state_dict()
+    out = {k: float((sa[k].double() - sb[k].double()).abs().max())
+           for k in sa if not torch.equal(sa[k], sb[k])}
+    for k in ("mu", "nu", "count", "lr"):
+        x, y = getattr(a.opt_state, k), getattr(b.opt_state, k)
+        if not torch.equal(x, y):
+            out[f"opt.{k}"] = float((x.double() - y.double()).abs().max())
+    return out
+
+
+def parallel_d_run(mesh, workdir: Path, name: str, batches: list) -> tuple:
+    """Family D at full width through a Trainer on `mesh`: PAR_EAGER eager
+    steps, then one captured chunk of PAR_K steps (the collectives inside
+    the graph where the mesh has a process group); the trainer and the
+    summed metric vector."""
+    from cvad_tpu_torch.train.engine import Trainer
+
+    cfg = train_config(PAR_BATCH)
+    tr = Trainer(cfg, mesh=mesh, out_dir=str(workdir / name))
+    tr.init_state()
+    total = None
+    for b in batches[:PAR_EAGER]:
+        _, m = tr.task.train_step(tr.state, tr.put_batch(b), tr._seed)
+        vec = torch.stack([m[k].float() for k in sorted(m)])
+        total = vec if total is None else total + vec
+    _, total, _ = tr._multi(tr.state, tr.put_chunk(batches[PAR_EAGER:]),
+                            total)
+    torch.cuda.synchronize()
+    return tr, total
+
+
+def parallel_b_run(mesh, batch: dict) -> tuple:
+    """Family B (memory_ae's width) on `mesh`: one step from seed 0 and
+    the eval step after it; the state and the eval outputs."""
+    from cvad_tpu_torch.train.tasks import build_task
+
+    task = build_task(b_train_config(PAR_B_BATCH), mesh)
+    state = task.init_state(0, "cuda")
+    dev = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+    state, _ = task.train_step(state, dev, 1)
+    out = task.eval_step(state, dev)
+    torch.cuda.synchronize()
+    return state, {k: v.cpu() for k, v in out.items()}
+
+
+def step_ms(tr, batch: dict, calls: int = PAR_TIME_CALLS) -> dict:
+    """Eager train steps of `tr` on one device batch: CUDA-event time of
+    each, median and spread (3 warm-up steps first)."""
+    for _ in range(3):
+        tr.task.train_step(tr.state, batch, tr._seed)
+    ms = []
+    for _ in range(calls):
+        start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        tr.task.train_step(tr.state, batch, tr._seed)
+        stop.record()
+        stop.synchronize()
+        ms.append(start.elapsed_time(stop))
+    return {"calls": calls, "median_ms": statistics.median(ms),
+            "min_ms": min(ms), "max_ms": max(ms)}
+
+
+def phase_parallel(workdir: Path, card: str) -> dict:
+    """Main path parallel: the multi-device layer on an NCCL process group
+    of one rank (the machine has one card; NCCL refuses two ranks on one
+    card), started in this process from a file:// rendezvous in
+    `workdir` and destroyed after.  The mesh's data axis goes through
+    every collective (`parallel/collectives.py`), each an exact copy over
+    one rank, so each run must be bit-identical to the same run on the
+    trivial mesh with no process group: family D at full width (B=256,
+    uint8 64x64 clips) through the mesh Trainer, PAR_EAGER eager steps
+    and one captured PAR_K-step graph with NCCL's all-reduce inside it
+    (parameters, both Adam moments, the metric sums); family B at
+    memory_ae's width, one step and the eval step (bank, parameters,
+    predictions; K3); the sharded scorers of D (the fixture) and C against
+    the plain scorers; `temporal_sharded_forward` at time axis 1 and T=64
+    (conv1 on F.conv3d) within PAR_T64_TOL of the model's forward (K1).
+    The counts are set to 0 before the mesh's runs and read after them
+    (the no-group runs go first and are not counted).  Then the eager
+    step time of the mesh trainer beside the plain one."""
+    import torch.distributed as dist
+
+    from cvad_tpu_torch.evaluation.scoring import (make_score_fn,
+                                                   make_sharded_score_fn)
+    from cvad_tpu_torch.models import CausalAnomalyDetector
+    from cvad_tpu_torch.models.registry import build_model
+    from cvad_tpu_torch.parallel.temporal import temporal_sharded_forward
+    from cvad_tpu_torch.runtime.checkpoint import load_torch_state_dict
+    from cvad_tpu_torch.runtime.mesh import create_mesh, single_mesh
+    from cvad_tpu_torch.runtime.multihost import start_group
+    from cvad_tpu_torch.train.tasks import card_numerics
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(PAR_SEED)
+    batches = [{"clips": rng.integers(0, 256, (PAR_BATCH,) + CLIP,
+                                      dtype=np.uint8),
+                "labels": np.zeros(PAR_BATCH, np.float32)}
+               for _ in range(PAR_EAGER + PAR_K)]
+    b_batch = {"clips": rng.integers(0, 256, (PAR_B_BATCH,) + CLIP_B,
+                                     dtype=np.uint8),
+               "labels": (np.arange(PAR_B_BATCH) % 4 == 3).astype(
+                   np.float32), "valid": np.ones(PAR_B_BATCH, np.float32)}
+    fixture = load_torch_state_dict(str(CKPT))
+    score_clips = rng.uniform(0, 1, (PAR_SCORE_CLIPS,) + CLIP).astype(
+        np.float32)
+    c_state = build_model(c_config(8).model, seed=0).state_dict()
+    c_clips = rng.uniform(0, 1, (PAR_SCORE_CLIPS,) + C_CLIP).astype(
+        np.float32)
+    long_clips = rng.uniform(0, 1, (PAR_T64_CLIPS,) + LONG_CLIP).astype(
+        np.float32)
+
+    # the trivial mesh: no process group
+    plain = single_mesh()
+    ref_d, ref_total = parallel_d_run(plain, workdir, "par_plain", batches)
+    ref_b, ref_eval = parallel_b_run(plain, b_batch)
+    ref_scores_d = make_score_fn("d", fixture)(score_clips)
+    ref_scores_c = make_score_fn("c", c_state)(c_clips)
+
+    start_group(0, 1, (workdir / "nccl_rendezvous").as_uri(),
+                torch.device("cuda", 0))
+    try:
+        backend = dist.get_backend()
+        check(backend == "nccl", f"the process group's backend is {backend}")
+        mesh = create_mesh()
+        reset_counts()
+        tr, total = parallel_d_run(mesh, workdir, "par_mesh", batches)
+        state_b, got_eval = parallel_b_run(mesh, b_batch)
+        scores_d = make_sharded_score_fn(fixture, mesh, "d")(score_clips)
+        scores_c = make_sharded_score_fn(c_state, mesh, "c")(c_clips)
+        model = CausalAnomalyDetector().cuda().eval()
+        model.load_state_dict(fixture)
+        with torch.no_grad(), card_numerics():
+            sharded = temporal_sharded_forward(model, long_clips, mesh)
+            x = torch.from_numpy(long_clips).cuda().permute(0, 4, 1, 2, 3)
+            want = model(x.contiguous())
+        torch.cuda.synchronize()
+        launched = counts()
+        d_differ = state_differ(tr.state, ref_d.state)
+        b_differ = state_differ(state_b, ref_b)
+        times = {"mesh": step_ms(tr, tr.put_batch(batches[0]))}
+    finally:
+        dist.destroy_process_group()
+    times["plain"] = step_ms(ref_d, ref_d.put_batch(batches[0]))
+    eval_equal = all(torch.equal(got_eval[k], ref_eval[k])
+                     for k in ref_eval)
+    scorers_equal = (all(np.array_equal(a, b) for a, b in
+                         zip(scores_d, ref_scores_d))
+                     and np.array_equal(scores_c, ref_scores_c))
+    t64_err = max(float((a - b).abs().max())
+                  for a, b in zip(sharded, want))
+    line = {"phase": "parallel", "card": card, "backend": backend,
+            "world_size": 1, "d": {"B": PAR_BATCH, "eager": PAR_EAGER,
+                                   "graph_K": PAR_K, "n_differ": len(
+                                       d_differ), "differ": dict(list(
+                                           d_differ.items())[:8]),
+                                   "metrics_equal": bool(torch.equal(
+                                       total, ref_total)),
+                                   "metric_sum": total.tolist()},
+            "b": {"B": PAR_B_BATCH, "n_differ": len(b_differ),
+                  "differ": dict(list(b_differ.items())[:8]),
+                  "eval_equal": eval_equal,
+                  "bank_fill": int(state_b.model.memory_bank().fill)},
+            "scorers_equal": scorers_equal,
+            "t64": {"clips": PAR_T64_CLIPS, "T": LONG_CLIP[0],
+                    "max_abs_err": t64_err, "tol": PAR_T64_TOL},
+            "kernel_launches": {k: launched[k] for k in (
+                "tfold_conv1", "pairwise_l1_forward", "pairwise_l1_backward",
+                "memory_min_cosine")},
+            "collective_calls": {k: v for k, v in launched.items()
+                                 if k in COLLECTIVES},
+            "step_ms": times, "seconds": time.perf_counter() - t0}
+    emit(line)
+    check(not d_differ and line["d"]["metrics_equal"],
+          f"family D on the NCCL mesh differs from no group: {d_differ}")
+    check(not b_differ and eval_equal,
+          f"family B on the NCCL mesh differs from no group: {b_differ}")
+    check(scorers_equal, "a sharded scorer differs from the plain one")
+    check(t64_err <= PAR_T64_TOL,
+          f"temporal_sharded_forward at T=64 off by {t64_err}")
+    for k in ("tfold_conv1", "pairwise_l1_forward", "pairwise_l1_backward",
+              "memory_min_cosine"):
+        check(launched[k] > 0, f"phase parallel never launched {k}")
+    # D's eager steps, the graph's warm-up step and replayed steps, B's
+    check(launched["reduce_gradients"] == PAR_EAGER + 1 + PAR_K + 1
+          and launched["gather"] > 0 and launched["all_reduce_sum"] > 0,
+          f"the collectives were not called: {line['collective_calls']}")
+    del tr, ref_d, state_b, ref_b, model
+    torch.cuda.empty_cache()
+    return launched
+
+
 def device_breakdown(fn, warm: bool = True) -> dict:
     """Device time by kernel over one call of `fn` (after one warm call
     unless `warm` is False, for a caller that warmed it), from
@@ -4936,6 +5157,12 @@ def main() -> int:
     for name, launched in spc_paths.items():
         paths[name] = launched
         emit({"phase": "main_path", "path": name, "launches": launched})
+    # the multi-device layer on an NCCL group of one rank (main path
+    # parallel; resets the counts first)
+    with tempfile.TemporaryDirectory(prefix="cvad_chip_smoke_") as tmp:
+        paths["parallel"] = phase_parallel(Path(tmp), dev["card"])
+    emit({"phase": "main_path", "path": "parallel",
+          "launches": paths["parallel"]})
 
     # the eager rows of phase steps_per_call, and the K1 route at T=64
     eager = {(t["family"], t["dtype"]): t for t in spc_times if t["K"] == 1}

@@ -5,6 +5,8 @@
         [--profile-dir TRACE_DIR] \\
         [--dataset ucsd_ped2 --data-root TREE] [--set SEC.KEY=VAL ...] \\
         [--device cuda]
+    torchrun --nproc_per_node=N -m cvad_tpu_torch.cli train \\
+        [--set parallel.temporal_axis=T] [--device cpu] ...
     python -m cvad_tpu_torch.cli train --preset memory_ae --out results_b
     python -m cvad_tpu_torch.cli train --preset mini3d --out results_c
     python -m cvad_tpu_torch.cli train --preset causal_pipeline --out results_a
@@ -32,7 +34,9 @@
     python -m cvad_tpu_torch.cli smoke [--data-root TREE]
     python -m cvad_tpu_torch.cli doctor [--probe-timeout 60]
 
-``train`` is `cvad_tpu/cli.py::cmd_train` for families D (presets
+``train`` is `cvad_tpu/cli.py::cmd_train` (under ``torchrun`` on the
+ranks of a mesh, ``--set parallel.data_axis=D --set
+parallel.temporal_axis=T``) for families D (presets
 avenue_improved, family_d), B (memory_ae, family_b), C (mini3d, family_c)
 and A (causal_pipeline, family_a; the anchor variant causal_pipeline_v0,
 family_a_anchor), on synthetic clips
@@ -131,6 +135,26 @@ def _with_data(cfg: ExperimentConfig, args) -> ExperimentConfig:
 
 
 def cmd_train(args) -> int:
+    """Under ``torchrun --nproc_per_node=N -m cvad_tpu_torch.cli train``
+    every process joins the process group (`multihost.initialize`: NCCL
+    on ``cuda:LOCAL_RANK``, gloo with ``--device cpu``) and trains its
+    part of the mesh that ``--set parallel.*`` lays out; rank 0 alone
+    writes the run directory and prints the summary."""
+    import torch.distributed as dist
+
+    from cvad_tpu_torch.runtime import multihost
+
+    started = not dist.is_initialized()
+    info = multihost.initialize(device=args.device)
+    started = started and dist.is_initialized()
+    try:
+        return _train(args, info.is_primary)
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+def _train(args, primary: bool) -> int:
     from cvad_tpu_torch.train.engine import Trainer, make_loaders
 
     cfg = preset(args.preset)
@@ -141,12 +165,15 @@ def cmd_train(args) -> int:
 
     out = Path(cfg.train.out_dir)
     out.mkdir(parents=True, exist_ok=True)
-    (out / "config.json").write_text(cfg.to_json())
+    if primary:
+        (out / "config.json").write_text(cfg.to_json())
 
     trainer = Trainer(cfg, device=args.device)
     train_loader, eval_loader = make_loaders(cfg, n_synthetic=args.n_synthetic)
     if args.resume:
-        print(json.dumps({"resumed_from": trainer.restore()}))
+        resumed = trainer.restore()
+        if primary:
+            print(json.dumps({"resumed_from": resumed}))
     if args.profile_dir:
         # one unrecorded epoch 0 under the profiler before the run, as
         # cvad_tpu's train does (it trains the state it profiles)
@@ -157,10 +184,12 @@ def cmd_train(args) -> int:
         with profile_trace(args.profile_dir, trainer.device):
             trainer.train_epoch(train_loader, epoch=0, record=False)
     history = trainer.fit(train_loader, eval_loader)
-    print(json.dumps({"final_loss": history["train_losses"][-1],
-                      "epochs": len(history["epochs"]),
-                      "best": str(trainer.ckpt.path("best")),
-                      "device": str(trainer.device)}))
+    if primary:
+        print(json.dumps({"final_loss": history["train_losses"][-1],
+                          "epochs": len(history["epochs"]),
+                          "best": str(trainer.ckpt.path("best")),
+                          "device": str(trainer.device),
+                          "mesh": trainer.mesh.shape}))
     return 0
 
 

@@ -14,8 +14,9 @@ XLA conv (the port runs ``F.conv3d``), `FamilyAConfig.frame_hw`, which
 nothing reads, and
 `TrainConfig.normal_only`, which no code of `cvad_tpu` reads (family B's
 step trains on the normal clips).
-`ParallelConfig` (the device mesh, ROADMAP Queue 1 item 14) is not
-carried.
+`ParallelConfig` is the device mesh's layout (`runtime/mesh.py`): the
+data axis over the ranks of a ``torch.distributed`` world, and the time
+axis that shards family D's clips along T (`parallel/temporal.py`).
 Configs are frozen dataclasses that write JSON as `cvad_tpu`'s do.
 """
 
@@ -290,6 +291,22 @@ class OptimConfig(_Base):
 
 
 @dataclass(frozen=True)
+class ParallelConfig(_Base):
+    """The mesh over the ranks of the process group (`cvad_tpu.config`'s,
+    :297-304): clip-batch data parallelism, optionally family D's clips
+    sharded along T."""
+
+    data_axis: int = 0  # 0 = every rank the time axis leaves
+    temporal_axis: int = 1  # >1 shards the clips' T with a halo exchange
+    mesh_axis_names: Tuple[str, ...] = ("data", "time")
+
+    def __post_init__(self):
+        if self.data_axis < 0 or self.temporal_axis < 1:
+            raise ValueError(f"parallel.data_axis={self.data_axis} (>= 0), "
+                             f"temporal_axis={self.temporal_axis} (>= 1)")
+
+
+@dataclass(frozen=True)
 class TrainConfig(_Base):
     num_epochs: int = 80
     eval_every: int = 5
@@ -337,6 +354,7 @@ class ExperimentConfig(_Base):
     data: DataConfig = field(default_factory=DataConfig)
     loss: LossConfig = field(default_factory=LossConfig)
     optim: OptimConfig = field(default_factory=OptimConfig)
+    parallel: ParallelConfig = field(default_factory=ParallelConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
 
 

@@ -9,8 +9,12 @@ collates batches into a bounded queue.  Before collating a batch it calls
 the dataset's ``warm_frames`` where it has one (the frame-folder datasets:
 one threaded native decode of every frame the batch still misses), and
 ``torch_layout`` collates (B, C, T, H, W) for the reference-layout adapter
-(`data/datasets.py::create_avenue_dataloaders`).  The multi-host knob
-(``max_batches``) waits for the mesh (ROADMAP Queue 1 item 14).
+(`data/datasets.py::create_avenue_dataloaders`).  ``max_batches`` caps an
+epoch's batches: `runtime/multihost.py::make_host_loader` caps every rank
+to the fleet-wide count, so that no rank runs a collective alone.
+`DevicePrefetcher` puts each batch on the device as this rank's part of
+it, over a mesh (`runtime/mesh.py::shard_batch`), after padding it to the
+data axis with its ``valid`` mask where asked (`pad_with_valid`).
 """
 
 from __future__ import annotations
@@ -18,18 +22,12 @@ from __future__ import annotations
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Iterable, Iterator, List
+from typing import Dict, Iterable, Iterator, List, Optional
 
 import numpy as np
 import torch
 
-
-def with_valid(batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
-    """`batch` with the all-ones ``"valid"`` loss mask that `cvad_tpu`'s
-    ``pad_with_valid`` attaches to every batch the engine feeds (on one
-    device nothing is padded)."""
-    n = len(next(iter(batch.values())))
-    return {**batch, "valid": np.ones(n, np.float32)}
+from cvad_tpu_torch.runtime.mesh import pad_with_valid, shard_batch
 
 
 class BatchLoader:
@@ -43,11 +41,17 @@ class BatchLoader:
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
                  drop_last: bool = False, seed: int = 0,
                  torch_layout: bool = False, num_threads: int = 4,
-                 prefetch: int = 2, transfer_dtype: str = "float32"):
+                 prefetch: int = 2, transfer_dtype: str = "float32",
+                 max_batches: int = 0):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
+        # 0 = no cap; multi-process runs cap every rank to the fleet-wide
+        # minimum, so that no rank runs a collective alone
+        self.max_batches = max_batches
+        # True for a make_host_loader shard: it yields this rank's rows
+        self.host_local = False
         self.seed = seed
         self.torch_layout = torch_layout
         self.num_threads = max(1, num_threads)
@@ -67,8 +71,9 @@ class BatchLoader:
 
     def __len__(self) -> int:
         n = len(self.dataset)
-        return (n // self.batch_size if self.drop_last
-                else (n + self.batch_size - 1) // self.batch_size)
+        k = (n // self.batch_size if self.drop_last
+             else (n + self.batch_size - 1) // self.batch_size)
+        return min(k, self.max_batches) if self.max_batches else k
 
     def _batch_indices(self):
         n = len(self.dataset)
@@ -76,6 +81,8 @@ class BatchLoader:
         if self.shuffle:
             np.random.default_rng(self.seed + self._epoch).shuffle(idx)
         stop = (n // self.batch_size) * self.batch_size if self.drop_last else n
+        if self.max_batches:
+            stop = min(stop, self.max_batches * self.batch_size)
         for s in range(0, stop, self.batch_size):
             yield idx[s:s + self.batch_size]
 
@@ -184,6 +191,11 @@ class BatchLoader:
 class DevicePrefetcher:
     """Copy host batch k+1 to the device while batch k computes.
 
+    Each host batch is first padded to a multiple of `pad_to_multiple` rows
+    with its ``valid`` mask where that is given, and with a `mesh` cut to
+    this rank's rows (and, with `time_dim`, frames): a (K, B, ...) chunk,
+    whose clips have 6 axes, along its axis 1 (`cvad_tpu`'s :178-206).
+
     On CUDA a worker thread draws the next host batch and stages it in
     pinned memory, the copy runs on a side stream (``non_blocking``), and
     the consumer's stream waits on the copy's event before the batch is
@@ -195,12 +207,21 @@ class DevicePrefetcher:
     """
 
     def __init__(self, host_batches: Iterable[Dict[str, np.ndarray]],
-                 device):
+                 device, mesh=None, pad_to_multiple: Optional[int] = None,
+                 time_dim: Optional[int] = None):
         self.host_batches = host_batches
         self.device = torch.device(device)
+        self.mesh = mesh
+        self.pad = pad_to_multiple
+        self.time_dim = time_dim
 
-    @staticmethod
-    def _tensors(batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    def _tensors(self, batch: Dict[str, np.ndarray]
+                 ) -> Dict[str, torch.Tensor]:
+        if self.pad:
+            batch = pad_with_valid(batch, self.pad)
+        if self.mesh is not None:
+            lead = 1 if np.ndim(batch["clips"]) == 6 else 0
+            batch = shard_batch(self.mesh, batch, self.time_dim, lead)
         return {k: torch.from_numpy(np.ascontiguousarray(v))
                 for k, v in batch.items()}
 

@@ -8,17 +8,23 @@ copy an epoch), and each batch is an ``index_select`` on the device.  The
 batch composition is `cvad_tpu`'s: `BatchLoader.epoch_index_batches`'
 order, the ``valid`` mask of every batch, ``skip`` for a mid-epoch resume,
 and equal-shaped batches grouped into (K, B, ...) chunks for the K-step
-call.  The port has no mesh, so the data-axis multiple `nd` is 1 and no
-batch is padded.  A cached epoch is bit-identical to the uncached feed
+call.  Over a mesh every rank holds the whole split and gathers its rows
+of each index batch padded to the data axis (`cvad_tpu`'s :90-131), and on
+a time axis its frames of them.  A `make_host_loader` shard is not
+eligible: its rows are this rank's alone (`cvad_tpu` gates every
+multi-process run out, :46; the port gates only those shards).  A cached
+epoch is bit-identical to the uncached feed
 (tests/test_torch_port_cache.py).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, List, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from cvad_tpu_torch.runtime.mesh import part
 
 _DEFAULT_BYTES_LIMIT = 4 << 30  # where the device reports no memory size
 
@@ -38,7 +44,8 @@ def cache_eligible(loader, hbm_frac: float, device=None,
                    reserved_bytes: int = 0) -> bool:
     """True where `loader`'s dataset can feed from the cache: uint8
     transfer, a ``get_uint8`` dataset, the native (B, T, H, W, C) layout,
-    ``epoch_index_batches``, and the whole split plus `reserved_bytes`
+    ``epoch_index_batches``, not a `make_host_loader` shard, and the whole
+    split plus `reserved_bytes`
     (caches the caller holds already) within `hbm_frac` of the device's
     memory."""
     ds = getattr(loader, "dataset", None)
@@ -46,7 +53,8 @@ def cache_eligible(loader, hbm_frac: float, device=None,
         return False
     if getattr(loader, "transfer_dtype", None) != "uint8":
         return False
-    if getattr(loader, "torch_layout", False):
+    if getattr(loader, "torch_layout", False) or getattr(
+            loader, "host_local", False):
         return False
     if not hasattr(ds, "get_uint8") or not hasattr(
             loader, "epoch_index_batches"):
@@ -71,11 +79,15 @@ def _with_valid(idx: np.ndarray, nd: int) -> Tuple[np.ndarray, np.ndarray]:
 
 class DeviceClipCache:
     """The split as one (N, T, H, W, C) uint8 device tensor and its
-    float32 labels."""
+    float32 labels; with a `mesh`, batches of this rank's rows (and, with
+    `time_dim`, frames)."""
 
-    def __init__(self, loader, device, num_threads: int = 4):
+    def __init__(self, loader, device, mesh=None,
+                 time_dim: Optional[int] = None, num_threads: int = 4):
         self.loader = loader
         self.device = torch.device(device)
+        self.mesh = mesh
+        self.time_dim = time_dim
         ds = loader.dataset
         n = len(ds)
         if hasattr(ds, "warm_frames"):
@@ -120,19 +132,31 @@ class DeviceClipCache:
                        ) -> Iterator[Dict[str, torch.Tensor]]:
         """`epoch`'s batches gathered on the device: ``clips``, ``labels``
         and ``valid``, (K, B, ...) chunks where `k` > 1, single batches
-        otherwise; `skip` resumes mid-epoch at the exact batch.  The
+        otherwise, each padded to a multiple of `nd` rows (of the mesh's
+        data axis where there is a mesh), of which this rank's;
+        `skip` resumes mid-epoch at the exact batch.  The
         epoch's indices and valid masks go to the device once."""
+        mesh = self.mesh
+        if mesh is not None:
+            nd = mesh.shape["data"]
         groups = self._groups(epoch, k, nd, skip)
         if not groups:
             return
+        if mesh is not None:  # this rank's rows of each padded batch
+            groups = [tuple(part(a, a.ndim - 1, mesh.data) for a in g)
+                      for g in groups]
         rows, masks = (self._put(np.concatenate([g[j].ravel() for g in
                                                  groups]))
                        for j in (0, 1))
         at = 0
         for idx, _ in groups:
             r = rows[at:at + idx.size]
-            yield {"clips": self.clips.index_select(0, r).view(
-                       idx.shape + self.clips.shape[1:]),
+            clips = self.clips.index_select(0, r).view(
+                idx.shape + self.clips.shape[1:])
+            if self.time_dim is not None:
+                clips = part(clips, idx.ndim - 1 + self.time_dim,
+                             mesh.time).contiguous()
+            yield {"clips": clips,
                    "labels": self.labels.index_select(0, r).view(idx.shape),
                    "valid": masks[at:at + idx.size].view(idx.shape)}
             at += idx.size

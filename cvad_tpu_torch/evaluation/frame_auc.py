@@ -106,9 +106,10 @@ def dataset_frame_auc(score_fn: Callable, data_cfg, root: str,
 
 def make_trainer_score_fn(trainer) -> Callable:
     """Batch scorer from a (restored) `cvad_tpu_torch.train.engine.Trainer`:
-    its task's eval step on the trainer's device, which returns per-clip
-    ``predictions`` for families D, B, C and A.  The port trains on one
-    device, so nothing is padded."""
+    its task's eval step, which returns per-clip ``predictions`` for
+    families D, B, C and A.  The batch is padded to the mesh's data axis
+    and sharded as `Trainer.evaluate` feeds it (`Trainer.put_batch`); the
+    step gathers the ranks' rows and the padding is trimmed."""
     import torch
 
     def score(batch: np.ndarray) -> np.ndarray:
@@ -116,6 +117,7 @@ def make_trainer_score_fn(trainer) -> Callable:
         out = trainer.task.eval_step(trainer.state, trainer.put_batch({
             "clips": np.asarray(batch),
             "labels": np.zeros(n, np.float32)}))
-        return out["predictions"].reshape(-1).to(torch.float32).cpu().numpy()
+        return out["predictions"].reshape(-1)[:n].to(
+            torch.float32).cpu().numpy()
 
     return score

@@ -7,7 +7,8 @@ Port of `cvad_tpu/evaluation/scoring.py`: `ScoredClip`, `VideoScorer`
 batches of `batch_size`, the per-frame curve the mean of the windows
 covering each frame), `make_family_d_score_fn`,
 `make_family_d_bulk_score_fn`, `make_family_b_score_fn`, `make_score_fn`
-(families 'd', 'b', 'c', 'a' and 'e') and `aggregate_frame_scores`.  The public
+(families 'd', 'b', 'c', 'a' and 'e'), `make_sharded_score_fn` (families
+'d' and 'c' over the mesh's data axis) and `aggregate_frame_scores`.  The public
 functions take (N, T, H, W, C) clips, float32 in [0, 1] or raw uint8 pixels,
 as `cvad_tpu`'s do; the clips are copied to the device once and normalised
 there (uint8 / 255).  Each family's scorer is its `serving.ScorerModule`,
@@ -278,3 +279,45 @@ def make_score_fn(family: str, state: Mapping[str, torch.Tensor],
     if family == "e":
         return make_family_e_score_fn(state, cfg, device=device)
     raise KeyError(f"unknown family {family!r}")
+
+
+def make_sharded_score_fn(state: Mapping[str, torch.Tensor], mesh=None,
+                          family: str = "d", cfg=None, *,
+                          device=None) -> Callable:
+    """Data-parallel scorer (`cvad_tpu`'s, :314-362): each rank scores its
+    rows of the batch, padded to a multiple of the data axis by repeating
+    its last clip, and every rank gets the whole batch's outputs, gathered
+    and trimmed.  Family 'd' returns (scores (N,), adjacency), family 'c'
+    scores (N,).  `mesh` defaults to `create_mesh()` (the trivial one
+    without a process group, where this is the family's plain scorer).
+    Every rank must call it with the same batch size."""
+    from cvad_tpu_torch.parallel.collectives import gather
+    from cvad_tpu_torch.runtime.mesh import create_mesh, part
+
+    if family not in ("d", "c"):
+        raise KeyError(f"the sharded scorer has families 'd' and 'c', not "
+                       f"{family!r}")
+    mesh = mesh if mesh is not None else create_mesh()
+    dev = resolve_device(device)
+    module = scorer_module(family, state, cfg, device=dev)
+
+    def fn(x: torch.Tensor):
+        out = module(x)
+        if isinstance(out, (tuple, list)):
+            return tuple(gather(o, mesh.data) for o in out)
+        return gather(out, mesh.data)
+
+    run = clip_scorer(fn, dev)
+    nd = mesh.shape["data"]
+
+    def score(batch: np.ndarray):
+        n = len(batch)
+        pad = -n % nd
+        if pad:
+            batch = np.concatenate([batch, np.repeat(batch[-1:], pad, 0)])
+        out = run(part(batch, 0, mesh.data))
+        if isinstance(out, tuple):
+            return tuple(o[:n] for o in out)
+        return out[:n]
+
+    return score

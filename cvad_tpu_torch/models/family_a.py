@@ -58,6 +58,7 @@ from torch.utils.checkpoint import checkpoint
 
 from cvad_tpu_torch.config import FamilyAConfig
 from cvad_tpu_torch.models.init import lecun_normal_
+from cvad_tpu_torch.parallel.collectives import random
 from cvad_tpu_torch.models.layers import (MaskedBatchNorm, accumulate,
                                           adaptive_avg_pool2d, compute_dtype,
                                           linear, mlp, run_seq)
@@ -76,7 +77,7 @@ def vae_noise(shape: Tuple[int, ...], dtype: torch.dtype,
     """The VAE's standard-normal draw e of z = mu + e * std, drawn in
     float32 and cast to `dtype` (so runs in other dtypes take the same
     draw)."""
-    return torch.randn(shape, generator=generator, device=device).to(dtype)
+    return random(shape, generator, device, normal=True).to(dtype)
 
 
 def _conv(layer: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:

@@ -186,7 +186,14 @@ class CausalAnomalyDetector(nn.Module):
                 generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """`generator` feeds dropout's masks in ``train()`` mode."""
-        features = self.feature_extractor(clips, generator)
+        return self.heads(self.feature_extractor(clips, generator), generator)
+
+    def heads(self, features: torch.Tensor,
+              generator: Optional[torch.Generator] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Everything after the feature extractor: (scores, adjacency,
+        `features`) from the (B, causal_dim) features (the temporally
+        sharded forward's tail, `parallel/temporal.py`)."""
         adj = self.causal_discovery(features)
         ge = self.graph_encoder
         g = F.relu(ge[0](adj.reshape(adj.shape[0], -1)))

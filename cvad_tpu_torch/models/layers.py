@@ -44,6 +44,8 @@ from cvad_tpu_torch.ops.pallas_conv import (fold_group_size, kernel_takes,
                                             tfold_conv1)
 from cvad_tpu_torch.ops.pallas_s2d import (s2d_fold_groups, s2d_fold_kernel,
                                            s2d_group_conv)
+from cvad_tpu_torch.parallel.collectives import all_reduce_sum, random
+from cvad_tpu_torch.runtime.mesh import single_mesh
 
 
 class TFoldConv1(nn.Module):
@@ -95,6 +97,11 @@ class MaskedBatchNorm(nn.Module):
     - eval mode: the running statistics;
     - out = (x - mean) * (rsqrt(var + eps) * weight) + bias, in x's dtype.
 
+    The statistics are those of the rows of every rank of the mesh's data
+    axis (``axis``: the trivial mesh's, one device, until
+    `parallel.collectives.bind_batchnorm` sets the mesh's), so that the
+    running statistics update alike on every rank.
+
     Parameters and buffers carry `nn.BatchNorm2d`'s names (``weight``,
     ``bias``, ``running_mean``, ``running_var``, ``num_batches_tracked``),
     so a reference state dict loads strictly; ``num_batches_tracked``
@@ -112,6 +119,7 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
         self.register_buffer("num_batches_tracked",
                              torch.zeros((), dtype=torch.long))
+        self.axis = single_mesh().data  # the data axis the batch spans
 
     def forward(self, x: torch.Tensor,
                 valid: Optional[torch.Tensor] = None,
@@ -124,17 +132,7 @@ class MaskedBatchNorm(nn.Module):
         if not self.training:
             mean, var = self.running_mean, self.running_var
         else:
-            axes = (0,) + tuple(range(2, x.dim()))
-            if valid is None:
-                mean = xf.mean(axes)
-                mean2 = (xf * xf).mean(axes)
-            else:
-                w = valid.float().reshape((-1,) + (1,) * (x.dim() - 1))
-                per_row = x[:, 0].numel() / x.shape[0]
-                cnt = torch.clamp(valid.float().sum() * per_row, min=1.0)
-                mean = (xf * w).sum(axes) / cnt
-                mean2 = (xf * xf * w).sum(axes) / cnt
-            var = torch.clamp(mean2 - mean * mean, min=0.0)
+            mean, var = self._batch_stats(xf, valid)
             m = self.momentum
             if update_stats:
                 with torch.no_grad():
@@ -147,6 +145,31 @@ class MaskedBatchNorm(nn.Module):
         out = (xf - mean.reshape(shape)) * mul.reshape(shape) \
             + self.bias.reshape(shape)
         return out.to(x.dtype)
+
+    def _batch_stats(self, xf: torch.Tensor, valid: Optional[torch.Tensor]
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(mean, biased variance) over the rows `valid` keeps, of every
+        rank of the data axis: the count, sum and sum of squares summed
+        over the ranks in one `all_reduce_sum`.  Without a process group
+        that sum is the identity, and the three are not packed for it
+        (packing copies exactly, so both give the same bits)."""
+        axes = (0,) + tuple(range(2, xf.dim()))
+        if valid is None:
+            cnt = xf.new_full((1,), xf[:, 0].numel())
+            s1, s2 = xf.sum(axes), (xf * xf).sum(axes)
+        else:
+            w = valid.to(xf.dtype).reshape((-1,) + (1,) * (xf.dim() - 1))
+            per_row = xf[:, 0].numel() / xf.shape[0]
+            cnt = (valid.to(xf.dtype).sum() * per_row).reshape(1)
+            s1, s2 = (xf * w).sum(axes), (xf * xf * w).sum(axes)
+        if self.axis.group is not None:
+            c = s1.shape[0]
+            cnt, s1, s2 = all_reduce_sum(torch.cat([cnt, s1, s2]),
+                                         self.axis).split([1, c, c])
+        cnt = torch.clamp(cnt, min=1.0)
+        mean = s1 / cnt
+        var = torch.clamp(s2 / cnt - mean * mean, min=0.0)
+        return mean, var
 
 
 def max_pool3d(x: torch.Tensor, kernel: Tuple[int, int, int],
@@ -239,11 +262,12 @@ def mlp(in_features: int, features: Sequence[int],
 def dropout(x: torch.Tensor, p: float, training: bool,
             generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Inverted dropout drawn from `generator` (`nn.Dropout` cannot take
-    one), as flax's: keep with probability 1 - p, scale by 1 / (1 - p);
-    the identity outside training or at p = 0."""
+    one; a `parallel.collectives.RowDraws` draws this rank's rows of the
+    global batch's mask), as flax's: keep with probability 1 - p, scale
+    by 1 / (1 - p); the identity outside training or at p = 0."""
     if not training or p == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    keep = random(x.shape, generator, x.device) >= p
     return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
 
 

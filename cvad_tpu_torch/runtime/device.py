@@ -6,17 +6,24 @@ is no silent CPU fallback.
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Union
 
 import torch
+import torch.distributed
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None
                    ) -> torch.device:
-    """`None` means ``"cuda"``.  Raises `RuntimeError` when a CUDA device is
-    asked for (or implied) and CUDA is not available; ``"cpu"`` always
-    works."""
+    """`None` means ``"cuda"``; under a process group a CUDA device without
+    an index is this rank's card, ``cuda:LOCAL_RANK`` (0 where unset).
+    Raises `RuntimeError` when a CUDA device is asked for (or implied) and
+    CUDA is not available; ``"cpu"`` always works."""
     dev = torch.device("cuda" if device is None else device)
+    if (dev.type == "cuda" and dev.index is None
+            and torch.distributed.is_available()
+            and torch.distributed.is_initialized()):
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run the port "

@@ -1,4 +1,5 @@
-"""The training engine of the port: families D, C, B and A on one device.
+"""The training engine of the port: families D, C, B and A, on one device
+or over the ranks of a mesh.
 
 Port of `cvad_tpu/train/engine.py` (`Trainer`: `init_state`, `put_batch`,
 `put_chunk`, `_clip_cache`, `train_epoch` with K steps per call,
@@ -9,15 +10,24 @@ Each step's metrics are stacked into one device vector (keys sorted, as in
 fetches the sum once per epoch, and otherwise only where ``log_every``
 falls.
 
-Every batch the engine feeds carries the ``valid`` loss mask, all ones on
-one device, as `cvad_tpu`'s do.  The feed is the device clip cache
-(`data/device_cache.py`) where ``train.device_cache`` allows it, else the
-host loader through `DevicePrefetcher` (pinned staging, a side stream).
-With ``train.steps_per_call`` = K > 1, full chunks of K equal-shaped
-batches go to `train/graphs.py::MultiStep` (one CUDA graph replay for K
-steps on the card), and the remainder and odd shapes run singly.
-There is no device mesh: the port trains on one device (ROADMAP Queue 1
-item 14).
+The mesh (`runtime/mesh.py`, `cvad_tpu`'s :40-44) comes from
+``cfg.parallel`` over the initialised process group (the trivial 1 x 1
+mesh without one).  Every batch the engine feeds is padded to a multiple
+of the data axis and carries the ``valid`` loss mask (`pad_with_valid`,
+all ones where nothing is padded), as `cvad_tpu`'s do; each rank then
+takes its rows, and on a time axis its frames (`shard_batch`).  Every rank
+loads the global batch, or, from a `runtime/multihost.py::make_host_loader`
+loader, only its own rows.  The feed is the device clip cache
+(`data/device_cache.py`, on every rank, gathering the rank's rows) where
+``train.device_cache`` allows it, else the host loader through
+`DevicePrefetcher` (pinned staging, a side stream).  With
+``train.steps_per_call`` = K > 1, full chunks of K equal-shaped batches go
+to `train/graphs.py::MultiStep` (one CUDA graph replay for K steps on the
+card, the collectives captured in it), and the remainder and odd shapes
+run singly.  `evaluate` gathers every rank's outputs and drops the padded
+rows.  Rank 0 alone writes the checkpoints, the history and
+``metrics.jsonl``, and every rank waits for each write; `restore` reads
+on every rank.
 """
 
 from __future__ import annotations
@@ -32,8 +42,7 @@ import numpy as np
 import torch
 
 from cvad_tpu_torch.config import ExperimentConfig, family_of
-from cvad_tpu_torch.data.batcher import (BatchLoader, DevicePrefetcher,
-                                         with_valid)
+from cvad_tpu_torch.data.batcher import BatchLoader, DevicePrefetcher
 from cvad_tpu_torch.evaluation.metrics import (family_a_eval_metrics,
                                                family_b_eval_metrics,
                                                family_c_eval_metrics,
@@ -41,6 +50,8 @@ from cvad_tpu_torch.evaluation.metrics import (family_a_eval_metrics,
 from cvad_tpu_torch.runtime.checkpoint import CheckpointManager
 from cvad_tpu_torch.runtime.device import resolve_device
 from cvad_tpu_torch.runtime.history import TrainingHistory
+from cvad_tpu_torch.runtime.mesh import (Mesh, create_mesh, pad_with_valid,
+                                         shard_batch)
 from cvad_tpu_torch.runtime.metrics import MetricLogger, StepTimer
 from cvad_tpu_torch.train.graphs import MultiStep
 from cvad_tpu_torch.train.optim import HostScheduler, set_lr
@@ -48,18 +59,27 @@ from cvad_tpu_torch.train.tasks import build_task
 
 
 class Trainer:
-    """End-to-end trainer for one `ExperimentConfig` on one device (CUDA
-    unless ``device='cpu'``)."""
+    """End-to-end trainer for one `ExperimentConfig` on this rank's device
+    (CUDA unless ``device='cpu'``; ``cuda:LOCAL_RANK`` under a process
+    group) over `mesh` (by default `create_mesh` from ``cfg.parallel``)."""
 
-    def __init__(self, cfg: ExperimentConfig, out_dir: Optional[str] = None,
-                 device=None):
+    def __init__(self, cfg: ExperimentConfig, mesh: Optional[Mesh] = None,
+                 out_dir: Optional[str] = None, device=None):
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.task = build_task(cfg)
+        self.mesh = mesh if mesh is not None else create_mesh(
+            cfg.parallel.data_axis, cfg.parallel.temporal_axis)
+        self.task = build_task(cfg, self.mesh)
+        # clips shard their T axis (dim 1) where the mesh has a time axis
+        self._time_dim = 1 if self.mesh.shape["time"] > 1 else None
+        primary = self.mesh.primary
         self.out_dir = Path(out_dir or cfg.train.out_dir)
         self.out_dir.mkdir(parents=True, exist_ok=True)
-        self.history = TrainingHistory(self.out_dir / cfg.train.history_name)
-        self.logger = MetricLogger(self.out_dir / "metrics.jsonl")
+        self.history = TrainingHistory(
+            self.out_dir / cfg.train.history_name if primary else None)
+        self.logger = MetricLogger(
+            self.out_dir / "metrics.jsonl" if primary else None,
+            echo=primary)
         self.scheduler = HostScheduler(cfg.optim, cfg.train.num_epochs)
         self.ckpt = CheckpointManager(self.out_dir / "checkpoints")
         self.state = None
@@ -77,20 +97,35 @@ class Trainer:
         """Fresh parameters from ``train.seed`` on the trainer's device."""
         self.state = self.task.init_state(self.cfg.train.seed, self.device)
 
+    def _to_device(self, batch: Mapping[str, np.ndarray], lead: int = 0
+                   ) -> Dict[str, torch.Tensor]:
+        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
+                for k, v in shard_batch(self.mesh, batch, self._time_dim,
+                                        lead).items()}
+
     def put_batch(self, host_batch: Mapping[str, np.ndarray]
                   ) -> Dict[str, torch.Tensor]:
-        """A host batch with its ``valid`` mask, copied to the device (the
-        tensors `DevicePrefetcher` yields for it, without its overlap)."""
-        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
-                for k, v in with_valid(host_batch).items()}
+        """A global host batch padded to the data axis with its ``valid``
+        mask, this rank's part of it on the device (what `DevicePrefetcher`
+        yields for it, without its overlap)."""
+        return self._to_device(pad_with_valid(host_batch,
+                                              self.mesh.shape["data"]))
 
     def put_chunk(self, host_batches: List[Mapping[str, np.ndarray]]
                   ) -> Dict[str, torch.Tensor]:
-        """Equal-shaped host batches stacked into one (K, B, ...) device
-        chunk for the K-step call."""
-        batches = [with_valid(b) for b in host_batches]
-        return {k: torch.from_numpy(np.stack([b[k] for b in batches])).to(
-            self.device) for k in batches[0]}
+        """Equal-shaped global host batches, each padded with its mask,
+        stacked into one (K, B, ...) chunk for the K-step call: this rank's
+        part on the device."""
+        nd = self.mesh.shape["data"]
+        batches = [pad_with_valid(b, nd) for b in host_batches]
+        return self._to_device({k: np.stack([b[k] for b in batches])
+                                for k in batches[0]}, lead=1)
+
+    def _save(self, step, history: Mapping) -> None:
+        """A checkpoint written by rank 0, every rank waiting for it."""
+        if self.mesh.primary:
+            self.ckpt.save(step, self.state, history=history)
+        self.mesh.barrier(self.device)
 
     def restore(self, step="latest") -> Optional[int]:
         """Restore state, history, scheduler and the best-metric watermark
@@ -137,7 +172,7 @@ class Trainer:
                    "_mid": {"epoch": int(epoch), "count": int(count),
                             "metric_vec": [float(x) for x in
                                            total_vec.cpu().numpy()]}}
-        self.ckpt.save("mid", self.state, history=payload)
+        self._save("mid", payload)
 
     # -- epochs --------------------------------------------------------------
 
@@ -180,7 +215,8 @@ class Trainer:
             self._device_caches[key] = (weakref.ref(loader), None)
             return None
         t0 = time.perf_counter()
-        cache = DeviceClipCache(loader, self.device)
+        cache = DeviceClipCache(loader, self.device, self.mesh,
+                                self._time_dim)
         self._device_caches[key] = (weakref.ref(loader), cache)
         self.logger.log("device_cache", clips=len(loader.dataset),
                         mbytes=round(cache.nbytes / 1e6, 1),
@@ -204,9 +240,31 @@ class Trainer:
         if skip:
             source = (loader.iter_from(skip) if hasattr(loader, "iter_from")
                       else itertools.islice(iter(loader), skip, None))
-        host = (_chunk_batches(source, k) if k > 1
-                else (with_valid(b) for b in source))
-        return iter(DevicePrefetcher(host, self.device))
+        return iter(self._prefetch(loader, source, k))
+
+    def _prefetch(self, loader, source: Iterable, k: int) -> DevicePrefetcher:
+        """`source`'s batches padded with their masks (chunked where `k` >
+        1) and this rank's part of each copied ahead to the device.  A
+        `make_host_loader` loader yields this rank's rows already, as many
+        as every other rank's where the process count divides its global
+        batch (checked here, with no collective: the copy runs in a
+        thread), and they are not sharded again."""
+        if getattr(loader, "host_local", False):
+            nd = self.mesh.shape["data"]
+            if self._time_dim is not None or loader.global_batch % nd:
+                raise ValueError(
+                    "a host-sharded loader needs parallel.temporal_axis=1 "
+                    f"and a global batch ({loader.global_batch}) that its "
+                    f"{nd} ranks divide")
+            nd, mesh = 1, None
+        else:
+            nd, mesh = self.mesh.shape["data"], self.mesh
+        if k > 1:
+            return DevicePrefetcher(_chunk_batches(source, k, nd),
+                                    self.device, mesh=mesh,
+                                    time_dim=self._time_dim)
+        return DevicePrefetcher(source, self.device, mesh=mesh,
+                                pad_to_multiple=nd, time_dim=self._time_dim)
 
     def train_epoch(self, loader: Iterable[Mapping[str, np.ndarray]],
                     epoch: int, record: bool = True, skip_batches: int = 0,
@@ -268,22 +326,23 @@ class Trainer:
 
     def evaluate(self, loader: Iterable[Mapping[str, np.ndarray]]
                  ) -> Dict[str, Any]:
-        """Eval step over every batch; outputs stay on the device until one
-        fetch at the end.  An unshuffled loader feeds from the clip cache
-        where one is allowed (its order is then the dataset's, which the
-        cache replays)."""
+        """Eval step over every batch; outputs, gathered over the data axis
+        by the step, stay on the device until one fetch at the end, where
+        the padded rows are dropped.  An unshuffled loader feeds from the
+        clip cache where one is allowed (its order is then the dataset's,
+        which the cache replays)."""
         cache = (self._clip_cache(loader, strict=False)
                  if not getattr(loader, "shuffle", True) else None)
         feed = (cache.device_batches(0, 1) if cache is not None
-                else DevicePrefetcher((with_valid(b) for b in loader),
-                                      self.device))
+                else self._prefetch(loader, loader, 1))
         outs: Dict[str, list] = {}
         for batch in feed:
             out = self.task.eval_step(self.state, batch)
             for k, v in out.items():
                 outs.setdefault(k, []).append(v)
         merged = {k: torch.cat(v).cpu().numpy() for k, v in outs.items()}
-        return self._eval_metrics(merged)
+        keep = merged.pop("valid") > 0
+        return self._eval_metrics({k: v[keep] for k, v in merged.items()})
 
     def _eval_metrics(self, out: Mapping[str, np.ndarray]) -> Dict[str, Any]:
         family = family_of(self.cfg.model)
@@ -340,15 +399,16 @@ class Trainer:
                                     patience=cfg.early_stop_patience)
                     break
             if cfg.save_interval and epoch % cfg.save_interval == 0:
-                self.ckpt.save(int(epoch), self.state,
-                               history=self._ckpt_payload())
+                self._save(int(epoch), self._ckpt_payload())
         if cfg.reload_best and self.ckpt.path("best").is_file():
             self.state.load_state_dict(self.ckpt.restore("best"))
             self.logger.log("reloaded_best", best=self._best)
         if cfg.save_every_steps and trained_any:
             # the run completed and trained: drop the rolling snapshot, so a
             # later restore cannot replay the last epoch's tail from it
-            self.ckpt.remove("mid")
+            if self.mesh.primary:
+                self.ckpt.remove("mid")
+            self.mesh.barrier(self.device)
         self.logger.log("done", epochs=cfg.num_epochs,
                         total_s=time.time() - t0)
         return self.history.as_dict()
@@ -365,20 +425,21 @@ class Trainer:
                   or (cfg.best_mode == "min" and value < self._best))
         if better:
             self._best = value
-            self.ckpt.save("best", self.state, history=self._ckpt_payload())
+            self._save("best", self._ckpt_payload())
             self.logger.log("best_model", epoch=epoch, **{key: value})
         return better
 
 
-def _chunk_batches(loader: Iterable[Mapping[str, np.ndarray]], k: int
-                   ) -> Iterator[Dict[str, np.ndarray]]:
-    """Group equal-shaped host batches, each with its ``valid`` mask, into
-    stacked (K, B, ...) chunks for the K-step call; odd-shaped and
-    remainder batches pass through singly (`cvad_tpu`'s, on one device)."""
+def _chunk_batches(loader: Iterable[Mapping[str, np.ndarray]], k: int,
+                   pad_multiple: int = 1) -> Iterator[Dict[str, np.ndarray]]:
+    """Group equal-shaped host batches, each padded to `pad_multiple` rows
+    with its ``valid`` mask, into stacked (K, B, ...) chunks for the K-step
+    call; odd-shaped and remainder batches pass through singly
+    (`cvad_tpu`'s :574-590)."""
     pending: List[Dict[str, np.ndarray]] = []
     shape = None
     for batch in loader:
-        batch = with_valid(batch)
+        batch = pad_with_valid(batch, pad_multiple)
         s = batch["clips"].shape
         if shape is not None and s != shape and pending:
             yield from pending  # the shape changed: flush singly

@@ -27,8 +27,12 @@ state, which is copied back from a snapshot afterwards, so the warm-up
 trains nothing.  Its launches count (they ran).  The kernel wrappers'
 launch counters are plain ints bumped in Python, so they count once, at
 capture, for launches that have not run: the capture's bumps are taken
-back, and each replay adds them again.  A capture that fails raises with
-its cause; nothing falls back to eager steps.
+back, and each replay adds them again; so do the collectives' call
+counters.  Over a mesh the steps' collectives (`parallel/collectives.py`:
+the gathers, BatchNorm's all-reduce, the gradient's) are captured with
+them, NCCL's kernels recorded into the graph; the warm-up step has set
+up the communicator.  A capture that fails
+raises with its cause; nothing falls back to eager steps.
 """
 
 from __future__ import annotations
@@ -37,12 +41,14 @@ from typing import Dict, List, Mapping, Optional, Tuple
 
 import torch
 
+from cvad_tpu_torch.parallel import collectives
 from cvad_tpu_torch.train.state import TrainState
 from cvad_tpu_torch.train.tasks import card_numerics, step_seed
 
 
 def launch_counters() -> Dict[str, Tuple[object, str]]:
-    """Every kernel wrapper's launch counter: name -> (object, attribute)."""
+    """Every kernel wrapper's launch counter and every collective's call
+    counter (`parallel/collectives.py`): name -> (object, attribute)."""
     from cvad_tpu_torch.ops.flash_attention import flash_attention
     from cvad_tpu_torch.ops.pallas_conv import tfold_conv1
     from cvad_tpu_torch.ops.pallas_kernels import (memory_min_cosine_distance,
@@ -60,7 +66,8 @@ def launch_counters() -> Dict[str, Tuple[object, str]]:
             "s2d_matmul_wgrad": (s2d_fold_matmul, "wgrad_launches"),
             "flash_forward": (flash_attention, "launches"),
             "flash_dq": (flash_attention, "dq_launches"),
-            "flash_dkv": (flash_attention, "dkv_launches")}
+            "flash_dkv": (flash_attention, "dkv_launches"),
+            **collectives.counters()}
 
 
 def read_counters() -> Dict[str, int]:

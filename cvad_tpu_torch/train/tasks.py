@@ -30,6 +30,20 @@ replay with the seed an eager step would take (`train/graphs.py`).  The two fram
 same seed: tests set dropout to 0, pass ``pseudo_targets`` and put
 `cvad_tpu`'s VAE draw into `models/family_a.py::vae_noise`.
 
+The mesh (`runtime/mesh.py`): a task built with one runs each step on this
+rank's rows (and, for family D on a time axis, frames) of the global
+batch, gathers the per-row outputs over the data axis, computes the global
+loss from them on every rank, draws the pseudo-labels at the global
+batch's rows and every dropout mask and VAE draw through
+`collectives.RowDraws`, sums the BatchNorm statistics over the data axis,
+writes family B's bank from the gathered normal rows in global row order,
+and all-reduces the gradient (`collectives.reduce_gradients`) before the
+clip and the NaN guard; the module docstring of `parallel/collectives.py`
+shows that this is the one-device step on the global batch.  The eval
+steps gather their outputs (and the ``valid`` mask, so that callers trim
+the padding).  Without a mesh the task runs on the trivial 1 x 1 mesh,
+where each of these collectives is the identity.
+
 Numerics on the card: the steps run inside ``cudnn.flags(deterministic=True,
 allow_tf32=False, benchmark=False)``.  TF32 (cuDNN's default for float32
 convolutions and their backward) keeps about three decimal digits, and the
@@ -57,7 +71,11 @@ from cvad_tpu_torch.models.family_b import MemoryBankState
 from cvad_tpu_torch.models.layers import MaskedBatchNorm
 from cvad_tpu_torch.ops.losses import (binary_cross_entropy, family_a_loss,
                                        improved_loss, pseudo_labels)
+from cvad_tpu_torch.parallel.collectives import (RowDraws, bind_batchnorm,
+                                                 gather, gather_rows,
+                                                 reduce_gradients)
 from cvad_tpu_torch.runtime.device import resolve_device
+from cvad_tpu_torch.runtime.mesh import Mesh, replicated, single_mesh
 from cvad_tpu_torch.train.optim import (Optimizer, build_optimizer, flatten,
                                         global_norm, unflatten)
 from cvad_tpu_torch.train.state import TrainState, trainable
@@ -86,11 +104,25 @@ def prep_clips(clips: torch.Tensor, clamp=(0.0, 1.0)) -> torch.Tensor:
     return x
 
 
-def _new_state(model: nn.Module, tx: Optimizer, device) -> TrainState:
-    """`model` on CUDA unless `device` says 'cpu', with a fresh optimizer
-    state over its trainable parameters."""
-    model = model.to(resolve_device(device))
+def _new_state(model: nn.Module, tx: Optimizer, device, mesh: Mesh
+               ) -> TrainState:
+    """`model` on CUDA unless `device` says 'cpu', its BatchNorms bound to
+    the mesh's data axis and its tensors broadcast from rank 0, with a
+    fresh optimizer state over its trainable parameters."""
+    model = replicated(bind_batchnorm(model.to(resolve_device(device)), mesh),
+                       mesh)
     return TrainState(model, tx.init(flatten(trainable(model)).detach()))
+
+
+def _gather_out(out: Mapping[str, torch.Tensor], batch, mesh: Mesh
+                ) -> Dict[str, torch.Tensor]:
+    """An eval step's per-row outputs of every rank of the data axis, with
+    the batch's ``valid`` mask where it has one (the rows to keep)."""
+    out = dict(out)
+    if "valid" in batch:
+        out["valid"] = batch["valid"]
+    return {k: gather(v, mesh.data) for k, v in out.items()}
+
 
 
 def _masked_mean_1d(x: torch.Tensor, valid) -> torch.Tensor:
@@ -123,17 +155,19 @@ def card_numerics():
 
 @torch.no_grad()
 def _apply_updates(state: TrainState, tx: Optimizer,
-                   grads: Sequence[torch.Tensor], loss: torch.Tensor
-                   ) -> TrainState:
-    """Clip + optimizer update under the NaN guard: a non-finite loss or
-    raw-gradient norm leaves the parameters, both moments and Adam's count
-    untouched (one device-side select, no host branch); ``step`` advances
-    either way.  Every tensor is written in place, so that a captured graph
-    of K steps (`train/graphs.py`) reads at each replay what its last
-    replay wrote."""
+                   grads: Sequence[torch.Tensor], loss: torch.Tensor,
+                   mesh: Mesh) -> TrainState:
+    """The gradient summed over the mesh's ranks and divided by their
+    count (`reduce_gradients`: the global batch's gradient, alike on every
+    rank), then clip + optimizer update under the NaN guard: a non-finite
+    loss or raw-gradient norm leaves the parameters, both moments and
+    Adam's count untouched (one device-side select, no host branch);
+    ``step`` advances either way.  Every tensor is written in place, so
+    that a captured graph of K steps (`train/graphs.py`) reads at each
+    replay what its last replay wrote."""
     params = state.params()
     p = flatten(params)
-    g = flatten(grads)
+    g = reduce_gradients(flatten(grads), mesh)
     norm = global_norm(g)
     opt = state.opt_state
     updates, new = tx.update(g, opt, p, norm)
@@ -147,7 +181,7 @@ def _apply_updates(state: TrainState, tx: Optimizer,
     return state
 
 
-def _family_d_task(cfg: ExperimentConfig) -> Task:
+def _family_d_task(cfg: ExperimentConfig, mesh: Mesh) -> Task:
     model_cfg = cfg.model
     if cfg.train.dtype != "float32" and model_cfg.dtype == "float32":
         model_cfg = model_cfg.replace(dtype=cfg.train.dtype)
@@ -162,7 +196,7 @@ def _family_d_task(cfg: ExperimentConfig) -> Task:
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
             model = CausalAnomalyDetector(model_cfg)
-        return _new_state(model, tx, device)
+        return _new_state(model, tx, device, mesh)
 
     def train_step(state: TrainState, batch: Mapping[str, torch.Tensor],
                    seed: int, gen: Optional[torch.Generator] = None
@@ -173,34 +207,46 @@ def _family_d_task(cfg: ExperimentConfig) -> Task:
         state.step)`` (a captured graph's slot, `train/graphs.py`)."""
         model = state.model
         clips = prep_clips(batch["clips"], clamp)
-        valid = batch.get("valid")
+        valid = gather_rows(batch.get("valid"), mesh)
         if gen is None:
             gen = _generator(clips.device, seed, state.step)
+        rows, start = mesh.rows(clips.shape[0])
         if "pseudo_targets" in batch:
-            targets = batch["pseudo_targets"]
+            targets = gather_rows(batch["pseudo_targets"], mesh)
         else:
-            targets = pseudo_labels(gen, clips.shape[0],
-                                    loss_cfg.pseudo_anomaly_rate,
+            targets = pseudo_labels(gen, rows, loss_cfg.pseudo_anomaly_rate,
                                     clips.device)
         params = state.params()
         with card_numerics():
-            scores, adj, _ = model.train()(clips, generator=gen)
-            total, comps = improved_loss(scores, adj, targets, loss_cfg,
-                                         valid=valid)
+            scores, adj, _ = forward(model.train(), clips,
+                                     RowDraws(gen, rows, start))
+            total, comps = improved_loss(gather(scores, mesh.data),
+                                         gather(adj, mesh.data), targets,
+                                         loss_cfg, valid=valid)
             grads = torch.autograd.grad(total, params)
-        state = _apply_updates(state, tx, grads, total.detach())
+        state = _apply_updates(state, tx, grads, total.detach(), mesh)
         metrics = {"loss": total.detach(),
                    **{k: v.detach() for k, v in comps.items()}}
         return state, metrics
+
+    def forward(model, clips, generator=None):
+        """This rank's rows' outputs: the model's forward, or on a time
+        axis the temporally sharded one (`parallel/temporal.py`)."""
+        if mesh.time.size > 1:
+            from cvad_tpu_torch.parallel.temporal import sharded_forward
+
+            return sharded_forward(model, clips, mesh, generator)
+        return model(clips, generator=generator)
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: Mapping[str, torch.Tensor]
                   ) -> Dict[str, torch.Tensor]:
         clips = prep_clips(batch["clips"], clamp)
         with card_numerics():
-            scores, adj, feats = state.model.eval()(clips)
-        return {"predictions": scores.reshape(-1), "causal_graphs": adj,
-                "features": feats}
+            scores, adj, feats = forward(state.model.eval(), clips)
+        return _gather_out({"predictions": scores.reshape(-1),
+                            "causal_graphs": adj, "features": feats},
+                           batch, mesh)
 
     return Task(model_cfg, tx, init_state, train_step, eval_step)
 
@@ -275,7 +321,7 @@ def stop_bn_absorbed_biases(model: nn.Module, loss: torch.Tensor
             for n, p in named]
 
 
-def _family_b_task(cfg: ExperimentConfig) -> Task:
+def _family_b_task(cfg: ExperimentConfig, mesh: Mesh) -> Task:
     model_cfg: FamilyBConfig = cfg.model
     if cfg.train.dtype != "float32" and model_cfg.dtype == "float32":
         model_cfg = model_cfg.replace(dtype=cfg.train.dtype)
@@ -287,7 +333,7 @@ def _family_b_task(cfg: ExperimentConfig) -> Task:
         """The reference's initialisation from `seed` and an empty bank, on
         CUDA unless `device` says 'cpu'."""
         model = MemoryVideoAutoEncoder(model_cfg, seed=seed)
-        return _new_state(model, tx, device)
+        return _new_state(model, tx, device, mesh)
 
     def train_step(state: TrainState, batch: Mapping[str, torch.Tensor],
                    seed: int, gen: Optional[torch.Generator] = None
@@ -309,6 +355,7 @@ def _family_b_task(cfg: ExperimentConfig) -> Task:
         normal = (batch["labels"] == 0).float()
         if valid is not None:
             normal = normal * valid
+        normal = gather_rows(normal, mesh)  # the global batch's, in order
         n_normal = normal.sum()
         bank = model.memory_bank()
         with card_numerics():
@@ -317,13 +364,14 @@ def _family_b_task(cfg: ExperimentConfig) -> Task:
             frame = torch.clamp(out["recon_frame"], 1e-8, 1 - 1e-8)
             fm = (frame * frame).mean((1, 2, 3))
             fx = (frame * x_mean).mean((1, 2, 3))
-            err = fm - 2.0 * fx + x_sqmean
+            err = gather(fm - 2.0 * fx + x_sqmean, mesh.data)
             loss = (err * normal).sum() / torch.clamp(n_normal, min=1.0)
             loss = loss * loss_cfg.b_recon_weight
             grads = stop_bn_absorbed_biases(model, loss)
         model.set_memory_bank(update_memory_masked(
-            bank, out["sequence_feature"], normal))
-        state = _apply_updates(state, tx, grads, loss.detach())
+            bank, gather(out["sequence_feature"].detach(), mesh.data),
+            normal))
+        state = _apply_updates(state, tx, grads, loss.detach(), mesh)
         return state, {"loss": loss.detach(), "n_normal": n_normal}
 
     @torch.no_grad()
@@ -338,14 +386,15 @@ def _family_b_task(cfg: ExperimentConfig) -> Task:
         mem = out["anomaly_score"]
         combined = (loss_cfg.b_score_recon * recon_err
                     + loss_cfg.b_score_memory * mem)
-        return {"predictions": combined, "recon_errors": recon_err,
-                "memory_scores": mem, "labels": batch["labels"],
-                "loss": recon_err}
+        return _gather_out({"predictions": combined,
+                            "recon_errors": recon_err, "memory_scores": mem,
+                            "labels": batch["labels"], "loss": recon_err},
+                           batch, mesh)
 
     return Task(model_cfg, tx, init_state, train_step, eval_step)
 
 
-def _family_c_task(cfg: ExperimentConfig) -> Task:
+def _family_c_task(cfg: ExperimentConfig, mesh: Mesh) -> Task:
     model_cfg: FamilyCConfig = cfg.model
     if cfg.train.dtype != "float32" and model_cfg.dtype == "float32":
         model_cfg = model_cfg.replace(dtype=cfg.train.dtype)
@@ -356,7 +405,7 @@ def _family_c_task(cfg: ExperimentConfig) -> Task:
         """The reference's initialisation from `seed`, on CUDA unless
         `device` says 'cpu'."""
         return _new_state(Simple3DCNNDetector(model_cfg, seed=seed), tx,
-                          device)
+                          device, mesh)
 
     def train_step(state: TrainState, batch: Mapping[str, torch.Tensor],
                    seed: int, gen: Optional[torch.Generator] = None
@@ -369,12 +418,15 @@ def _family_c_task(cfg: ExperimentConfig) -> Task:
         valid = batch.get("valid")
         if gen is None:
             gen = _generator(clips.device, seed, state.step)
+        draws = RowDraws(gen, *mesh.rows(clips.shape[0]))
         with card_numerics():
-            scores = model.train()(clips, generator=gen, valid=valid)
+            scores = model.train()(clips, generator=draws, valid=valid)
             loss = _masked_mean_1d(binary_cross_entropy(
-                scores.reshape(-1), batch["labels"].float()), valid)
+                gather(scores.reshape(-1), mesh.data),
+                gather_rows(batch["labels"].float(), mesh)),
+                gather_rows(valid, mesh))
             grads = stop_bn_absorbed_biases(model, loss)
-        state = _apply_updates(state, tx, grads, loss.detach())
+        state = _apply_updates(state, tx, grads, loss.detach(), mesh)
         return state, {"loss": loss.detach()}
 
     @torch.no_grad()
@@ -385,13 +437,14 @@ def _family_c_task(cfg: ExperimentConfig) -> Task:
         with card_numerics():
             scores = state.model.eval()(clips).reshape(-1)
         labels = batch["labels"].float()
-        return {"predictions": scores, "labels": labels,
-                "loss": binary_cross_entropy(scores, labels)}
+        return _gather_out({"predictions": scores, "labels": labels,
+                            "loss": binary_cross_entropy(scores, labels)},
+                           batch, mesh)
 
     return Task(model_cfg, tx, init_state, train_step, eval_step)
 
 
-def _family_a_task(cfg: ExperimentConfig) -> Task:
+def _family_a_task(cfg: ExperimentConfig, mesh: Mesh) -> Task:
     model_cfg: FamilyAConfig = cfg.model
     if cfg.train.dtype != "float32" and model_cfg.dtype == "float32":
         model_cfg = model_cfg.replace(dtype=cfg.train.dtype)
@@ -405,7 +458,7 @@ def _family_a_task(cfg: ExperimentConfig) -> Task:
         input channels, the stem frozen where ``freeze_stem`` says so, on
         CUDA unless `device` says 'cpu'."""
         return _new_state(CausalPipelineDetector(model_cfg, channels,
-                                                 seed=seed), tx, device)
+                                                 seed=seed), tx, device, mesh)
 
     def train_step(state: TrainState, batch: Mapping[str, torch.Tensor],
                    seed: int, gen: Optional[torch.Generator] = None
@@ -418,12 +471,15 @@ def _family_a_task(cfg: ExperimentConfig) -> Task:
         valid = batch.get("valid")
         if gen is None:
             gen = _generator(frames.device, seed, state.step)
+        draws = RowDraws(gen, *mesh.rows(frames.shape[0]))
         with card_numerics():
-            out = model.train()(frames, generator=gen, valid=valid)
-            loss, comps = family_a_loss(out, batch["labels"], loss_cfg,
-                                        valid=valid)
+            out = model.train()(frames, generator=draws, valid=valid)
+            out = {k: gather(out[k], mesh.data) for k in LOSS_OUTPUTS_A}
+            loss, comps = family_a_loss(
+                out, gather_rows(batch["labels"], mesh), loss_cfg,
+                valid=gather_rows(valid, mesh))
             grads = stop_bn_absorbed_biases(model, loss)
-        state = _apply_updates(state, tx, grads, loss.detach())
+        state = _apply_updates(state, tx, grads, loss.detach(), mesh)
         return state, {"loss": loss.detach(),
                        **{k: v.detach() for k, v in comps.items()}}
 
@@ -435,25 +491,36 @@ def _family_a_task(cfg: ExperimentConfig) -> Task:
         frames = prep_frames(batch["clips"], clamp)
         with card_numerics():
             out = state.model.eval()(frames)
-        return {"predictions": out["anomaly_scores"],
-                "causal_scores": out["causal_anomaly_scores"],
-                "direct_predictions": out["direct_predictions"],
-                "causal_graphs": out["adjacency_matrices"],
-                "labels": batch["labels"].float()}
+        return _gather_out({"predictions": out["anomaly_scores"],
+                            "causal_scores": out["causal_anomaly_scores"],
+                            "direct_predictions": out["direct_predictions"],
+                            "causal_graphs": out["adjacency_matrices"],
+                            "labels": batch["labels"].float()}, batch, mesh)
 
     return Task(model_cfg, tx, init_state, train_step, eval_step)
 
+
+# the outputs of family A's model that its loss reads
+LOSS_OUTPUTS_A = ("anomaly_scores", "direct_predictions",
+                  "causal_anomaly_scores", "kl_losses")
 
 TASKS = {"d": _family_d_task, "c": _family_c_task, "b": _family_b_task,
          "a": _family_a_task}
 
 
-def build_task(cfg: ExperimentConfig) -> Task:
-    """The task of the config's model family (D, B, C or A).  Family E
-    scores only: `cvad_tpu` has no train task for it, nor has the port."""
+def build_task(cfg: ExperimentConfig, mesh: Optional[Mesh] = None) -> Task:
+    """The task of the config's model family (D, B, C or A) over `mesh`
+    (the trivial 1 x 1 mesh by default).  Family E scores only:
+    `cvad_tpu` has no train task for it, nor has the port.  Only family D
+    shards clips along T; the others raise on a time axis."""
     family = family_of(cfg.model)
     if family not in TASKS:
         raise NotImplementedError(
             f"family {family.upper()} has no train task; it scores only "
             f"(make_score_fn({family!r}, ...))")
-    return TASKS[family](cfg)
+    mesh = mesh or single_mesh()
+    if family != "d" and mesh.time.size > 1:
+        raise ValueError(
+            f"family {family.upper()} does not shard clips along T: "
+            "parallel.temporal_axis > 1 runs family D only")
+    return TASKS[family](cfg, mesh)

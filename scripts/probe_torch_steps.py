@@ -3,7 +3,7 @@
 port's kernels, eager and as one captured CUDA graph of 16 steps, for one
 checkout of the port on a CUDA card.
 
-    python scripts/probe_torch_steps.py [ROOT]
+    python scripts/probe_torch_steps.py [ROOT] [PATH ...]
 
 ROOT (default: this checkout) is the root of the checkout whose
 `chip_smoke.py` and `cvad_tpu_torch` are imported, so that two versions can
@@ -13,7 +13,9 @@ in turns (A, B, B, A).  It runs `chip_smoke.train_step_times` (CUDA events
 around each of 20 calls after warm-up, per optimizer step; device time
 from torch.profiler over one call) for the paths d (K1 and K2 in the
 step), d64 (K5 and K2), b_attn (K6) and c (no kernel of the port), float32
-and bfloat16, at K = 1 and 16, from ``numpy.random.default_rng(22)``.
+and bfloat16, at K = 1 and 16, from ``numpy.random.default_rng(22)``; PATH names other paths of
+`chip_smoke.step_config` in their place (b, a: families B and A, whose
+steps run the BatchNorm statistics).
 Imports nothing of JAX.  Prints one JSON line: the card's name and power
 limit, the checkout, and a row a path, type and K.
 """
@@ -32,6 +34,7 @@ KS = (1, 16)
 def main() -> int:
     root = Path(sys.argv[1] if len(sys.argv) > 1
                 else Path(__file__).resolve().parent.parent).resolve()
+    paths = tuple(sys.argv[2:]) or PATHS
     sys.path.insert(0, str(root))
     import numpy as np
     import torch
@@ -47,7 +50,7 @@ def main() -> int:
         timeout=60).stdout.strip()
     rng = np.random.default_rng(22)
     rows = []
-    for path in PATHS:
+    for path in paths:
         for dtype in ("float32", "bfloat16"):
             for k in KS:
                 t = chip_smoke.train_step_times(rng, dtype, path, k)

@@ -13,12 +13,12 @@ import pytest
 import torch
 
 from cvad_tpu_torch.config import preset
-from cvad_tpu_torch.data.batcher import (BatchLoader, DevicePrefetcher,
-                                         with_valid)
+from cvad_tpu_torch.data.batcher import BatchLoader, DevicePrefetcher
 from cvad_tpu_torch.data.datasets import SyntheticClipDataset
 from cvad_tpu_torch.data.device_cache import (DeviceClipCache,
                                               cache_eligible,
                                               device_bytes_limit)
+from cvad_tpu_torch.runtime.mesh import pad_with_valid
 from cvad_tpu_torch.train.engine import Trainer
 
 N, BATCH = 19, 8  # two full batches and a remainder of 3
@@ -105,7 +105,7 @@ def test_device_batches_equal_host_batches(tmp_path):
     host = _loader(cfg)
     host.set_epoch(1)
     got = [_numpy(b) for b in cache.device_batches(1, 1)]
-    want = [with_valid(b) for b in host]
+    want = [pad_with_valid(b, 1) for b in host]
     assert len(got) == len(want) == 3
     for a, b in zip(got, want):
         assert a.keys() == b.keys()
@@ -205,7 +205,8 @@ def test_prefetcher_yields_put_batch(tmp_path):
     loader = _loader(trainer.cfg)
     loader.set_epoch(1)
     host = list(loader)
-    got = list(DevicePrefetcher((with_valid(b) for b in host), "cpu"))
+    got = list(DevicePrefetcher((pad_with_valid(b, 1) for b in host),
+                                "cpu"))
     assert len(got) == len(host)
     for a, b in zip(got, host):
         want = trainer.put_batch(b)
@@ -232,7 +233,7 @@ def test_cache_and_prefetcher_on_card(tmp_path):
     cache = DeviceClipCache(_loader(cfg), "cuda")
     host = _loader(cfg)
     host.set_epoch(1)
-    want = [with_valid(b) for b in host]
+    want = [pad_with_valid(b, 1) for b in host]
     got = [_numpy(b) for b in cache.device_batches(1, 2)]
     assert [g["clips"].ndim for g in got] == [6, 5]
     for key in got[0]:

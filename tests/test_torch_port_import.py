@@ -1,7 +1,8 @@
 """The PyTorch port imports without JAX and loads nothing of `cvad_tpu`
 (every module, families C, A and E, the device clip cache, the K-step
-graphs, the localization and report modules, the plots, the diagnosis
-and the doctor included); its entry points default to CUDA and raise
+graphs, the localization and report modules, the plots, the diagnosis,
+the doctor, the mesh, the multi-process helpers and the collectives
+included); its entry points default to CUDA and raise
 without it."""
 
 import json
@@ -77,7 +78,13 @@ def test_imports_without_jax_or_cvad_tpu():
                 "cvad_tpu_torch.train.optim", "cvad_tpu_torch.train.state",
                 "cvad_tpu_torch.train.tasks", "cvad_tpu_torch.train.engine",
                 "cvad_tpu_torch.train.graphs",
-                "cvad_tpu_torch.runtime.device"):
+                "cvad_tpu_torch.runtime.device",
+                "cvad_tpu_torch.runtime.mesh",
+                "cvad_tpu_torch.runtime.multihost",
+                "cvad_tpu_torch.parallel",
+                "cvad_tpu_torch.parallel.collectives",
+                "cvad_tpu_torch.parallel.temporal",
+                "cvad_tpu_torch.parallel.dryrun"):
         assert mod in res["imported"]
     bad = [m for m in res["loaded"]
            if m.split(".")[0] in ("cvad_tpu", "jax", "jaxlib", "flax",
