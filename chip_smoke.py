@@ -268,6 +268,36 @@ Phases:
            the model's forward (K1); K1, K2 and K3 launched, the
            collectives' calls; the eager step time (median of 20, CUDA
            events) of the mesh trainer beside the plain one
+  compat   (main path compat) the reference-API drivers of
+           `cvad_tpu_torch.compat` on the card over an Avenue-layout tree
+           the port's writer puts in a temporary directory (6 train and 2
+           test videos of 40 RGB 64x64 PPM frames under training/frames
+           and testing/frames): train_improved_minicausal_vad for 2
+           epochs, then train_minicausal_vad_on_avenue and
+           test_trained_model on the first one's best_improved_model.pth
+           (family D at full width, T=8, batch 4; K1, K2 forward and
+           backward counted); then ImprovedMiniCausalVAD from the fixture
+           on the card and on the CPU, dropout off, 2 epochs over 3 of
+           the tree's batches with injected pseudo-targets: every epoch's
+           loss and components within 1e-4 relative, the plateau lr
+           equal, the eval's predictions and graphs within 1e-4
+  convert  (main path convert) `cli convert` of the fixture into a run
+           directory, `eval --out` on the card (every metric within 1e-4
+           of `eval --device cpu`), `train --resume --epochs 1` on the
+           card from it (resumed from step 0, the loss finite), 64
+           synthetic clips at batch 16; K1, K2 counted
+  temporal (main path temporal) every family's steps on the time axis:
+           a gloo group of 2 processes with both ranks on cuda:0 (NCCL
+           takes one rank a card; gloo takes the port's CUDA
+           collectives), the (1 data x 2 time) mesh: C at mini3d's width
+           (B=8, 8x64x64), B with attention at memory_ae's width (B=4,
+           T=128; K6 over the gathered T, K3 in eval) and A at full width
+           (B=4, 16x240x360), one train step and the eval step each
+           against the one-rank step of the same global batch in this
+           process: metrics within 1e-4 relative, every parameter within
+           2 lr, at most 0.1% beyond 2e-5 + 2e-4 |p|, statistics, bank and
+           eval outputs within 1e-5 + 1e-4 |ref|, the ranks bit-identical;
+           the counts are each rank's, summed
   times    kernel, plain-version and library times (CUDA events), the
            bounds, per-bucket request latency of both families, bulk
            clips/s, the train step of both families at B=256, the
@@ -318,7 +348,7 @@ long_score, long_train, train, family_b_train, family_b_serve, attn_train,
 family_c_train, family_a_train, video_score_d, stream_d, video_score_b,
 video_score_d64, video_score_a, video-e, report, export_<artefact>,
 graph_<path> (after the capture, over the replays), steps_per_call_fit,
-parallel) and read just after it;
+parallel, compat, convert, temporal) and read just after it;
 families C, A and E must read 0 for every kernel.  The last lines are the kernels summary, the card's
 nvidia-smi name and power limit, and {"ok": true, "device": {...}}.
 """
@@ -527,6 +557,26 @@ EXPORT_BUCKETS, EXPORT_BUCKETS_A = (1, 8, 32), (1, 4)
 PAR_SEED, PAR_BATCH, PAR_EAGER, PAR_K = 24, 256, 4, 4
 PAR_B_BATCH, PAR_SCORE_CLIPS, PAR_T64_CLIPS, PAR_T64_TOL = 64, 64, 16, 1e-5
 PAR_TIME_CALLS = 20
+# phase compat: an Avenue-layout tree of RGB 64x64 PPM frames (train and
+# test videos, frames a video), the drivers' epochs, and the card-vs-CPU
+# check: the fixture, dropout off, injected pseudo-targets at this rate
+COMPAT_SEED, COMPAT_VIDEOS, COMPAT_FRAMES = 31, (6, 2), 40
+COMPAT_EPOCHS, COMPAT_PARITY_BATCHES, COMPAT_PSEUDO_RATE = 2, 3, 0.25
+COMPAT_LOSS_RTOL = 1e-4
+# phase convert: the synthetic clips of `eval` and `train --resume`
+CONVERT_CLIPS, CONVERT_BATCH = 64, 16
+# phase temporal: a 2-process gloo group with both ranks on cuda:0, the
+# (1 data x 2 time) mesh against the one-rank step of the same global
+# batch: name -> (rows, clip (T, H, W, C))
+TEMPORAL_SEED = 41
+TEMPORAL_CASES = {"c": (C_BATCH, C_CLIP), "b_attn": (ATTN_PARITY_BATCH,
+                                                     ATTN_CLIP),
+                  "a": (A_BATCH, A_CLIP)}
+# metrics rtol; parameters: every entry within 2 lr of the one-rank
+# step's, at most this share beyond atol + rtol * |one-rank|; running
+# statistics, bank and eval outputs within TEMPORAL_OUT_TOL (rtol, atol)
+TEMPORAL_METRIC_RTOL, TEMPORAL_FAR_SHARE = 1e-4, 1e-3
+TEMPORAL_PARAM_TOL, TEMPORAL_OUT_TOL = (2e-4, 2e-5), (1e-4, 1e-5)
 COLLECTIVES = ("gather", "gather_backward", "all_reduce_sum",
                "all_reduce_sum_backward", "reduce_gradients",
                "halo_exchange", "halo_exchange_backward")
@@ -4952,6 +5002,369 @@ def phase_parallel(workdir: Path, card: str) -> dict:
     return launched
 
 
+def cli_json(*argv) -> tuple:
+    """``cvad_tpu_torch.cli.main(argv)`` in this process: (exit code, the
+    JSON lines it printed)."""
+    import contextlib
+
+    from cvad_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(list(argv))
+    return rc, [json.loads(x) for x in buf.getvalue().splitlines()
+                if x.startswith("{")]
+
+
+def avenue_tree(root: Path) -> Path:
+    """An Avenue-layout tree (``training/frames/<video>/``,
+    ``testing/frames/<video>/``) of RGB 64x64 PPM frames from the port's
+    writer: COMPAT_VIDEOS train and test videos of COMPAT_FRAMES frames."""
+    from cvad_tpu_torch.data.synthetic import write_synthetic_video_tree
+
+    for split, n, name in (("Train", COMPAT_VIDEOS[0], "training"),
+                           ("Test", COMPAT_VIDEOS[1], "testing")):
+        write_synthetic_video_tree(str(root / "_w"), splits=(split,),
+                                   videos_per_split=n,
+                                   frames_per_video=COMPAT_FRAMES,
+                                   channels=3, fmt="ppm",
+                                   seed=COMPAT_SEED)
+        (root / name).mkdir(parents=True)
+        (root / "_w" / split).rename(root / name / "frames")
+    return root
+
+
+def compat_parity(tree: Path) -> dict:
+    """`ImprovedMiniCausalVAD` on the card and on the CPU from the
+    fixture, dropout off, over the tree's first COMPAT_PARITY_BATCHES
+    train batches with injected pseudo-targets (the two devices' draws
+    differ): each epoch's loss and components, and the plateau lr, of
+    COMPAT_EPOCHS epochs, then the eval on the test split."""
+    from cvad_tpu_torch.compat import ImprovedMiniCausalVAD
+    from cvad_tpu_torch.config import preset
+    from cvad_tpu_torch.data.datasets import create_avenue_dataloaders
+
+    train, test = create_avenue_dataloaders(str(tree), batch_size=4)
+    rng = np.random.default_rng(COMPAT_SEED)
+    batches = []
+    for videos, labels in train:
+        batches.append({"clips": videos, "labels": labels,
+                        "pseudo_targets": (rng.uniform(size=len(labels))
+                                           < COMPAT_PSEUDO_RATE).astype(
+                                               np.float32)})
+        if len(batches) == COMPAT_PARITY_BATCHES:
+            break
+    cfg = preset("avenue_improved")
+    cfg = cfg.replace(model=cfg.model.replace(dropout=0.0))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = ImprovedMiniCausalVAD(device=dev, cfg=cfg)
+        model.load_model(str(CKPT))
+        epochs = []
+        for _ in range(COMPAT_EPOCHS):
+            loss, comps = model.train_epoch_improved(batches)
+            epochs.append({"loss": loss, **comps,
+                           "lr": model.optimizer.param_groups[0]["lr"]})
+        preds, graphs, _ = model.evaluate_improved(test)
+        out[dev] = {"epochs": epochs, "predictions": preds,
+                    "graphs": graphs}
+    return out
+
+
+def phase_compat(workdir: Path, card: str) -> dict:
+    """Main path compat: the reference-API drivers of
+    `cvad_tpu_torch.compat` on the card over an Avenue-layout tree
+    (`avenue_tree`; family D at full width, 64x64, T=8, batch 4):
+    `train_improved_minicausal_vad` for COMPAT_EPOCHS epochs, then
+    `train_minicausal_vad_on_avenue` and `test_trained_model` on the
+    first driver's best_improved_model.pth; the counts set to 0 just
+    before and read just after (K1 and K2 forward and backward must
+    launch).  Then `compat_parity`: the card's losses and components
+    within COMPAT_LOSS_RTOL of the CPU's, the lr equal, predictions and
+    graphs within 1e-4."""
+    from cvad_tpu_torch import compat
+
+    t0 = time.perf_counter()
+    tree = avenue_tree(workdir / "avenue")
+    tree_s = time.perf_counter() - t0
+    out2, out1 = workdir / "compat_v2", workdir / "compat_v1"
+    reset_counts()
+    t1 = time.perf_counter()
+    _, hist2 = compat.train_improved_minicausal_vad(
+        str(tree), num_epochs=COMPAT_EPOCHS, save_interval=1,
+        output_dir=str(out2))
+    _, hist1 = compat.train_minicausal_vad_on_avenue(
+        str(tree), num_epochs=COMPAT_EPOCHS, save_interval=1,
+        output_dir=str(out1))
+    preds, graphs = compat.test_trained_model(
+        str(out2 / "best_improved_model.pth"), str(tree))
+    torch.cuda.synchronize()
+    launched = counts()
+    drivers_s = time.perf_counter() - t1
+    t2 = time.perf_counter()
+    par = compat_parity(tree)
+    parity_s = time.perf_counter() - t2
+    worst = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-12)
+                for a, b in zip(par["cuda"]["epochs"], par["cpu"]["epochs"])
+                for k in b if k != "lr")
+    lr_equal = all(a["lr"] == b["lr"] for a, b in
+                   zip(par["cuda"]["epochs"], par["cpu"]["epochs"]))
+    pred_err = float(np.abs(par["cuda"]["predictions"]
+                            - par["cpu"]["predictions"]).max())
+    graph_err = float(np.abs(par["cuda"]["graphs"]
+                             - par["cpu"]["graphs"]).max())
+    line = {"phase": "compat", "card": card,
+            "tree": {"train_videos": COMPAT_VIDEOS[0],
+                     "test_videos": COMPAT_VIDEOS[1],
+                     "frames": COMPAT_FRAMES, "seconds": tree_s},
+            "v2": {"train_losses": hist2["train_losses"],
+                   "learning_rates": hist2["learning_rates"],
+                   "evaluations": len(hist2["evaluation_metrics"]),
+                   "files": sorted(p.name for p in out2.iterdir())},
+            "v1": {"train_losses": hist1["train_losses"],
+                   "evaluation_scores": hist1["evaluation_scores"],
+                   "files": sorted(p.name for p in out1.iterdir())},
+            "test_trained_model": {"clips": int(preds.shape[0]),
+                                   "graphs": list(graphs.shape[1:])},
+            "drivers_s": drivers_s,
+            "parity": {"batches": COMPAT_PARITY_BATCHES,
+                       "epochs": par["cuda"]["epochs"],
+                       "cpu_epochs": par["cpu"]["epochs"],
+                       "worst_rel_err": worst, "rtol": COMPAT_LOSS_RTOL,
+                       "lr_equal": lr_equal, "predictions_err": pred_err,
+                       "graphs_err": graph_err, "seconds": parity_s},
+            "kernel_launches": {k: launched[k] for k in (
+                "tfold_conv1", "pairwise_l1_forward",
+                "pairwise_l1_backward", "memory_min_cosine")}}
+    emit(line)
+    check(all(np.isfinite(hist2["train_losses"] + hist1["train_losses"])),
+          "a compat driver's loss is not finite")
+    check((out2 / "best_improved_model.pth").is_file()
+          and (out2 / "improved_training_history.json").is_file()
+          and (out1 / "training_history.json").is_file(),
+          "a compat driver did not write its files")
+    check(np.isfinite(preds).all() and graphs.shape[1:] == (16, 16),
+          "test_trained_model's outputs")
+    check(worst <= COMPAT_LOSS_RTOL and lr_equal,
+          f"compat on the card off the CPU's losses by {worst} (rel)")
+    check(pred_err <= 1e-4 and graph_err <= 1e-4,
+          f"compat's eval card vs CPU: {pred_err}, {graph_err}")
+    for k in ("tfold_conv1", "pairwise_l1_forward", "pairwise_l1_backward"):
+        check(launched[k] > 0, f"the compat path never launched {k}")
+    return launched
+
+
+def phase_convert(workdir: Path, card: str) -> dict:
+    """Main path convert: `cli convert` of the family-D fixture into a run
+    directory, `eval --out` on the card (against the same on the CPU:
+    every metric within 1e-4), then `train --resume --epochs 1` on the
+    card from it (a fresh optimizer at step 0, the loss finite), on
+    CONVERT_CLIPS synthetic clips at batch CONVERT_BATCH; the counts set
+    to 0 just before and read just after the card's commands (K1, K2)."""
+    run = workdir / "convert_d"
+    data = ["--n-synthetic", str(CONVERT_CLIPS), "--set",
+            f"data.batch_size={CONVERT_BATCH}"]
+    t0 = time.perf_counter()
+    reset_counts()
+    rc_c, conv = cli_json("convert", str(CKPT), "--family", "d", "--out",
+                          str(run))
+    rc_e, ev = cli_json("eval", "--out", str(run), *data)
+    # the CPU's eval launches nothing: the counts run on through it
+    rc_cpu, ev_cpu = cli_json("eval", "--out", str(run), *data,
+                              "--device", "cpu")
+    rc_t, tr = cli_json("train", "--out", str(run), "--resume", "--epochs",
+                        "1", *data)
+    torch.cuda.synchronize()
+    launched = counts()
+    ev_err = max(abs(ev[-1][k] - ev_cpu[-1][k]) for k in ev_cpu[-1]
+                 if isinstance(ev_cpu[-1][k], float))
+    line = {"phase": "convert", "card": card, "convert": conv[-1],
+            "eval": ev[-1], "eval_cpu_max_abs_err": ev_err,
+            "train": tr[-1], "resumed_from": tr[0].get("resumed_from"),
+            "exit_codes": [rc_c, rc_e, rc_cpu, rc_t],
+            "seconds": time.perf_counter() - t0,
+            "kernel_launches": {k: launched[k] for k in (
+                "tfold_conv1", "pairwise_l1_forward",
+                "pairwise_l1_backward")}}
+    emit(line)
+    check([rc_c, rc_e, rc_cpu, rc_t] == [0, 0, 0, 0],
+          f"a command of phase convert failed: {line['exit_codes']}")
+    check(conv[-1]["params"] == 188849 and ev[-1]["epoch"] == 0
+          and tr[0] == {"resumed_from": 0}
+          and np.isfinite(tr[-1]["final_loss"]),
+          f"phase convert: {line}")
+    check(ev_err <= 1e-4, f"eval of the converted run card vs CPU {ev_err}")
+    for k in ("tfold_conv1", "pairwise_l1_forward", "pairwise_l1_backward"):
+        check(launched[k] > 0, f"the convert path never launched {k}")
+    return launched
+
+
+def temporal_config(name: str):
+    """Phase temporal's configurations: C at mini3d's width, B with the
+    attention encoder at memory_ae's width and T=128 (K6), A at full width
+    on 240x360."""
+    rows, _ = TEMPORAL_CASES[name]
+    return {"c": c_config, "b_attn": attn_config,
+            "a": a_config}[name](rows)
+
+
+def temporal_batch(name: str) -> dict:
+    """A case's global batch, uint8 clips, from TEMPORAL_SEED: a quarter
+    of the rows labelled anomalous (family B trains on the others)."""
+    rows, clip = TEMPORAL_CASES[name]
+    rng = np.random.default_rng(TEMPORAL_SEED + list(TEMPORAL_CASES).index(
+        name))
+    return {"clips": rng.integers(0, 256, (rows,) + clip, dtype=np.uint8),
+            "labels": (np.arange(rows) % 4 == 1).astype(np.float32),
+            "valid": np.ones(rows, np.float32)}
+
+
+def temporal_step(name: str, mesh) -> dict:
+    """One float32 train step of a case from seed 0 on this rank's rows
+    and frames of its global batch, and the eval step after it (dropout
+    and the VAE draw on: both take the one-rank step's draws, made on the
+    card from the same seed at the global rows)."""
+    from cvad_tpu_torch.runtime.mesh import shard_batch
+    from cvad_tpu_torch.train.tasks import build_task
+
+    task = build_task(temporal_config(name), mesh)
+    state = task.init_state(0, "cuda")
+    time_dim = 1 if mesh.time.size > 1 else None
+    batch = {k: torch.from_numpy(np.ascontiguousarray(v)).cuda()
+             for k, v in shard_batch(mesh, temporal_batch(name),
+                                     time_dim).items()}
+    state, metrics = task.train_step(state, batch, 1)
+    out = task.eval_step(state, batch)
+    torch.cuda.synchronize()
+    return {"state": state.state_dict(),
+            "metrics": {k: float(v) for k, v in metrics.items()},
+            "eval": {k: v.cpu() for k, v in out.items()}}
+
+
+def temporal_rank(rank: int, world: int, out: str) -> None:
+    """A rank of phase temporal's gloo group (started by
+    `parallel.dryrun.run_world`): every case on the (1 x 2) mesh, with
+    cuda:0 as its device; the counts set to 0 just before the cases and
+    read just after."""
+    from cvad_tpu_torch.runtime.mesh import create_mesh
+
+    mesh = create_mesh(data_axis=1, temporal_axis=2)
+    reset_counts()
+    res = {"steps": {name: temporal_step(name, mesh)
+                     for name in TEMPORAL_CASES}}
+    res["counts"] = counts()
+    torch.save(res, Path(out) / f"{rank}.pt")
+
+
+def temporal_readings(name: str, got: dict, want: dict) -> dict:
+    """A sharded step against the one-rank step: the metrics' worst
+    relative difference, the parameters' largest difference (in lr) and
+    their share beyond TEMPORAL_PARAM_TOL, the running statistics', bank's
+    and eval outputs' largest difference beyond TEMPORAL_OUT_TOL."""
+    lr = temporal_config(name).optim.lr
+    rtol, atol = TEMPORAL_PARAM_TOL
+    ortol, oatol = TEMPORAL_OUT_TOL
+    from cvad_tpu_torch.models.registry import build_model
+
+    g, w = got["state"]["model_state_dict"], want["state"]["model_state_dict"]
+    params = {n for n, _ in build_model(
+        temporal_config(name).model).named_parameters()}
+    far = total = 0
+    worst_p = worst_o = 0.0
+    for k, v in g.items():
+        if not v.is_floating_point():
+            continue
+        d = (v.double() - w[k].double()).abs()
+        if k in params:
+            worst_p = max(worst_p, float(d.max()))
+            far += int((d > atol + rtol * w[k].double().abs()).sum())
+            total += v.numel()
+        else:
+            worst_o = max(worst_o, float(
+                (d - ortol * w[k].double().abs()).max()))
+    for k, v in got["eval"].items():
+        d = (v.double() - want["eval"][k].double()).abs()
+        worst_o = max(worst_o, float(
+            (d - ortol * want["eval"][k].double().abs()).max()))
+    metric = max(abs(got["metrics"][k] - want["metrics"][k])
+                 / max(abs(want["metrics"][k]), 1e-12)
+                 for k in want["metrics"])
+    return {"metric_rel_err": metric, "param_max_lr": worst_p / lr,
+            "param_far_share": far / max(total, 1),
+            "out_excess": worst_o, "out_atol": oatol,
+            "loss": got["metrics"]["loss"]}
+
+
+def phase_temporal(workdir: Path, card: str) -> dict:
+    """Main path temporal: every family's train and eval steps on the
+    time axis.  A gloo group of 2 processes with both ranks on cuda:0
+    takes the port's CUDA collectives (all-gather, all-reduce, sub-groups,
+    the autograd gathers and halos; NCCL refuses two ranks on one card),
+    so the (1 data x 2 time) mesh runs here: C at mini3d's width (8 x 64 x
+    64, B=8), B with attention at memory_ae's width and T=128 (B=4; K6
+    over the gathered T, K3 in eval) and A at 16 x 240 x 360 (B=4), each
+    one step and the eval step, against the one-rank step of the same
+    global batch in this process (`temporal_readings`, the tolerances of
+    TEMPORAL_*); the two ranks' states bit-identical.  The launch counts
+    are each rank's over its cases, summed."""
+    from cvad_tpu_torch.parallel.dryrun import run_world
+    from cvad_tpu_torch.runtime.mesh import single_mesh
+
+    t0 = time.perf_counter()
+    one = {name: temporal_step(name, single_mesh())
+           for name in TEMPORAL_CASES}
+    one_s = time.perf_counter() - t0
+    out = workdir / "temporal"
+    out.mkdir()
+    t1 = time.perf_counter()
+    run_world(temporal_rank, 2, str(out), timeout=600)
+    world_s = time.perf_counter() - t1
+    ranks = [torch.load(out / f"{r}.pt", weights_only=False)
+             for r in range(2)]
+    launched = {k: sum(r["counts"][k] for r in ranks)
+                for k in ranks[0]["counts"]}
+    readings = {name: temporal_readings(name, ranks[0]["steps"][name],
+                                        one[name])
+                for name in TEMPORAL_CASES}
+    replicas = {name: all(
+        torch.equal(v, ranks[1]["steps"][name]["state"][part][k])
+        for part in ("model_state_dict", "optimizer")
+        for k, v in ranks[0]["steps"][name]["state"][part].items())
+        for name in TEMPORAL_CASES}
+    line = {"phase": "temporal", "card": card, "backend": "gloo",
+            "world_size": 2, "mesh": {"data": 1, "time": 2},
+            "cases": {name: {"B": TEMPORAL_CASES[name][0],
+                             "clip": list(TEMPORAL_CASES[name][1]),
+                             **readings[name],
+                             "replicas_equal": replicas[name]}
+                      for name in TEMPORAL_CASES},
+            "tolerances": {"metric_rtol": TEMPORAL_METRIC_RTOL,
+                           "param": TEMPORAL_PARAM_TOL,
+                           "param_far_share": TEMPORAL_FAR_SHARE,
+                           "outputs": TEMPORAL_OUT_TOL},
+            "kernel_launches": {k: launched[k] for k in (
+                "flash_forward", "flash_dq", "flash_dkv",
+                "memory_min_cosine", "tfold_conv1")},
+            "collective_calls": {k: v for k, v in launched.items()
+                                 if k in COLLECTIVES},
+            "one_rank_s": one_s, "world_s": world_s,
+            "seconds": time.perf_counter() - t0}
+    emit(line)
+    for name, r in readings.items():
+        check(replicas[name], f"temporal {name}: the ranks' states differ")
+        check(r["metric_rel_err"] <= TEMPORAL_METRIC_RTOL
+              and r["param_max_lr"] <= 2.0
+              and r["param_far_share"] <= TEMPORAL_FAR_SHARE
+              and r["out_excess"] <= TEMPORAL_OUT_TOL[1],
+              f"temporal {name} off the one-rank step: {r}")
+    for k in ("flash_forward", "flash_dq", "flash_dkv", "memory_min_cosine"):
+        check(launched[k] > 0, f"the temporal path never launched {k}")
+    check(launched["halo_exchange"] > 0 and launched["gather"] > 0,
+          f"the time axis' collectives: {line['collective_calls']}")
+    torch.cuda.empty_cache()
+    return launched
+
+
 def device_breakdown(fn, warm: bool = True) -> dict:
     """Device time by kernel over one call of `fn` (after one warm call
     unless `warm` is False, for a caller that warmed it), from
@@ -5163,6 +5576,15 @@ def main() -> int:
         paths["parallel"] = phase_parallel(Path(tmp), dev["card"])
     emit({"phase": "main_path", "path": "parallel",
           "launches": paths["parallel"]})
+    # the reference-API drivers, cli convert and every family on the time
+    # axis (main paths compat, convert, temporal; each resets the counts)
+    with tempfile.TemporaryDirectory(prefix="cvad_chip_smoke_") as tmp:
+        for name, phase in (("compat", phase_compat),
+                            ("convert", phase_convert),
+                            ("temporal", phase_temporal)):
+            paths[name] = phase(Path(tmp), dev["card"])
+            emit({"phase": "main_path", "path": name,
+                  "launches": paths[name]})
 
     # the eager rows of phase steps_per_call, and the K1 route at T=64
     eager = {(t["family"], t["dtype"]): t for t in spc_times if t["K"] == 1}

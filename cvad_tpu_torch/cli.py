@@ -17,6 +17,8 @@
         --out scorer.pt2 [--clip-len 128] [--preset P --set SEC.KEY=VAL] \\
         [--device cuda]
     python -m cvad_tpu_torch.cli serve scorer.pt2 --port 8700
+    python -m cvad_tpu_torch.cli convert CKPT.pth --family a|b|c|d|e \
+        --out RUN [--preset P --set SEC.KEY=VAL]
     python -m cvad_tpu_torch.cli synth --out TREE --videos 2 --frames 24 \\
         [--write-gt] [--format pgm]
     python -m cvad_tpu_torch.cli score TREE/Test [--checkpoint CKPT.pth]
@@ -36,7 +38,9 @@
 
 ``train`` is `cvad_tpu/cli.py::cmd_train` (under ``torchrun`` on the
 ranks of a mesh, ``--set parallel.data_axis=D --set
-parallel.temporal_axis=T``) for families D (presets
+parallel.temporal_axis=T``: every trained family shards its clips' T
+over a time axis where ``data.clip_len`` splits over it) for families D
+(presets
 avenue_improved, family_d), B (memory_ae, family_b), C (mini3d, family_c)
 and A (causal_pipeline, family_a; the anchor variant causal_pipeline_v0,
 family_a_anchor), on synthetic clips
@@ -52,7 +56,9 @@ reads.  ``serve`` is `cmd_serve`: the HTTP scoring endpoint of
 ``.pth`` checkpoint (``--family``) or an exported scorer of any family,
 with bucket-padded batching and dynamic request coalescing, after a device
 check (``--probe-timeout``).  ``export`` writes a family's scorer as a
-`torch.export` archive (`cmd_export`).
+`torch.export` archive (`cmd_export`).  ``convert`` writes a
+reference-format ``.pth`` as a training checkpoint that ``eval --out``,
+``auc --out`` and ``train --resume`` read (`cmd_convert`).
 ``synth`` writes a UCSD-style frame-folder
 tree (`cmd_synth`); ``score`` scores every sliding window of every video
 under a folder with a family-D ``.pth`` and keeps the windows above the
@@ -220,6 +226,60 @@ def cmd_export(args) -> int:
                                           cfg=model_cfg, device=args.device)
     Path(args.out).write_bytes(blob)
     print(json.dumps({"out": args.out, "bytes": len(blob)}))
+    return 0
+
+
+def cmd_convert(args) -> int:
+    """`cvad_tpu/cli.py::cmd_convert` for the port: the ``.pth``
+    (`load_torch_state_dict`: any of the reference's formats) loaded into
+    ``--family``'s model (``--preset``'s config, the family's own preset
+    by default, with the ``--set`` overrides; family A's channels from
+    the checkpoint's conv1) with ``strict=True``, so that a checkpoint of
+    another family or width exits 1 with a JSON error, then written by
+    the port's `CheckpointManager` under ``--out``'s ``checkpoints``, as
+    a training run keeps them: a whole train state at step 0, the weights
+    beside a fresh optimizer (zero moments and count, the config's lr),
+    which ``eval --out``, ``auc --out`` and ``train --resume`` find as the
+    latest checkpoint, so a resumed run starts there.  Prints ``{"params":
+    n, "out": ...}``, n the model's parameter count
+    (``model.parameters()``): that of
+    `cvad_tpu`'s imported ``params`` tree, but family A's, which is 128
+    above it (the GRU's r and z hidden biases, held at 0, which the port
+    keeps as ``nn.GRU`` does).  `cvad_tpu`'s ``convert`` counts every
+    leaf of its variables, the BatchNorm statistics and family B's bank
+    with the parameters."""
+    from cvad_tpu_torch.models.registry import build_model
+    from cvad_tpu_torch.runtime.checkpoint import (CheckpointManager,
+                                                   load_torch_state_dict)
+    from cvad_tpu_torch.train.optim import build_optimizer, flatten
+    from cvad_tpu_torch.train.state import TrainState, trainable
+
+    cfg = _apply_overrides(preset(args.preset or f"family_{args.family}"),
+                           args.set)
+    model_cfg = _family_model(cfg, args.family)
+    if model_cfg is None:
+        print(json.dumps({"error": f"preset {args.preset!r} is not of "
+                                   f"family {args.family!r}"}))
+        return 1
+    state = load_torch_state_dict(args.torch_checkpoint)
+    kw = {}
+    if args.family == "a" and "backbone.conv1.weight" in state:
+        kw["in_channels"] = state["backbone.conv1.weight"].shape[1]
+    model = build_model(model_cfg, **kw)
+    try:
+        model.load_state_dict(state, strict=True)
+    except RuntimeError as e:
+        print(json.dumps({"error": f"{args.torch_checkpoint} is not a "
+                                   f"family-{args.family.upper()} checkpoint "
+                                   "of this config",
+                          "detail": str(e)[:500]}))
+        return 1
+    fresh = build_optimizer(cfg.optim).init(
+        flatten(trainable(model)).detach())
+    path = CheckpointManager(str(Path(args.out) / "checkpoints")).save(
+        0, TrainState(model, fresh))
+    n = sum(p.numel() for p in model.parameters())
+    print(json.dumps({"params": n, "out": str(path)}))
     return 0
 
 
@@ -697,6 +757,18 @@ def build_parser() -> argparse.ArgumentParser:
     x.add_argument("--set", action="append", metavar="SEC.KEY=VAL")
     _device_arg(x)
     x.set_defaults(fn=cmd_export)
+
+    cv = sub.add_parser("convert", help="a reference-format .pth as a "
+                                        "training checkpoint")
+    cv.add_argument("torch_checkpoint")
+    cv.add_argument("--out", default="converted_ckpt",
+                    help="run directory (eval --out, train --resume)")
+    cv.add_argument("--family", default="d", choices=list("abcde"),
+                    help="which family the .pth belongs to")
+    cv.add_argument("--preset", default=None,
+                    help="the model config's preset (default: family_<f>)")
+    cv.add_argument("--set", action="append", metavar="SEC.KEY=VAL")
+    cv.set_defaults(fn=cmd_convert)
 
     sv = sub.add_parser("serve", help="HTTP scoring endpoint")
     sv.add_argument("model", help="reference-format .pth checkpoint or an "

@@ -16,7 +16,8 @@ nothing reads, and
 step trains on the normal clips).
 `ParallelConfig` is the device mesh's layout (`runtime/mesh.py`): the
 data axis over the ranks of a ``torch.distributed`` world, and the time
-axis that shards family D's clips along T (`parallel/temporal.py`).
+axis that shards every trained family's clips along T
+(`parallel/temporal.py`).
 Configs are frozen dataclasses that write JSON as `cvad_tpu`'s do.
 """
 
@@ -293,11 +294,11 @@ class OptimConfig(_Base):
 @dataclass(frozen=True)
 class ParallelConfig(_Base):
     """The mesh over the ranks of the process group (`cvad_tpu.config`'s,
-    :297-304): clip-batch data parallelism, optionally family D's clips
-    sharded along T."""
+    :297-304): clip-batch data parallelism, optionally the clips sharded
+    along T (families D, C, B and A)."""
 
     data_axis: int = 0  # 0 = every rank the time axis leaves
-    temporal_axis: int = 1  # >1 shards the clips' T with a halo exchange
+    temporal_axis: int = 1  # >1 shards the clips' T (halos, gathers)
     mesh_axis_names: Tuple[str, ...] = ("data", "time")
 
     def __post_init__(self):

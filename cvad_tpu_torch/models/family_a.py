@@ -105,20 +105,23 @@ class ResNetBackbone(nn.Module):
                 nn.ReLU()))
 
     def forward(self, x: torch.Tensor, valid: Optional[torch.Tensor] = None,
-                update_stats: bool = True) -> torch.Tensor:
+                update_stats: bool = True, axis=None) -> torch.Tensor:
+        """`axis`, where given, is the mesh axis the BatchNorm statistics
+        sum over (a time rank's frames: the mesh's ``frames``)."""
         b, t = x.shape[:2]
         x = x.reshape((b * t,) + x.shape[2:]).to(
             compute_dtype(self.cfg.dtype, self.conv1.weight))
         # the clip's padding mask, repeated for each of its frames
         fvalid = None if valid is None else valid.repeat_interleave(t)
-        x = F.relu(self.bn1(_conv(self.conv1, x), fvalid, update_stats))
+        x = F.relu(self.bn1(_conv(self.conv1, x), fvalid, update_stats,
+                            axis))
         x = F.max_pool2d(x, 3, stride=2, padding=1)
         for i in range(1, 5):
             for layer in getattr(self, f"layer{i}"):
                 if isinstance(layer, nn.Conv2d):
                     x = _conv(layer, x)
                 elif isinstance(layer, MaskedBatchNorm):
-                    x = layer(x, fvalid, update_stats)
+                    x = layer(x, fvalid, update_stats, axis)
                 else:
                     x = layer(x)
         x = adaptive_avg_pool2d(x, tuple(self.cfg.backbone_pool))
@@ -502,17 +505,22 @@ class CausalPipelineDetector(nn.Module):
         if isinstance(self.detector, MaskedPedestrianDetector):
             self.detector.reset_bias()
 
-    def _features(self, frames: torch.Tensor,
-                  valid: Optional[torch.Tensor]) -> torch.Tensor:
+    def features(self, frames: torch.Tensor,
+                 valid: Optional[torch.Tensor] = None, axis=None
+                 ) -> torch.Tensor:
+        """The backbone's (B, T, F) features of `frames`, under
+        ``torch.utils.checkpoint`` where ``remat`` says so in training;
+        `axis` as the backbone's."""
         if not (self.cfg.remat and self.training and torch.is_grad_enabled()):
-            return self.backbone(frames, valid)
+            return self.backbone(frames, valid, axis=axis)
         calls = []
 
         def run(x):
             # the recomputation in the backward normalises with the same
             # batch statistics and leaves the running ones as they are
             calls.append(None)
-            return self.backbone(x, valid, update_stats=len(calls) == 1)
+            return self.backbone(x, valid, update_stats=len(calls) == 1,
+                                 axis=axis)
 
         return checkpoint(run, frames, use_reentrant=False)
 
@@ -523,9 +531,16 @@ class CausalPipelineDetector(nn.Module):
         """`valid` (B,) keeps padded clips out of the BatchNorm statistics
         in ``train()`` mode; `generator` feeds the VAE draw and dropout
         there."""
+        return self.heads(self.features(frames, valid), generator)
+
+    def heads(self, feats: torch.Tensor,
+              generator: Optional[torch.Generator] = None
+              ) -> Dict[str, torch.Tensor]:
+        """Every stage after the backbone, from its (B, T, F) features of
+        the whole clip: the detector, the tracker across frames, the GRU,
+        the factors, the structure, the dynamics and the scorers."""
         cfg = self.cfg
         training = self.training
-        feats = self._features(frames, valid)
         boxes, box_valid = self.detector(feats, training, generator)
         traj = self.tracker(boxes, box_valid)
         traj_valid = box_valid.any(dim=1)  # (B, K): the slot ever valid

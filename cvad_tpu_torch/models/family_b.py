@@ -266,14 +266,14 @@ class MemoryVideoAutoEncoder(nn.Module):
     # -- forward -------------------------------------------------------------
 
     def _run(self, seq: nn.Sequential, x: torch.Tensor,
-             valid: Optional[torch.Tensor]) -> torch.Tensor:
+             valid: Optional[torch.Tensor], axis=None) -> torch.Tensor:
         for layer in seq:
             if isinstance(layer, (nn.Conv2d, nn.ConvTranspose2d)):
                 x = _conv(layer, x)
             elif isinstance(layer, nn.Linear):
                 x = _dense(layer, x)
             elif isinstance(layer, MaskedBatchNorm):
-                x = layer(x, valid=valid)
+                x = layer(x, valid=valid, axis=axis)
             else:
                 x = layer(x)
         return x
@@ -288,10 +288,13 @@ class MemoryVideoAutoEncoder(nn.Module):
         return getattr(torch, self.cfg.dtype)
 
     def encode_frames(self, flat: torch.Tensor,
-                      valid: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """(N, C, H, W) frames -> (N, latent) float32 latents."""
+                      valid: Optional[torch.Tensor] = None,
+                      axis=None) -> torch.Tensor:
+        """(N, C, H, W) frames -> (N, latent) float32 latents; `axis`, where
+        given, is the mesh axis the BatchNorm statistics sum over (a time
+        rank's frames: the mesh's ``frames``)."""
         return self._run(self.encoder, flat.to(self._dtype()),
-                         valid).float()
+                         valid, axis).float()
 
     def decode(self, seq: torch.Tensor,
                valid: Optional[torch.Tensor] = None) -> torch.Tensor:

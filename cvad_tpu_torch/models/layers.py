@@ -45,7 +45,7 @@ from cvad_tpu_torch.ops.pallas_conv import (fold_group_size, kernel_takes,
 from cvad_tpu_torch.ops.pallas_s2d import (s2d_fold_groups, s2d_fold_kernel,
                                            s2d_group_conv)
 from cvad_tpu_torch.parallel.collectives import all_reduce_sum, random
-from cvad_tpu_torch.runtime.mesh import single_mesh
+from cvad_tpu_torch.runtime.mesh import Axis, single_mesh
 
 
 class TFoldConv1(nn.Module):
@@ -100,7 +100,9 @@ class MaskedBatchNorm(nn.Module):
     The statistics are those of the rows of every rank of the mesh's data
     axis (``axis``: the trivial mesh's, one device, until
     `parallel.collectives.bind_batchnorm` sets the mesh's), so that the
-    running statistics update alike on every rank.
+    running statistics update alike on every rank; a call on a time
+    rank's own frames passes the mesh's ``frames`` axis instead
+    (`parallel/temporal.py`).
 
     Parameters and buffers carry `nn.BatchNorm2d`'s names (``weight``,
     ``bias``, ``running_mean``, ``running_var``, ``num_batches_tracked``),
@@ -123,16 +125,19 @@ class MaskedBatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 valid: Optional[torch.Tensor] = None,
-                update_stats: bool = True) -> torch.Tensor:
+                update_stats: bool = True,
+                axis: Optional[Axis] = None) -> torch.Tensor:
         """`update_stats=False` normalises with the batch statistics in
         train mode without touching the running ones (a recomputation of
-        the same forward, as under ``torch.utils.checkpoint``)."""
+        the same forward, as under ``torch.utils.checkpoint``); `axis`,
+        where given, is the one the statistics sum over instead of
+        ``self.axis``."""
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
         shape = (1, -1) + (1,) * (x.dim() - 2)
         if not self.training:
             mean, var = self.running_mean, self.running_var
         else:
-            mean, var = self._batch_stats(xf, valid)
+            mean, var = self._batch_stats(xf, valid, axis or self.axis)
             m = self.momentum
             if update_stats:
                 with torch.no_grad():
@@ -146,11 +151,11 @@ class MaskedBatchNorm(nn.Module):
             + self.bias.reshape(shape)
         return out.to(x.dtype)
 
-    def _batch_stats(self, xf: torch.Tensor, valid: Optional[torch.Tensor]
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    def _batch_stats(self, xf: torch.Tensor, valid: Optional[torch.Tensor],
+                     axis: Axis) -> Tuple[torch.Tensor, torch.Tensor]:
         """(mean, biased variance) over the rows `valid` keeps, of every
-        rank of the data axis: the count, sum and sum of squares summed
-        over the ranks in one `all_reduce_sum`.  Without a process group
+        rank of `axis`: the count, sum and sum of squares summed over the
+        ranks in one `all_reduce_sum`.  Without a process group
         that sum is the identity, and the three are not packed for it
         (packing copies exactly, so both give the same bits)."""
         axes = (0,) + tuple(range(2, xf.dim()))
@@ -162,10 +167,10 @@ class MaskedBatchNorm(nn.Module):
             per_row = xf[:, 0].numel() / xf.shape[0]
             cnt = (valid.to(xf.dtype).sum() * per_row).reshape(1)
             s1, s2 = (xf * w).sum(axes), (xf * xf * w).sum(axes)
-        if self.axis.group is not None:
+        if axis.group is not None:
             c = s1.shape[0]
             cnt, s1, s2 = all_reduce_sum(torch.cat([cnt, s1, s2]),
-                                         self.axis).split([1, c, c])
+                                         axis).split([1, c, c])
         cnt = torch.clamp(cnt, min=1.0)
         mean = s1 / cnt
         var = torch.clamp(s2 / cnt - mean * mean, min=0.0)

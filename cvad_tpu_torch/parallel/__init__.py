@@ -1,3 +1,3 @@
 """Multi-device training and scoring: the port's collectives
-(`collectives`), temporal sharding of family D's clips (`temporal`) and a
-dry run over gloo CPU processes (`dryrun`)."""
+(`collectives`), temporal sharding of every trained family's clips
+(`temporal`) and a dry run over gloo CPU processes (`dryrun`)."""

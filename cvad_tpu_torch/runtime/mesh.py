@@ -13,7 +13,10 @@ over the mesh's process groups:
 - ``data``: the ranks that share a time index.  Each holds its rows of
   every batch; the losses see the rows of all of them, gathered;
 - ``time``: the ranks that share a data index.  Each holds its frames of
-  its rows' clips (family D, `parallel/temporal.py`).
+  its rows' clips (`parallel/temporal.py`);
+- ``frames`` (`Mesh.frames`): every rank.  A BatchNorm over this rank's
+  own frames sums its statistics over it (data and time); one behind a
+  gather along T sums over ``data`` alone.
 
 Without a process group `create_mesh` gives the trivial 1 x 1 mesh, whose
 axes have no group: every collective over them is the identity and costs
@@ -68,6 +71,12 @@ class Mesh:
     def primary(self) -> bool:
         """Rank 0: the one that writes files."""
         return self.rank == 0
+
+    @property
+    def frames(self) -> Axis:
+        """Every rank of the mesh as one axis: the ranks whose frames
+        together make the global batch's (data x time)."""
+        return Axis(self.world_size, self.rank, self.world)
 
     def rows(self, local: int) -> Tuple[int, int]:
         """(rows of the global batch, the first of this rank's) for `local`
@@ -162,12 +171,12 @@ def shard_batch(mesh: Mesh, batch: Mapping[str, Any],
 
 @torch.no_grad()
 def replicated(module: torch.nn.Module, mesh: Mesh) -> torch.nn.Module:
-    """Broadcast every parameter and buffer of `module` from rank 0, so
-    the replicas start equal (`cvad_tpu`'s replicated sharding); nothing
-    without a process group."""
+    """Broadcast every parameter and buffer of `module` from the mesh's
+    first rank, so the replicas start equal (`cvad_tpu`'s replicated
+    sharding); nothing without a process group."""
     if mesh.world is not None:
         for t in module.state_dict().values():
-            dist.broadcast(t, src=0, group=mesh.world)
+            dist.broadcast(t, group=mesh.world, group_src=0)
     return module
 
 

@@ -31,11 +31,13 @@ same seed: tests set dropout to 0, pass ``pseudo_targets`` and put
 `cvad_tpu`'s VAE draw into `models/family_a.py::vae_noise`.
 
 The mesh (`runtime/mesh.py`): a task built with one runs each step on this
-rank's rows (and, for family D on a time axis, frames) of the global
-batch, gathers the per-row outputs over the data axis, computes the global
-loss from them on every rank, draws the pseudo-labels at the global
+rank's rows of the global batch (and, on a time axis, its frames: the
+family's sharded forward of `parallel/temporal.py`), gathers the per-row
+outputs over the data axis, computes the global loss from them on every
+rank, draws the pseudo-labels at the global
 batch's rows and every dropout mask and VAE draw through
-`collectives.RowDraws`, sums the BatchNorm statistics over the data axis,
+`collectives.RowDraws`, sums the BatchNorm statistics over the data axis
+(over data and time where a BatchNorm sees a rank's own frames),
 writes family B's bank from the gathered normal rows in global row order,
 and all-reduces the gradient (`collectives.reduce_gradients`) before the
 clip and the NaN guard; the module docstring of `parallel/collectives.py`
@@ -67,12 +69,15 @@ from cvad_tpu_torch.models import (CausalAnomalyDetector,
                                    CausalPipelineDetector,
                                    MemoryVideoAutoEncoder,
                                    Simple3DCNNDetector)
-from cvad_tpu_torch.models.family_b import MemoryBankState
+from cvad_tpu_torch.models.family_b import (MemoryBankState,
+                                            memory_anomaly_score)
 from cvad_tpu_torch.models.layers import MaskedBatchNorm
 from cvad_tpu_torch.ops.losses import (binary_cross_entropy, family_a_loss,
                                        improved_loss, pseudo_labels)
-from cvad_tpu_torch.parallel.collectives import (RowDraws, bind_batchnorm,
-                                                 gather, gather_rows,
+from cvad_tpu_torch.parallel import temporal
+from cvad_tpu_torch.parallel.collectives import (RowDraws, all_reduce_sum,
+                                                 bind_batchnorm, gather,
+                                                 gather_rows,
                                                  reduce_gradients)
 from cvad_tpu_torch.runtime.device import resolve_device
 from cvad_tpu_torch.runtime.mesh import Mesh, replicated, single_mesh
@@ -233,9 +238,7 @@ def _family_d_task(cfg: ExperimentConfig, mesh: Mesh) -> Task:
         """This rank's rows' outputs: the model's forward, or on a time
         axis the temporally sharded one (`parallel/temporal.py`)."""
         if mesh.time.size > 1:
-            from cvad_tpu_torch.parallel.temporal import sharded_forward
-
-            return sharded_forward(model, clips, mesh, generator)
+            return temporal.sharded_forward(model, clips, mesh, generator)
         return model(clips, generator=generator)
 
     @torch.no_grad()
@@ -335,6 +338,18 @@ def _family_b_task(cfg: ExperimentConfig, mesh: Mesh) -> Task:
         model = MemoryVideoAutoEncoder(model_cfg, seed=seed)
         return _new_state(model, tx, device, mesh)
 
+    def frame_moments(x: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(mean frame (B, C, H, W), mean of x^2 (B,)) over the clip's T
+        frames: this rank's sums over the time group (the identity
+        without a time axis)."""
+        n = x.shape[1] * mesh.time.size
+        sums = all_reduce_sum(torch.cat([x.sum(1).flatten(1),
+                                         (x * x).sum((1, 2, 3, 4))[:, None]],
+                                        1), mesh.time)
+        return (sums[:, :-1] / n).reshape(x[:, 0].shape), \
+            sums[:, -1] / (n * x[0, 0].numel())
+
     def train_step(state: TrainState, batch: Mapping[str, torch.Tensor],
                    seed: int, gen: Optional[torch.Generator] = None
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
@@ -346,12 +361,11 @@ def _family_b_task(cfg: ExperimentConfig, mesh: Mesh) -> Task:
         nothing."""
         model = state.model
         x = prep_frames(batch["clips"], clamp)  # (B, T, C, H, W)
-        b, t = x.shape[:2]
         valid = batch.get("valid")
         # data-side moments of the sufficient-statistics loss:
-        # E_t[(f - x_t)^2] = f^2 - 2 f x_bar + E_t[x^2], per pixel
-        x_mean = x.mean(1)
-        x_sqmean = (x * x).mean((1, 2, 3, 4))
+        # E_t[(f - x_t)^2] = f^2 - 2 f x_bar + E_t[x^2], per pixel; on a
+        # time axis the sums of this rank's frames over the time group
+        x_mean, x_sqmean = frame_moments(x)
         normal = (batch["labels"] == 0).float()
         if valid is not None:
             normal = normal * valid
@@ -359,18 +373,18 @@ def _family_b_task(cfg: ExperimentConfig, mesh: Mesh) -> Task:
         n_normal = normal.sum()
         bank = model.memory_bank()
         with card_numerics():
-            out = model.train().folded_forward(
-                x.reshape((b * t,) + x.shape[2:]), None, t=t, valid=valid)
-            frame = torch.clamp(out["recon_frame"], 1e-8, 1 - 1e-8)
+            seq = temporal.sharded_sequence_b(model.train(), x, mesh, valid)
+            frame = torch.clamp(model.decode(seq, valid), 1e-8, 1 - 1e-8)
             fm = (frame * frame).mean((1, 2, 3))
             fx = (frame * x_mean).mean((1, 2, 3))
             err = gather(fm - 2.0 * fx + x_sqmean, mesh.data)
             loss = (err * normal).sum() / torch.clamp(n_normal, min=1.0)
             loss = loss * loss_cfg.b_recon_weight
             grads = stop_bn_absorbed_biases(model, loss)
+        # every rank of a time group writes the same gathered rows: the bank
+        # takes each data row once
         model.set_memory_bank(update_memory_masked(
-            bank, gather(out["sequence_feature"].detach(), mesh.data),
-            normal))
+            bank, gather(seq.detach(), mesh.data), normal))
         state = _apply_updates(state, tx, grads, loss.detach(), mesh)
         return state, {"loss": loss.detach(), "n_normal": n_normal}
 
@@ -380,10 +394,17 @@ def _family_b_task(cfg: ExperimentConfig, mesh: Mesh) -> Task:
         """Per-sample combined score 0.7 recon MSE + 0.3 memory distance
         (K3), its parts, the labels, and the per-sample loss."""
         x = prep_frames(batch["clips"], clamp)
+        model = state.model.eval()
         with card_numerics():
-            out = state.model.eval()(x)
-        recon_err = ((out["reconstructed"] - x) ** 2).mean((1, 2, 3, 4))
-        mem = out["anomaly_score"]
+            seq = temporal.sharded_sequence_b(model, x, mesh)
+            frame = model.decode(seq)
+            # this rank's frames' squared errors, summed over the time
+            # group: the mean over the whole clip
+            sq = ((frame[:, None] - x) ** 2).sum((1, 2, 3, 4))
+            recon_err = all_reduce_sum(sq, mesh.time) / (
+                x[0].numel() * mesh.time.size)
+            mem = memory_anomaly_score(model.memory_bank(), seq,
+                                       model.cfg.memory_min_fill)
         combined = (loss_cfg.b_score_recon * recon_err
                     + loss_cfg.b_score_memory * mem)
         return _gather_out({"predictions": combined,
@@ -420,7 +441,8 @@ def _family_c_task(cfg: ExperimentConfig, mesh: Mesh) -> Task:
             gen = _generator(clips.device, seed, state.step)
         draws = RowDraws(gen, *mesh.rows(clips.shape[0]))
         with card_numerics():
-            scores = model.train()(clips, generator=draws, valid=valid)
+            scores = temporal.sharded_forward_c(model.train(), clips, mesh,
+                                                draws, valid)
             loss = _masked_mean_1d(binary_cross_entropy(
                 gather(scores.reshape(-1), mesh.data),
                 gather_rows(batch["labels"].float(), mesh)),
@@ -435,7 +457,8 @@ def _family_c_task(cfg: ExperimentConfig, mesh: Mesh) -> Task:
         """Per-clip scores, the labels and the per-clip BCE."""
         clips = prep_clips(batch["clips"], clamp)
         with card_numerics():
-            scores = state.model.eval()(clips).reshape(-1)
+            scores = temporal.sharded_forward_c(state.model.eval(), clips,
+                                                mesh).reshape(-1)
         labels = batch["labels"].float()
         return _gather_out({"predictions": scores, "labels": labels,
                             "loss": binary_cross_entropy(scores, labels)},
@@ -473,7 +496,8 @@ def _family_a_task(cfg: ExperimentConfig, mesh: Mesh) -> Task:
             gen = _generator(frames.device, seed, state.step)
         draws = RowDraws(gen, *mesh.rows(frames.shape[0]))
         with card_numerics():
-            out = model.train()(frames, generator=draws, valid=valid)
+            out = temporal.sharded_forward_a(model.train(), frames, mesh,
+                                             draws, valid)
             out = {k: gather(out[k], mesh.data) for k in LOSS_OUTPUTS_A}
             loss, comps = family_a_loss(
                 out, gather_rows(batch["labels"], mesh), loss_cfg,
@@ -490,7 +514,8 @@ def _family_a_task(cfg: ExperimentConfig, mesh: Mesh) -> Task:
         adjacency and the labels."""
         frames = prep_frames(batch["clips"], clamp)
         with card_numerics():
-            out = state.model.eval()(frames)
+            out = temporal.sharded_forward_a(state.model.eval(), frames,
+                                             mesh)
         return _gather_out({"predictions": out["anomaly_scores"],
                             "causal_scores": out["causal_anomaly_scores"],
                             "direct_predictions": out["direct_predictions"],
@@ -511,16 +536,16 @@ TASKS = {"d": _family_d_task, "c": _family_c_task, "b": _family_b_task,
 def build_task(cfg: ExperimentConfig, mesh: Optional[Mesh] = None) -> Task:
     """The task of the config's model family (D, B, C or A) over `mesh`
     (the trivial 1 x 1 mesh by default).  Family E scores only:
-    `cvad_tpu` has no train task for it, nor has the port.  Only family D
-    shards clips along T; the others raise on a time axis."""
+    `cvad_tpu` has no train task for it, nor has the port.  On a time
+    axis every family shards its clips along T; ``data.clip_len`` must
+    shard there (`temporal.time_shards_valid`), else `ValueError`."""
     family = family_of(cfg.model)
     if family not in TASKS:
         raise NotImplementedError(
             f"family {family.upper()} has no train task; it scores only "
             f"(make_score_fn({family!r}, ...))")
     mesh = mesh or single_mesh()
-    if family != "d" and mesh.time.size > 1:
-        raise ValueError(
-            f"family {family.upper()} does not shard clips along T: "
-            "parallel.temporal_axis > 1 runs family D only")
+    if mesh.time.size > 1:
+        temporal.check_time_shards(family, cfg.data.clip_len,
+                                   mesh.time.size)
     return TASKS[family](cfg, mesh)

@@ -1,9 +1,9 @@
 """The PyTorch port imports without JAX and loads nothing of `cvad_tpu`
 (every module, families C, A and E, the device clip cache, the K-step
 graphs, the localization and report modules, the plots, the diagnosis,
-the doctor, the mesh, the multi-process helpers and the collectives
-included); its entry points default to CUDA and raise
-without it."""
+the doctor, the mesh, the multi-process helpers, the collectives and the
+reference-API layer `compat` included); its entry points default to CUDA
+and raise without it."""
 
 import json
 import os
@@ -38,6 +38,7 @@ def test_imports_without_jax_or_cvad_tpu():
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
     for mod in ("cvad_tpu_torch.cli", "cvad_tpu_torch.config",
+                "cvad_tpu_torch.compat",
                 "cvad_tpu_torch.ops.pallas_conv",
                 "cvad_tpu_torch.ops.pallas_kernels",
                 "cvad_tpu_torch.ops.pallas_s2d",
@@ -193,3 +194,18 @@ def test_entry_points_default_to_cuda(tmp_path):
     with pytest.raises(RuntimeError):
         make_family_b_score_fn(MemoryVideoAutoEncoder(attn).state_dict(),
                                cfg=attn)
+    # the reference-API layer: the trainers, the drivers, the device probe
+    from cvad_tpu_torch import compat
+
+    for cls in (compat.MiniCausalVAD, compat.ImprovedMiniCausalVAD):
+        with pytest.raises(RuntimeError):
+            cls()
+    loaders = ([], [])
+    with pytest.raises(RuntimeError):
+        compat.train_improved_minicausal_vad("unused", loaders=loaders)
+    with pytest.raises(RuntimeError):
+        compat.train_minicausal_vad_on_avenue("unused", loaders=loaders)
+    with pytest.raises(RuntimeError):
+        compat.setup_training_environment()
+    with pytest.raises(RuntimeError):
+        compat.test_trained_model(ckpt, "unused", loaders=loaders)

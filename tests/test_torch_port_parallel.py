@@ -1,10 +1,16 @@
 """The port's multi-device layer on gloo CPU worlds: N-rank steps against
 the one-rank step and against `cvad_tpu`'s mesh, the temporal halo
-forward, the trainer over a mesh, the dry run and `torchrun`.
+forward, every family's steps on a time axis, the trainer over a mesh,
+the dry run and `torchrun`.
 
 Five worlds are spawned once, all at the same time, by the module's
 `worlds` fixture: the steps (2 ranks), the trainer (2), the time axis (4)
 (`parallel/dryrun.py::run_world`), the dry run (2) and `torchrun` (2).
+The time world runs family D's halo forward and trainer on (2 data x 2
+time), and the train and eval steps of families C, B (LSTM and
+attention) and A on (2 x 2), (1 x 4) and (1 x 2) meshes (its two halves
+each a (1 x 2) mesh of its own); family C's (2 x 2) step, dropout off,
+is also held against `cvad_tpu`'s on a (2, 2) CPU mesh.
 Each rank writes its results under the fixture's directory and the tests
 compare them here, against the one-rank step computed in this process,
 while the worlds run, on the trivial 1 x 1 mesh (no process group) from
@@ -35,9 +41,12 @@ from cvad_tpu_torch.train.tasks import build_task
 ROOT = Path(__file__).resolve().parent.parent
 
 # name -> (family, global rows); 'd13' pads 13 rows to 14 on 2 ranks,
-# 'd_jax' injects pseudo-labels with dropout off (cvad_tpu's step)
+# 'd_jax' injects pseudo-labels with dropout off (cvad_tpu's step),
+# 'b_attn' is family B with the attention encoder, 'c_jax' family C with
+# dropout off (cvad_tpu's step on a time axis)
 CASES = {"d": ("d", 8), "d13": ("d", 13), "d_jax": ("d", 8),
-         "b": ("b", 8), "c": ("c", 8), "a": ("a", 4)}
+         "b": ("b", 8), "c": ("c", 8), "a": ("a", 4), "b_attn": ("b", 8),
+         "c_jax": ("c", 8)}
 SCORE_CLIPS = 5  # padded to 6 on 2 ranks, trimmed back
 
 
@@ -51,11 +60,18 @@ def _cfg(case: str):
         return cfg
     if fam == "b":  # narrowed; the model's decoder needs 64 x 64 frames
         cfg = preset("memory_ae")
-        return cfg.replace(
+        cfg = cfg.replace(
             model=cfg.model.replace(conv_channels=(8, 16, 32, 32),
                                     latent_dim=16, lstm_hidden=16),
             data=cfg.data.replace(clip_len=4),
             optim=cfg.optim.replace(lr=1e-4))
+        if case == "b_attn":
+            cfg = cfg.replace(
+                model=cfg.model.replace(temporal_encoder="attention",
+                                        latent_dim=32, attn_heads=2,
+                                        attn_layers=1),
+                data=cfg.data.replace(clip_len=8))
+        return cfg
     if fam == "c":
         cfg = preset("mini3d")
         return cfg.replace(data=cfg.data.replace(frame_size=(16, 16)))
@@ -85,17 +101,21 @@ def _tensors(batch: dict, device: str = "cpu") -> dict:
 
 def _step(case: str, mesh, device: str = "cpu") -> dict:
     """One train step of a case from seed 0 on this rank's part of its
-    global batch (and family B's eval step after it)."""
+    global batch (its rows, and on a time axis its frames), and the eval
+    step after it."""
     task = build_task(_cfg(case), mesh)
     state = task.init_state(0, device)
-    batch = _tensors(shard_batch(mesh, _host(case)), device)
+    if case == "c_jax":  # both of the classifier's dropouts off
+        for mod in state.model.modules():
+            if isinstance(mod, torch.nn.Dropout):
+                mod.p = 0.0
+    time_dim = 1 if mesh.time.size > 1 else None
+    batch = _tensors(shard_batch(mesh, _host(case), time_dim), device)
     state, metrics = task.train_step(state, batch, 1)
-    out = {"state": state.state_dict(),
-           "metrics": {k: float(v) for k, v in metrics.items()}}
-    if case == "b":
-        out["eval"] = {k: v.cpu().numpy() for k, v in
-                       task.eval_step(state, batch).items()}
-    return out
+    return {"state": state.state_dict(),
+            "metrics": {k: float(v) for k, v in metrics.items()},
+            "eval": {k: v.cpu().numpy() for k, v in
+                     task.eval_step(state, batch).items()}}
 
 
 def _score_inputs(family: str):
@@ -199,8 +219,9 @@ def _close(a: dict, b: dict, rtol: float, atol: float) -> None:
 # (loss atol, parameter rtol, atol): tests/test_parallel.py's; family B's
 # parameters at its lr 1e-4 for BN reduction order (:119-159)
 TOL = {"d": (1e-5, 2e-4, 2e-5), "d13": (1e-5, 2e-4, 2e-5),
-       "c": (1e-5, 2e-4, 2e-5), "a": (1e-5, 2e-4, 2e-5),
-       "b": (1e-5, 2e-3, 2e-4)}
+       "c": (1e-5, 2e-4, 2e-5), "c_jax": (1e-5, 2e-4, 2e-5),
+       "a": (1e-5, 2e-4, 2e-5),
+       "b": (1e-5, 2e-3, 2e-4), "b_attn": (1e-5, 2e-3, 2e-4)}
 # Family A's 7.9 M parameters: Adam's first step moves each by about
 # lr * sign(g), so an entry whose gradient is within rounding of 0 can
 # move the other way when the ranks sum in another order (the rule of
@@ -223,14 +244,9 @@ def _close_params(case: str, got: dict, want: dict, rtol: float,
     assert far <= FAR_SHARE_A * total, (far, total)
 
 
-@pytest.mark.parametrize("case", sorted(TOL))
-def test_two_rank_step_matches_one_rank(steps, case):
-    """Dropout on (family D, C, A's draws through `RowDraws`), the same
-    seed and global batch: the metrics, parameters, BatchNorm statistics,
-    bank and Adam moments of the 2-rank step are the 1-rank step's; 'd13'
-    is a remainder batch padded to 14 (its padded row masked out)."""
-    ranks, one = steps
-    got, want = ranks[0]["steps"][case], one[case]
+def _step_matches(case: str, got: dict, want: dict) -> None:
+    """`got`, a step on a mesh, against `want`, the one-rank step of the
+    same global batch, within `TOL`'s tolerances."""
     loss_atol, rtol, atol = TOL[case]
     assert abs(got["metrics"]["loss"] - want["metrics"]["loss"]) < loss_atol
     for k, v in got["metrics"].items():
@@ -244,14 +260,24 @@ def test_two_rank_step_matches_one_rank(steps, case):
     _close_params(case, params, w, rtol, atol)
     _close({k: g[k] for k in stats}, w, 1e-4, 1e-5)
     _close({k: g[k] for k in bank}, w, 1e-4, 1e-5)
-    if case == "b":  # every clip's features in the bank, pointer and fill
-        n_normal = int((_host("b")["labels"] == 0).sum())
+    if CASES[case][0] == "b":  # each normal clip in the bank once
+        n_normal = int((_host(case)["labels"] == 0).sum())
         assert int(g["memory_ptr"]) == int(w["memory_ptr"]) == n_normal
         assert int(g["memory_fill"]) == int(w["memory_fill"]) == n_normal
     go, wo = got["state"]["optimizer"], want["state"]["optimizer"]
     np.testing.assert_allclose(go["mu"].numpy(), wo["mu"].numpy(),
                                rtol=1e-3, atol=1e-6)
     assert int(go["count"]) == int(wo["count"]) == 1
+
+
+@pytest.mark.parametrize("case", sorted(TOL))
+def test_two_rank_step_matches_one_rank(steps, case):
+    """Dropout on (family D, C, A's draws through `RowDraws`), the same
+    seed and global batch: the metrics, parameters, BatchNorm statistics,
+    bank and Adam moments of the 2-rank step are the 1-rank step's; 'd13'
+    is a remainder batch padded to 14 (its padded row masked out)."""
+    ranks, one = steps
+    _step_matches(case, ranks[0]["steps"][case], one[case])
 
 
 def test_replicas_are_bit_identical(steps):
@@ -522,7 +548,51 @@ def _t_clips():
         np.float32)
 
 
+# (case, mesh) of the time world's steps: '2x2' and '1x4' over its 4
+# ranks, '1x2' on each half (ranks 0-1 run the first two, ranks 2-3 the
+# others); C at T=8 on 1 x 4 runs blocks 1-2 on the frames and block 3
+# replicated, elsewhere all three blocks on the frames
+TIME_CASES = (("c", "2x2"), ("b", "2x2"), ("b_attn", "2x2"), ("a", "2x2"),
+              ("c_jax", "2x2"), ("c", "1x4"), ("c", "1x2"), ("b", "1x2"),
+              ("b_attn", "1x2"), ("a", "1x2"))
+# each train-mode BatchNorm's count after its all-reduce, in call order:
+# global frames (rows x T x H x W) where it sees a rank's frames, rows x
+# H x W behind the gather along T (B's decoder, C's block 3 on 1 x 4)
+BN_COUNTS = {("b", "2x2"): [8 * 4 * 32 * 32, 8 * 4 * 16 * 16, 8 * 4 * 8 * 8,
+                            8 * 4 * 4 * 4, 8 * 8 * 8, 8 * 16 * 16,
+                            8 * 32 * 32],
+             ("c", "1x4"): [8 * 8 * 16 * 16, 8 * 8 * 8 * 8, 8 * 4 * 4 * 4]}
+
+
+def _half_mesh(rank: int, halves: list):
+    """The (1 x 2) mesh of this rank's half of a 4-rank world."""
+    from cvad_tpu_torch.runtime.mesh import Axis, Mesh
+
+    group = halves[rank // 2]
+    return Mesh(Axis(1, 0), Axis(2, rank % 2, group), rank % 2, 2, group)
+
+
+def _counted_step(case: str, mesh) -> tuple:
+    """`_step` with each train-mode BatchNorm's reduced count recorded."""
+    from cvad_tpu_torch.models import layers
+
+    counts, reduce = [], layers.all_reduce_sum
+
+    def recording(x, axis):
+        out = reduce(x, axis)
+        counts.append(float(out[0]))
+        return out
+
+    layers.all_reduce_sum = recording
+    try:
+        return _step(case, mesh), counts
+    finally:
+        layers.all_reduce_sum = reduce
+
+
 def time_rank(rank: int, world: int, out: str) -> None:
+    import torch.distributed as dist
+
     from cvad_tpu_torch.parallel.collectives import reduce_gradients
     from cvad_tpu_torch.parallel.temporal import temporal_sharded_forward
     from cvad_tpu_torch.train.optim import flatten
@@ -536,6 +606,18 @@ def time_rank(rank: int, world: int, out: str) -> None:
     g = reduce_gradients(flatten(grads), mesh)
     res = {"fwd": [o.detach() for o in (s, adj, f)], "grad": g,
            "trainer": _time_epoch(out, f"data_time_{rank}", 2, 2)}
+    # every rank makes every group, in the same order
+    meshes = {"2x2": mesh, "1x4": create_mesh(data_axis=1, temporal_axis=4)}
+    halves = [dist.new_group([0, 1]), dist.new_group([2, 3])]
+    meshes["1x2"] = _half_mesh(rank, halves)
+    halved = [c for c in TIME_CASES if c[1] == "1x2"]
+    mine = halved[:2] if rank < 2 else halved[2:]
+    res["steps"], res["bn_counts"] = {}, {}
+    for case, kind in TIME_CASES:
+        if kind == "1x2" and (case, kind) not in mine:
+            continue
+        res["steps"][case, kind], res["bn_counts"][case, kind] = \
+            _counted_step(case, meshes[kind])
     torch.save(res, out / f"{rank}.pt")
 
 
@@ -589,6 +671,113 @@ def test_temporal_gradient_matches_unsharded(time_runs):
         np.testing.assert_allclose(r["grad"].numpy(), want.numpy(),
                                    rtol=2e-3, atol=1e-5)
         assert torch.equal(r["grad"], time_runs[0]["grad"])
+
+
+def _time_ranks(time_runs, case: str, kind: str) -> list:
+    """The ranks of the time world that ran (case, mesh)."""
+    return [r for r in time_runs if (case, kind) in r["steps"]]
+
+
+@pytest.mark.parametrize("case,kind", TIME_CASES,
+                         ids=[f"{c}-{k}" for c, k in TIME_CASES])
+def test_time_axis_step_matches_one_rank(steps, time_runs, case, kind):
+    """Families C, B (LSTM and attention) and A on a time axis, dropout
+    on: the train step on each rank's rows and frames equals the one-rank
+    step of the same global batch (`_step_matches`: metrics, parameters,
+    BatchNorm statistics, each normal clip once in the bank, Adam), the
+    eval step after it gives the one-rank outputs (1e-4 / 1e-5), and the
+    replicas are bit-identical."""
+    _, one = steps
+    ranks = _time_ranks(time_runs, case, kind)
+    assert len(ranks) == (2 if kind == "1x2" else 4)
+    got = ranks[0]["steps"][case, kind]
+    _step_matches(case, got, one[case])
+    for k, v in got["eval"].items():
+        np.testing.assert_allclose(v, one[case]["eval"][k], rtol=1e-4,
+                                   atol=1e-5, err_msg=k)
+    for r in ranks[1:]:
+        other = r["steps"][case, kind]
+        assert other["metrics"] == got["metrics"]
+        for part in ("model_state_dict", "optimizer"):
+            for k, v in got["state"][part].items():
+                assert torch.equal(v, other["state"][part][k]), k
+
+
+def test_time_axis_step_matches_jax_mesh(time_runs):
+    """Family C's (2 data x 2 time) step against `cvad_tpu`'s train step
+    on a (2, 2) CPU mesh with the clips' T sharded over 'time' (its
+    Trainer's shardings, `cvad_tpu/train/engine.py:89-124`), from the
+    same parameters and global batch, dropout off (flax's ``Dropout`` the
+    identity, as tests/test_torch_port_family_c.py patches it): the loss
+    within 1e-5 relative; every parameter within 2 lr and at most 0.1% of
+    them beyond
+    2e-5 + 2e-4 |p| (Adam's first step moves an entry whose gradient is
+    within rounding of 0 by up to lr either way, the rule of
+    tests/test_torch_port_family_c.py); the running statistics within
+    1e-5 relative and 2e-6 absolute."""
+    jax = pytest.importorskip("jax")
+    pytest.importorskip("flax")
+    import flax.linen as fnn
+    import jax.numpy as jnp
+
+    from cvad_tpu.config import preset as jax_preset
+    from cvad_tpu.runtime.mesh import (batch_sharding,
+                                       create_mesh as jax_mesh, replicated,
+                                       shard_batch as jax_shard)
+    from cvad_tpu.train.state import make_state
+    from cvad_tpu.train.tasks import build_task as jax_task
+    from cvad_tpu_torch.runtime.checkpoint import (from_jax_family_c,
+                                                   to_jax_family_c)
+
+    init = build_task(_cfg("c_jax")).init_state(0, "cpu")
+    jcfg = jax_preset("mini3d")
+    jcfg = jcfg.replace(data=jcfg.data.replace(frame_size=(16, 16)))
+    task = jax_task(jcfg)
+    v = jax.tree.map(jnp.asarray, to_jax_family_c(init.model.state_dict()))
+    mesh = jax_mesh(data_axis=2, temporal_axis=2,
+                    devices=jax.devices("cpu")[:4])
+    rep = replicated(mesh)
+    state = jax.device_put(make_state(v["params"], task.tx,
+                                      batch_stats=v["batch_stats"]), rep)
+    host = _host("c_jax")
+    step = jax.jit(task.train_step, in_shardings=(
+        rep, {k: batch_sharding(mesh, 1 if k == "clips" else None)
+              for k in host}, rep))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(fnn.Dropout, "__call__", lambda self, x, *a, **k: x)
+        with jax.default_matmul_precision("highest"):
+            new, metrics = step(state, jax_shard(mesh, host, 1),
+                                jax.device_put(jax.random.key(1), rep))
+    got = _time_ranks(time_runs, "c_jax", "2x2")[0]["steps"]["c_jax", "2x2"]
+    np.testing.assert_allclose(got["metrics"]["loss"], float(metrics["loss"]),
+                               rtol=1e-5)
+    want = from_jax_family_c(jax.device_get(
+        {"params": new.params, "batch_stats": new.batch_stats}))
+    g = got["state"]["model_state_dict"]
+    lr, far, total = _cfg("c_jax").optim.lr, 0, 0
+    for k, w in want.items():
+        if "num_batches" in k:  # `cvad_tpu` keeps no such counter
+            continue
+        if "running" in k:
+            np.testing.assert_allclose(g[k].numpy(), w.numpy(), rtol=1e-5,
+                                       atol=2e-6, err_msg=k)
+            continue
+        d = (g[k] - w).abs()
+        assert float(d.max()) <= 2 * lr, k
+        far += int((d > 2e-5 + 2e-4 * w.abs()).sum())
+        total += w.numel()
+    assert far <= 1e-3 * total, (far, total)
+
+
+@pytest.mark.parametrize("case,kind", sorted(BN_COUNTS))
+def test_time_axis_batchnorm_counts_are_global(time_runs, case, kind):
+    """Each train-mode BatchNorm counts the global batch's entries once: a
+    BatchNorm on a rank's frames sums over data and time, one behind the
+    gather along T over data alone (summed over time too, its count would
+    be t times too large; over data alone before the gather, t times too
+    small)."""
+    for r in _time_ranks(time_runs, case, kind):
+        assert r["bn_counts"][case, kind] == BN_COUNTS[case, kind]
 
 
 def test_time_axis_trainer_matches_data_only(trainer_runs, time_runs):
@@ -669,12 +858,23 @@ def test_nccl_world_of_one_on_card(tmp_path):
 
 
 def test_time_axis_refused_for_families_b_c_a():
+    """Families B, C and A build a task on a time axis where their
+    ``data.clip_len`` shards over it, and refuse one where it does not:
+    an odd T over 2 time ranks, and family C's T=2 (its pools need 4)."""
     from cvad_tpu_torch.runtime.mesh import Axis, Mesh
 
     mesh = Mesh(Axis(1, 0), Axis(2, 0))
+
+    def with_t(name, t):
+        cfg = preset(name)
+        return cfg.replace(data=cfg.data.replace(clip_len=t))
+
     for name in ("memory_ae", "mini3d", "causal_pipeline"):
+        build_task(with_t(name, 8), mesh)
         with pytest.raises(ValueError, match="temporal_axis"):
-            build_task(preset(name), mesh)
+            build_task(with_t(name, 7), mesh)
+    with pytest.raises(ValueError, match="temporal_axis"):
+        build_task(with_t("mini3d", 2), mesh)
 
 
 # -- the dry run and torchrun -----------------------------------------------
