@@ -7,8 +7,12 @@ batching) behind a plain HTTP endpoint, with the dynamic-batching
 batches.  Standard library only:
 
 - ``GET  /healthz`` -> ``{"ok": true, "buckets": [...], "clip_shape": [...]}``
-- ``GET  /stats``   -> batching counters (requests/clips/batches/errors,
-  score seconds) — ``clips_total / batches_total`` shows coalescing
+- ``GET  /stats``   -> batching counters (`BatchingServer.stats`:
+  requests/clips/batches/errors, score seconds, and
+  ``queue_wait_seconds_total``: each request's wait from submit to its
+  batch's start; ``padded_clips_total``: the clips bucket padding added;
+  ``host_prep_seconds_total``: each batch's concatenate and padding) —
+  ``clips_total / batches_total`` shows coalescing
 - ``POST /score``   -> scores and graphs (``?graphs=0`` omits the graphs)
 
 ``POST /score`` accepts either

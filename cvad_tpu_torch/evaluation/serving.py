@@ -10,7 +10,13 @@ Port of `cvad_tpu/evaluation/serving.py` (`ScoreResult`,
   empty;
 - a background thread drains a request queue with dynamic batching: it
   coalesces concurrent small requests up to the largest bucket, one device
-  batch per dtype.
+  batch per dtype;
+- `BatchingServer.stats` counts requests, clips, batches, errors, the
+  requests' wait in the queue, the padded clips and the host's time;
+  the worker names its parts on the profiler's clock
+  (`runtime/metrics.py::span`): ``serving.coalesce``,
+  ``serving.concatenate``, ``serving.pad``, ``serving.copy_in``,
+  ``serving.forward``, ``serving.copy_out`` and ``serving.reply``.
 
 - ahead-of-time export (`cvad_tpu`'s ``jax.export`` blobs, :244-399):
   `export_scorer` (family D) and `export_family_{b,a,e,c}_scorer` trace a
@@ -43,6 +49,7 @@ from torch import nn
 import cvad_tpu_torch.ops  # noqa: F401  (registers the kernels' custom ops)
 from cvad_tpu_torch.config import LossConfig
 from cvad_tpu_torch.runtime.device import no_tf32, resolve_device
+from cvad_tpu_torch.runtime.metrics import span
 
 DEFAULT_BUCKETS = (1, 8, 32, 128)
 
@@ -66,6 +73,10 @@ class ClipScoringService:
         self.buckets = tuple(sorted(buckets))
         self.clip_shape = tuple(clip_shape)  # (T, H, W, C), for warmup
         self._lock = threading.Lock()
+        # the bucket padding `score` added to the batches that were scored:
+        # clips and host seconds, written under `_lock`
+        self.padded_clips_total = 0
+        self.pad_seconds_total = 0.0
 
     @classmethod
     def from_torch_checkpoint(cls, path: str, family: str = "d", device=None,
@@ -111,12 +122,17 @@ class ClipScoringService:
                 graphs=(np.concatenate([p.graphs for p in parts])
                         if parts[0].graphs is not None else None))
         b = self._bucket(n)
-        padded = clips
+        padded, pad_s = clips, 0.0
         if b != n:
-            pad = np.repeat(clips[-1:], b - n, axis=0)
-            padded = np.concatenate([clips, pad])
+            t0 = time.perf_counter()
+            with span("serving.pad"):
+                pad = np.repeat(clips[-1:], b - n, axis=0)
+                padded = np.concatenate([clips, pad])
+            pad_s = time.perf_counter() - t0
         with self._lock:  # one in-flight device call; queue serializes others
             out = self.score_fn(padded)
+            self.padded_clips_total += b - n
+            self.pad_seconds_total += pad_s
         if isinstance(out, tuple):
             scores = np.asarray(out[0]).reshape(-1)
             graphs = None if out[1] is None else np.asarray(out[1])[:n]
@@ -138,6 +154,7 @@ class _Pending:
     clips: np.ndarray
     event: threading.Event = field(default_factory=threading.Event)
     result: Optional[ScoreResult] = None
+    submitted: float = field(default_factory=time.perf_counter)
 
 
 class BatchingServer:
@@ -155,15 +172,28 @@ class BatchingServer:
         self._stats = {"requests_total": 0, "clips_total": 0,
                        "batches_total": 0, "errors_total": 0,
                        "last_batch_clips": 0, "max_batch_clips": 0,
-                       "score_seconds_total": 0.0}
+                       "score_seconds_total": 0.0,
+                       "queue_wait_seconds_total": 0.0,
+                       "host_prep_seconds_total": 0.0}
         self._worker = threading.Thread(target=self._run, daemon=True)
         self._worker.start()
 
     def stats(self) -> dict:
         """Counters for observability endpoints: coalescing effectiveness is
-        ``clips_total / batches_total`` (device batches per request stream)."""
+        ``clips_total / batches_total`` (device batches per request stream).
+        ``score_seconds_total`` is each batch's host time from its start to
+        its scores (concatenate, padding, copies and forward);
+        ``queue_wait_seconds_total`` each request's time from `submit` to
+        its batch's start; ``padded_clips_total`` the clips the service's
+        bucket padding added; ``host_prep_seconds_total`` each batch's
+        concatenate and padding."""
         with self._stats_lock:
-            return dict(self._stats)
+            out = dict(self._stats)
+        # the service's padding, read without its lock (held across a
+        # forward): one attribute each
+        out["padded_clips_total"] = self.service.padded_clips_total
+        out["host_prep_seconds_total"] += self.service.pad_seconds_total
+        return out
 
     def submit(self, clips: np.ndarray, timeout: float = 30.0) -> ScoreResult:
         # uint8 rides through untouched (raw 0-255 pixels, normalized on
@@ -202,21 +232,22 @@ class BatchingServer:
                 if self._stop.is_set():
                     return  # drained: safe to exit
                 continue
-            batch: List[_Pending] = [first]
-            total = len(first.clips)
-            # coalesce within one absolute window (an arrival stream must not
-            # keep extending the first request's latency)
-            deadline = time.monotonic() + self.max_wait
-            while total < cap:
-                remaining = deadline - time.monotonic()
-                if remaining <= 0:
-                    break
-                try:
-                    nxt = self._q.get(timeout=remaining)
-                except queue.Empty:
-                    break
-                batch.append(nxt)
-                total += len(nxt.clips)
+            with span("serving.coalesce"):
+                batch: List[_Pending] = [first]
+                total = len(first.clips)
+                # coalesce within one absolute window (an arrival stream
+                # must not keep extending the first request's latency)
+                deadline = time.monotonic() + self.max_wait
+                while total < cap:
+                    remaining = deadline - time.monotonic()
+                    if remaining <= 0:
+                        break
+                    try:
+                        nxt = self._q.get(timeout=remaining)
+                    except queue.Empty:
+                        break
+                    batch.append(nxt)
+                    total += len(nxt.clips)
             # partition by dtype: concatenating a raw-pixel uint8 request
             # with a normalized float32 one would silently promote the
             # uint8 values into 0-255 floats — wrong by 255x.  Each dtype
@@ -228,12 +259,15 @@ class BatchingServer:
                 self._score_group(grp)
 
     def _score_group(self, grp: List[_Pending]) -> None:
-        t0 = time.monotonic()
+        t0 = time.perf_counter()
+        wait = sum(t0 - p.submitted for p in grp)
         try:
             # the concatenate sits inside the guard: mixed-shape requests
             # coalesced into one window raise ValueError here, and an escaped
             # exception would kill the worker thread for good
-            clips = np.concatenate([p.clips for p in grp])
+            with span("serving.concatenate"):
+                clips = np.concatenate([p.clips for p in grp])
+            concat_s = time.perf_counter() - t0
             res = self.service.score(clips)
         except Exception as e:  # a failed batch must not strand submitters
             n_clips = sum(len(p.clips) for p in grp)
@@ -243,6 +277,7 @@ class BatchingServer:
                 s["requests_total"] += len(grp)
                 s["clips_total"] += n_clips
                 s["batches_total"] += 1
+                s["queue_wait_seconds_total"] += wait
             for p in grp:
                 p.result = ScoreResult(scores=np.zeros(0, np.float32),
                                        error=f"{type(e).__name__}: {e}")
@@ -255,15 +290,19 @@ class BatchingServer:
             s["batches_total"] += 1
             s["last_batch_clips"] = len(clips)
             s["max_batch_clips"] = max(s["max_batch_clips"], len(clips))
-            s["score_seconds_total"] += time.monotonic() - t0
-        offset = 0
-        for p in grp:
-            k = len(p.clips)
-            p.result = ScoreResult(
-                res.scores[offset:offset + k],
-                None if res.graphs is None else res.graphs[offset:offset + k])
-            offset += k
-            p.event.set()
+            s["score_seconds_total"] += time.perf_counter() - t0
+            s["queue_wait_seconds_total"] += wait
+            s["host_prep_seconds_total"] += concat_s
+        with span("serving.reply"):
+            offset = 0
+            for p in grp:
+                k = len(p.clips)
+                p.result = ScoreResult(
+                    res.scores[offset:offset + k],
+                    None if res.graphs is None
+                    else res.graphs[offset:offset + k])
+                offset += k
+                p.event.set()
 
 
 # ---------------------------------------------------------------------------
@@ -424,13 +463,17 @@ def clip_scorer(fn: Callable, device: torch.device) -> Callable:
     the eager scorers call their `ScorerModule` and `load_scorer` its
     artefact."""
     def score(batch: np.ndarray):
-        x = torch.from_numpy(np.ascontiguousarray(batch)).to(device)
-        x = x.float() / 255.0 if x.dtype == torch.uint8 else x.float()
-        with torch.inference_mode(), no_tf32():
-            out = fn(x)
-        if isinstance(out, (tuple, list)):
-            return tuple(o.cpu().numpy() for o in out)
-        return out.cpu().numpy()
+        with span("serving.copy_in"):
+            x = torch.from_numpy(np.ascontiguousarray(batch)).to(device)
+        with span("serving.forward"):
+            x = x.float() / 255.0 if x.dtype == torch.uint8 else x.float()
+            with torch.inference_mode(), no_tf32():
+                out = fn(x)
+        # the fetch waits for the card: its time includes the forward's
+        with span("serving.copy_out"):
+            if isinstance(out, (tuple, list)):
+                return tuple(o.cpu().numpy() for o in out)
+            return out.cpu().numpy()
 
     return score
 

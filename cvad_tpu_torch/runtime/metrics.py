@@ -1,9 +1,12 @@
-"""Structured metric stream and step timing.
+"""Structured metric stream, spans and the profiler trace.
 
-Port of `cvad_tpu/runtime/metrics.py` (`MetricLogger`, `StepTimer`,
-`profile_trace`): an append-only JSONL stream with a console echo,
-host-clock step timing, and a `torch.profiler` trace (``train
---profile-dir``) in place of `jax.profiler`'s.
+Port of `cvad_tpu/runtime/metrics.py` (`MetricLogger`, `profile_trace`):
+an append-only JSONL stream with a console echo, and a `torch.profiler`
+trace (``train --profile-dir``) in place of `jax.profiler`'s.  `span`
+names a range of the program (the trainer's and the batching server's
+layers) on the profiler's clock, so that a trace puts each of the card's
+idle gaps down to the range the host was in; with no profiler running it
+costs a shared no-op context.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ from pathlib import Path
 from typing import Any, Dict, Iterator, Optional
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 from cvad_tpu_torch.utils.json_utils import convert_to_json_serializable
 
@@ -43,27 +47,19 @@ class MetricLogger:
         return rec
 
 
-class StepTimer:
-    """Per-step host-clock timing with an ETA.  The clock sees when a step
-    was enqueued, not when the card finished it."""
+_NO_SPAN = contextlib.nullcontext()
 
-    def __init__(self, total_steps: int = 0):
-        self.total_steps = total_steps
-        self.count = 0
-        self.started = time.time()
-        self._last = self.started
 
-    def tick(self) -> Dict[str, float]:
-        now = time.time()
-        dt = now - self._last
-        self._last = now
-        self.count += 1
-        elapsed = now - self.started
-        rate = self.count / elapsed if elapsed > 0 else 0.0
-        eta = ((self.total_steps - self.count) / rate
-               if rate > 0 and self.total_steps else 0.0)
-        return {"step_time_s": dt, "elapsed_s": elapsed, "steps_per_s": rate,
-                "eta_s": eta}
+def span(name: str) -> contextlib.AbstractContextManager:
+    """`torch.profiler.record_function(name)` while a profiler runs in the
+    process, else a shared no-op context (a bare `record_function` costs
+    ~20 times as much on the host).  The test is torch's process-wide
+    flag: ``torch.autograd._profiler_enabled()`` is per thread, and reads
+    False in the batching worker even where the profile records every
+    thread."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 TRACE_NAME = "trace.json"
@@ -72,14 +68,17 @@ TRACE_NAME = "trace.json"
 @contextlib.contextmanager
 def profile_trace(log_dir: str, device=None) -> Iterator[Any]:
     """Profile the block with `torch.profiler` and write a Chrome trace to
-    ``log_dir/trace.json``: CPU activity, and CUDA activity where `device`
-    is a CUDA device."""
+    ``log_dir/trace.json``: CPU activity of every thread (the prefetcher's
+    and the batching worker's too, threads that were started before the
+    profile), and CUDA activity where `device` is a CUDA device."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU]
     if device is not None and torch.device(device).type == "cuda":
         acts.append(ProfilerActivity.CUDA)
-    with profile(activities=acts) as prof:
+    every_thread = torch._C._profiler._ExperimentalConfig(
+        profile_all_threads=True)
+    with profile(activities=acts, experimental_config=every_thread) as prof:
         yield prof
     out = Path(log_dir)
     out.mkdir(parents=True, exist_ok=True)

@@ -27,7 +27,11 @@ card, the collectives captured in it), and the remainder and odd shapes
 run singly.  `evaluate` gathers every rank's outputs and drops the padded
 rows.  Rank 0 alone writes the checkpoints, the history and
 ``metrics.jsonl``, and every rank waits for each write; `restore` reads
-on every rank.
+on every rank.  `train_epoch` names its parts on the profiler's clock
+(`runtime/metrics.py::span`): ``trainer.feed`` (the next batch or chunk),
+``trainer.step`` (the step's or the graph replay's issue), ``trainer.log``
+and ``trainer.epoch_end`` (``trainer.fetch``, ``trainer.history``,
+``trainer.schedule``).
 """
 
 from __future__ import annotations
@@ -52,7 +56,7 @@ from cvad_tpu_torch.runtime.device import resolve_device
 from cvad_tpu_torch.runtime.history import TrainingHistory
 from cvad_tpu_torch.runtime.mesh import (Mesh, create_mesh, pad_with_valid,
                                          shard_batch)
-from cvad_tpu_torch.runtime.metrics import MetricLogger, StepTimer
+from cvad_tpu_torch.runtime.metrics import MetricLogger, span
 from cvad_tpu_torch.train.graphs import MultiStep
 from cvad_tpu_torch.train.optim import HostScheduler, set_lr
 from cvad_tpu_torch.train.tasks import build_task
@@ -271,7 +275,7 @@ class Trainer:
                     initial: Optional[Mapping] = None) -> Dict[str, float]:
         assert self.state is not None, "call init_state first"
         count = 0
-        timer = StepTimer()
+        t0 = time.perf_counter()
         total_vec = None  # device accumulator: no per-step host sync
         if initial is not None:  # restored partial metric sum
             total_vec = torch.from_numpy(np.asarray(
@@ -281,18 +285,24 @@ class Trainer:
         save_every = self.cfg.train.save_every_steps if record else 0
         next_save = (count // save_every + 1) * save_every if save_every else 0
         log_every = self.cfg.train.log_every
-        for batch in self._feed(loader, epoch, skip_batches):
-            if batch["clips"].dim() == 6:  # a (K, B, ...) chunk
-                vec, total_vec, keys = self._multi(self.state, batch,
-                                                   total_vec)
-                dk = batch["clips"].shape[0]
-            else:
-                self.state, metrics = self.task.train_step(
-                    self.state, batch, self._seed)
-                keys = sorted(metrics)
-                vec = torch.stack([metrics[k].float() for k in keys])
-                total_vec = vec if total_vec is None else total_vec + vec
-                dk = 1
+        feed = self._feed(loader, epoch, skip_batches)
+        while True:
+            with span("trainer.feed"):
+                batch = next(feed, None)
+            if batch is None:
+                break
+            with span("trainer.step"):
+                if batch["clips"].dim() == 6:  # a (K, B, ...) chunk
+                    vec, total_vec, keys = self._multi(self.state, batch,
+                                                       total_vec)
+                    dk = batch["clips"].shape[0]
+                else:
+                    self.state, metrics = self.task.train_step(
+                        self.state, batch, self._seed)
+                    keys = sorted(metrics)
+                    vec = torch.stack([metrics[k].float() for k in keys])
+                    total_vec = vec if total_vec is None else total_vec + vec
+                    dk = 1
             if self._metric_keys is None:
                 self._metric_keys = keys
             count += dk
@@ -300,28 +310,36 @@ class Trainer:
             if next_save and count >= next_save:
                 self._save_mid(epoch, count, total_vec)
                 next_save = (count // save_every + 1) * save_every
-            t = timer.tick()
             if count // log_every > (count - dk) // log_every:
-                host = dict(zip(self._metric_keys, vec.cpu().numpy() / dk))
-                self.logger.log("train_batch", epoch=epoch, batch=count,
-                                **host, steps_per_s=(count - count0)
-                                / max(t["elapsed_s"], 1e-9))
-        if total_vec is None:
-            avg: Dict[str, float] = {}
-        else:
-            vals = total_vec.cpu().numpy() / max(count, 1)  # one fetch
-            avg = {k: float(v) for k, v in zip(self._metric_keys, vals)}
-        if not record:
-            return avg
-        lr = self.scheduler.lr
-        self.history.record_epoch(epoch, avg.get("loss", float("nan")),
-                                  {k: v for k, v in avg.items()
-                                   if k != "loss"}, lr)
-        # epoch-granular schedule, then the new lr into the optimizer state
-        new_lr = self.scheduler.step(avg.get("loss"))
-        if new_lr != lr:
-            set_lr(self.state.opt_state, new_lr)
-            self.logger.log("lr_update", epoch=epoch, lr=new_lr)
+                with span("trainer.log"):
+                    host = dict(zip(self._metric_keys, vec.cpu().numpy() / dk))
+                    # the clock after the fetch: the steps have run
+                    elapsed = time.perf_counter() - t0
+                    self.logger.log("train_batch", epoch=epoch, batch=count,
+                                    **host, steps_per_s=(count - count0)
+                                    / max(elapsed, 1e-9))
+        with span("trainer.epoch_end"):
+            with span("trainer.fetch"):
+                if total_vec is None:
+                    avg: Dict[str, float] = {}
+                else:
+                    vals = total_vec.cpu().numpy() / max(count, 1)  # one fetch
+                    avg = {k: float(v)
+                           for k, v in zip(self._metric_keys, vals)}
+            if not record:
+                return avg
+            lr = self.scheduler.lr
+            with span("trainer.history"):
+                self.history.record_epoch(
+                    epoch, avg.get("loss", float("nan")),
+                    {k: v for k, v in avg.items() if k != "loss"}, lr)
+            # epoch-granular schedule, then the new lr into the optimizer
+            # state
+            with span("trainer.schedule"):
+                new_lr = self.scheduler.step(avg.get("loss"))
+                if new_lr != lr:
+                    set_lr(self.state.opt_state, new_lr)
+                    self.logger.log("lr_update", epoch=epoch, lr=new_lr)
         return avg
 
     def evaluate(self, loader: Iterable[Mapping[str, np.ndarray]]
