@@ -11,8 +11,11 @@ batches.  Standard library only:
   requests/clips/batches/errors, score seconds, and
   ``queue_wait_seconds_total``: each request's wait from submit to its
   batch's start; ``padded_clips_total``: the clips bucket padding added;
-  ``host_prep_seconds_total``: each batch's concatenate and padding) —
-  ``clips_total / batches_total`` shows coalescing
+  ``host_prep_seconds_total``: each batch's staging, its requests' clips
+  written into the service's reused buffer and the padding;
+  ``pinned_batches_total``: the batches that crossed to the card from
+  that buffer page-locked) — ``clips_total / batches_total`` shows
+  coalescing
 - ``POST /score``   -> scores and graphs (``?graphs=0`` omits the graphs)
 
 ``POST /score`` accepts either

@@ -151,9 +151,12 @@ def _scorer(family: str, state: Mapping[str, torch.Tensor], cfg, *,
     """A family's eager scorer: its `serving.ScorerModule` (the one
     definition, which the exporters trace too) called on numpy clips by
     `serving.clip_scorer`; `first` keeps the first output only, `empty` is
-    what an empty batch returns (no scores by default)."""
-    module = scorer_module(family, state, cfg, memory, loss_cfg, device)
-    run = clip_scorer(module, resolve_device(device))
+    what an empty batch returns (no scores by default).  The returned
+    function's ``device`` is the scorer's (`ClipScoringService` stages its
+    batches in pinned memory for a CUDA one)."""
+    dev = resolve_device(device)
+    module = scorer_module(family, state, cfg, memory, loss_cfg, dev)
+    run = clip_scorer(module, dev)
     none = np.zeros(0, np.float32) if empty is None else empty
 
     def score(batch: np.ndarray):
@@ -162,6 +165,7 @@ def _scorer(family: str, state: Mapping[str, torch.Tensor], cfg, *,
         out = run(batch)
         return out[0] if first else out
 
+    score.device = dev
     return score
 
 

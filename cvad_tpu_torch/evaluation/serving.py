@@ -11,12 +11,18 @@ Port of `cvad_tpu/evaluation/serving.py` (`ScoreResult`,
 - a background thread drains a request queue with dynamic batching: it
   coalesces concurrent small requests up to the largest bucket, one device
   batch per dtype;
+- each batch is staged: its requests' clips are written once, straight
+  from the requests' own arrays, into their slots of a host buffer kept
+  per (dtype, clip shape) and reused, its tail slots filled with the last
+  clip; the buffer is page-locked where the scorer runs on CUDA, so the
+  copy to the card is a DMA from it;
 - `BatchingServer.stats` counts requests, clips, batches, errors, the
-  requests' wait in the queue, the padded clips and the host's time;
-  the worker names its parts on the profiler's clock
-  (`runtime/metrics.py::span`): ``serving.coalesce``,
-  ``serving.concatenate``, ``serving.pad``, ``serving.copy_in``,
-  ``serving.forward``, ``serving.copy_out`` and ``serving.reply``.
+  requests' wait in the queue, the padded clips, the host's time and the
+  batches staged in pinned memory; the worker names its parts on the
+  profiler's clock (`runtime/metrics.py::span`): ``serving.coalesce``,
+  ``serving.concatenate`` and ``serving.pad`` (the staging, in
+  `ClipScoringService.score`), ``serving.copy_in``, ``serving.forward``,
+  ``serving.copy_out`` and ``serving.reply``.
 
 - ahead-of-time export (`cvad_tpu`'s ``jax.export`` blobs, :244-399):
   `export_scorer` (family D) and `export_family_{b,a,e,c}_scorer` trace a
@@ -73,10 +79,18 @@ class ClipScoringService:
         self.buckets = tuple(sorted(buckets))
         self.clip_shape = tuple(clip_shape)  # (T, H, W, C), for warmup
         self._lock = threading.Lock()
-        # the bucket padding `score` added to the batches that were scored:
-        # clips and host seconds, written under `_lock`
+        # one staging buffer of the largest bucket per (dtype, clip shape),
+        # made on that key's first batch; page-locked where `score_fn`
+        # runs on CUDA (its ``device``, as the port's scorers carry it)
+        dev = getattr(score_fn, "device", None)
+        self._pinned = dev is not None and torch.device(dev).type == "cuda"
+        self._staging: dict = {}
+        # the batches that were scored: the bucket padding added (clips),
+        # the staging's host seconds and the batches staged in pinned
+        # memory, written under `_lock`
         self.padded_clips_total = 0
-        self.pad_seconds_total = 0.0
+        self.host_prep_seconds_total = 0.0
+        self.pinned_batches_total = 0
 
     @classmethod
     def from_torch_checkpoint(cls, path: str, family: str = "d", device=None,
@@ -108,36 +122,81 @@ class ClipScoringService:
                 return b
         return self.buckets[-1]
 
-    def score(self, clips: np.ndarray) -> ScoreResult:
-        """Score (N, T, H, W, C) clips; N may be anything — requests larger
-        than the biggest bucket are chunked, empty requests return empty."""
-        n = len(clips)
+    def score(self, clips) -> ScoreResult:
+        """Score (N, T, H, W, C) clips, one array or a sequence of them
+        (the batching worker's requests), scored as their concatenation;
+        N may be anything — requests larger than the biggest bucket are
+        chunked, empty requests return empty.  Parts of another clip shape
+        or dtype than the first raise `ValueError`."""
+        parts = ([np.asarray(p) for p in clips]
+                 if isinstance(clips, (list, tuple)) else [np.asarray(clips)])
+        n = sum(len(p) for p in parts)
         if n == 0:
             return ScoreResult(scores=np.zeros(0, np.float32))
+        first = parts[0]
+        for p in parts[1:]:
+            # checked here: a (1, T, H, W, 1) clip would broadcast silently
+            # into a (T, H, W, 3) slot
+            if p.shape[1:] != first.shape[1:] or p.dtype != first.dtype:
+                raise ValueError(
+                    f"clips of one batch must share their shape and dtype: "
+                    f"{p.shape[1:]} {p.dtype} against {first.shape[1:]} "
+                    f"{first.dtype}")
         big = self.buckets[-1]
         if n > big:
-            parts = [self.score(clips[s:s + big]) for s in range(0, n, big)]
+            res = [self._score_staged(c) for c in _chunks(parts, big)]
             return ScoreResult(
-                scores=np.concatenate([p.scores for p in parts]),
-                graphs=(np.concatenate([p.graphs for p in parts])
-                        if parts[0].graphs is not None else None))
+                scores=np.concatenate([r.scores for r in res]),
+                graphs=(np.concatenate([r.graphs for r in res])
+                        if res[0].graphs is not None else None))
+        return self._score_staged(parts)
+
+    def _score_staged(self, parts: List[np.ndarray]) -> ScoreResult:
+        """Stage `parts` (at most the largest bucket's clips) into the
+        bucket's prefix of their key's buffer, pad it with the last clip and
+        score it.  Under `_lock`: one device call at a time, and the buffer
+        is not rewritten before the previous batch's outputs are back."""
+        n = sum(len(p) for p in parts)
         b = self._bucket(n)
-        padded, pad_s = clips, 0.0
-        if b != n:
+        with self._lock:
+            buf = self._buffer(parts[0].dtype, parts[0].shape[1:])
             t0 = time.perf_counter()
-            with span("serving.pad"):
-                pad = np.repeat(clips[-1:], b - n, axis=0)
-                padded = np.concatenate([clips, pad])
-            pad_s = time.perf_counter() - t0
-        with self._lock:  # one in-flight device call; queue serializes others
-            out = self.score_fn(padded)
+            with span("serving.concatenate"):
+                off = 0
+                for p in parts:
+                    np.copyto(buf[off:off + len(p)], p)
+                    off += len(p)
+            if b != n:
+                with span("serving.pad"):
+                    buf[n:b] = buf[n - 1]
+            prep = time.perf_counter() - t0
+            out = self.score_fn(buf[:b])
             self.padded_clips_total += b - n
-            self.pad_seconds_total += pad_s
+            self.host_prep_seconds_total += prep
+            if self._pinned:
+                self.pinned_batches_total += 1
         if isinstance(out, tuple):
             scores = np.asarray(out[0]).reshape(-1)
             graphs = None if out[1] is None else np.asarray(out[1])[:n]
             return ScoreResult(scores[:n], graphs)
         return ScoreResult(np.asarray(out).reshape(-1)[:n])
+
+    def _buffer(self, dtype: np.dtype, clip: Tuple[int, ...]) -> np.ndarray:
+        """The staging buffer of (dtype, clip shape), made on first use:
+        the largest bucket's clips, page-locked for a CUDA scorer."""
+        key = (dtype.str, clip)
+        buf = self._staging.get(key)
+        if buf is None:
+            shape = (self.buckets[-1],) + tuple(clip)
+            if self._pinned:
+                nbytes = int(np.prod(shape)) * dtype.itemsize
+                buf = torch.empty(nbytes, dtype=torch.uint8,
+                                  pin_memory=True).numpy().view(dtype)
+                buf = buf.reshape(shape)
+            else:
+                buf = np.empty(shape, dtype)
+            self._staging[key] = buf
+        return buf
 
     def warmup(self, dtypes: Sequence[str] = ("float32",)) -> None:
         """Run every bucket once per serving dtype, so that the kernel build,
@@ -147,6 +206,24 @@ class ClipScoringService:
         for dt in dtypes:
             for b in self.buckets:
                 self.score(np.zeros((b,) + self.clip_shape, dt))
+
+
+def _chunks(parts: List[np.ndarray], size: int) -> List[List[np.ndarray]]:
+    """`parts` cut into runs of `size` clips (the last one shorter), each a
+    list of slices of the parts, in order."""
+    out: List[List[np.ndarray]] = [[]]
+    room = size
+    for p in parts:
+        s = 0
+        while s < len(p):
+            if room == 0:
+                out.append([])
+                room = size
+            k = min(room, len(p) - s)
+            out[-1].append(p[s:s + k])
+            s += k
+            room -= k
+    return out
 
 
 @dataclass
@@ -173,8 +250,7 @@ class BatchingServer:
                        "batches_total": 0, "errors_total": 0,
                        "last_batch_clips": 0, "max_batch_clips": 0,
                        "score_seconds_total": 0.0,
-                       "queue_wait_seconds_total": 0.0,
-                       "host_prep_seconds_total": 0.0}
+                       "queue_wait_seconds_total": 0.0}
         self._worker = threading.Thread(target=self._run, daemon=True)
         self._worker.start()
 
@@ -182,17 +258,21 @@ class BatchingServer:
         """Counters for observability endpoints: coalescing effectiveness is
         ``clips_total / batches_total`` (device batches per request stream).
         ``score_seconds_total`` is each batch's host time from its start to
-        its scores (concatenate, padding, copies and forward);
+        its scores (staging, copies and forward);
         ``queue_wait_seconds_total`` each request's time from `submit` to
         its batch's start; ``padded_clips_total`` the clips the service's
         bucket padding added; ``host_prep_seconds_total`` each batch's
-        concatenate and padding."""
+        staging (its clips written into the service's buffer, then the
+        padding); ``pinned_batches_total`` the batches whose input crossed
+        to the card from pinned memory."""
         with self._stats_lock:
             out = dict(self._stats)
-        # the service's padding, read without its lock (held across a
+        # the service's counters, read without its lock (held across a
         # forward): one attribute each
-        out["padded_clips_total"] = self.service.padded_clips_total
-        out["host_prep_seconds_total"] += self.service.pad_seconds_total
+        svc = self.service
+        out["padded_clips_total"] = svc.padded_clips_total
+        out["host_prep_seconds_total"] = svc.host_prep_seconds_total
+        out["pinned_batches_total"] = svc.pinned_batches_total
         return out
 
     def submit(self, clips: np.ndarray, timeout: float = 30.0) -> ScoreResult:
@@ -261,16 +341,13 @@ class BatchingServer:
     def _score_group(self, grp: List[_Pending]) -> None:
         t0 = time.perf_counter()
         wait = sum(t0 - p.submitted for p in grp)
+        n_clips = sum(len(p.clips) for p in grp)
         try:
-            # the concatenate sits inside the guard: mixed-shape requests
-            # coalesced into one window raise ValueError here, and an escaped
-            # exception would kill the worker thread for good
-            with span("serving.concatenate"):
-                clips = np.concatenate([p.clips for p in grp])
-            concat_s = time.perf_counter() - t0
-            res = self.service.score(clips)
+            # the service stages the requests' arrays itself; mixed-shape
+            # requests coalesced into one window raise ValueError there, and
+            # an escaped exception would kill the worker thread for good
+            res = self.service.score([p.clips for p in grp])
         except Exception as e:  # a failed batch must not strand submitters
-            n_clips = sum(len(p.clips) for p in grp)
             with self._stats_lock:
                 s = self._stats
                 s["errors_total"] += 1
@@ -286,13 +363,12 @@ class BatchingServer:
         with self._stats_lock:
             s = self._stats
             s["requests_total"] += len(grp)
-            s["clips_total"] += len(clips)
+            s["clips_total"] += n_clips
             s["batches_total"] += 1
-            s["last_batch_clips"] = len(clips)
-            s["max_batch_clips"] = max(s["max_batch_clips"], len(clips))
+            s["last_batch_clips"] = n_clips
+            s["max_batch_clips"] = max(s["max_batch_clips"], n_clips)
             s["score_seconds_total"] += time.perf_counter() - t0
             s["queue_wait_seconds_total"] += wait
-            s["host_prep_seconds_total"] += concat_s
         with span("serving.reply"):
             offset = 0
             for p in grp:
@@ -464,7 +540,11 @@ def clip_scorer(fn: Callable, device: torch.device) -> Callable:
     artefact."""
     def score(batch: np.ndarray):
         with span("serving.copy_in"):
-            x = torch.from_numpy(np.ascontiguousarray(batch)).to(device)
+            # from pinned memory (`ClipScoringService`'s staging on CUDA)
+            # a DMA the host need not wait for: the outputs' fetch below
+            # waits on the stream
+            x = torch.from_numpy(np.ascontiguousarray(batch)).to(
+                device, non_blocking=True)
         with span("serving.forward"):
             x = x.float() / 255.0 if x.dtype == torch.uint8 else x.float()
             with torch.inference_mode(), no_tf32():

@@ -242,3 +242,164 @@ def test_http_round_trip():
         assert stats["errors_total"] == 0
     finally:
         srv.close()
+
+
+def _staged_inputs(seen):
+    """A fake device scorer that keeps a copy of each input it is handed
+    (the staged bucket), with the mean of each clip as its score."""
+    def fn(batch):
+        seen.append(batch.copy())
+        return batch.astype(np.float32).mean(axis=(1, 2, 3, 4))
+
+    return fn
+
+
+def _parts(n, dtype, seed=0):
+    """`n` clips as requests of 1, 2, 3, ... clips (the last one shorter)."""
+    rng = np.random.default_rng(seed)
+    clips = (rng.integers(0, 256, (n, 2, 4, 4, 1), dtype=np.uint8)
+             if dtype == "uint8"
+             else rng.uniform(0, 1, (n, 2, 4, 4, 1)).astype(np.float32))
+    out, s, k = [], 0, 1
+    while s < n:
+        out.append(clips[s:s + k])
+        s, k = s + k, k + 1
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["float32", "uint8"])
+@pytest.mark.parametrize("n", [1, 3, 8, 11, 40, 70])
+def test_staged_input_equals_concatenate_and_padding(n, dtype):
+    """Each bucket the scorer is handed is bit for bit the requests
+    concatenated, chunked at the largest bucket and padded with the
+    chunk's last clip repeated."""
+    seen = []
+    svc = ClipScoringService(_staged_inputs(seen), buckets=(8, 1, 32))
+    parts = _parts(n, dtype, seed=n)
+    res = svc.score(parts)
+    clips = np.concatenate(parts)
+    want = []
+    for s in range(0, n, 32):
+        chunk = clips[s:s + 32]
+        b = next(b for b in (1, 8, 32) if len(chunk) <= b)
+        want.append(np.concatenate(
+            [chunk, np.repeat(chunk[-1:], b - len(chunk), axis=0)]))
+    assert len(seen) == len(want)
+    for got, exp in zip(seen, want):
+        assert got.dtype == exp.dtype and got.shape == exp.shape
+        assert np.array_equal(got, exp)
+    np.testing.assert_allclose(
+        res.scores, clips.astype(np.float32).mean(axis=(1, 2, 3, 4)),
+        rtol=1e-6)
+    assert svc.padded_clips_total == sum(len(w) for w in want) - n
+
+
+def test_staging_buffer_reused_per_dtype():
+    """Every batch of one dtype and clip shape is staged in the same
+    memory; float32 and uint8 batches each have their own."""
+    ptrs = []
+
+    def fn(batch):
+        ptrs.append((batch.dtype.str, batch.__array_interface__["data"][0]))
+        return np.zeros(len(batch), np.float32)
+
+    svc = ClipScoringService(fn, buckets=(1, 8, 32), clip_shape=(2, 4, 4, 1))
+    svc.warmup(dtypes=("float32", "uint8"))
+    for n in (3, 20, 1, 40):
+        for dtype in ("float32", "uint8"):
+            svc.score(_parts(n, dtype))
+    by_dtype = {}
+    for dt, ptr in ptrs:
+        by_dtype.setdefault(dt, set()).add(ptr)
+    assert sorted(by_dtype) == sorted([np.dtype("float32").str,
+                                       np.dtype("uint8").str])
+    assert all(len(p) == 1 for p in by_dtype.values())
+    assert len(set.union(*by_dtype.values())) == 2
+
+
+def test_mixed_clip_shapes_get_errors_not_broadcast():
+    """Requests of two clip shapes coalesced into one window each get an
+    error and no scores: the gray clip is not broadcast into the RGB
+    slots, and the scorer is not called."""
+    calls = []
+    server = BatchingServer(ClipScoringService(_fake_score(calls),
+                                               buckets=(16,)),
+                            max_wait_ms=1000.0)
+    reqs = [np.ones((1, 2, 4, 4, 1), np.float32),
+            np.ones((1, 2, 4, 4, 3), np.float32)]
+    results = [None] * 2
+
+    def call(i):
+        results[i] = server.submit(reqs[i], timeout=30)
+
+    threads = [threading.Thread(target=call, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=30)
+    assert not any(t.is_alive() for t in threads)
+    stats = server.stats()
+    server.close()
+    assert calls == []
+    for res in results:
+        assert res.scores.shape == (0,) and "shape" in res.error
+    assert stats["errors_total"] == 1 and stats["requests_total"] == 2
+    with pytest.raises(ValueError, match="shape and dtype"):
+        ClipScoringService(_fake_score([]), buckets=(4,)).score(reqs)
+
+
+def test_concurrent_direct_calls_get_their_own_scores():
+    """Threads calling `score` on one service at once each get the scores
+    of their own clips: the staging of one batch waits for the previous
+    batch's scorer call."""
+    import sys
+
+    svc = ClipScoringService(_staged_inputs([]), buckets=(1, 8, 32))
+    errors = []
+
+    def worker(i):
+        try:
+            for j in range(15):
+                parts = _parts(1 + (i * 7 + j) % 40, "float32",
+                               seed=100 * i + j)
+                want = np.concatenate(parts).mean(axis=(1, 2, 3, 4))
+                got = svc.score(parts).scores
+                if not np.array_equal(got, want.astype(np.float32)):
+                    errors.append((i, j))
+        except Exception as e:  # surfaced by the assert below
+            errors.append(repr(e))
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=worker, args=(i,))
+                   for i in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    assert errors == []
+
+
+def test_pinned_batches_zero_on_a_cpu_scorer(jax_variables):
+    """`pinned_batches_total` is in `stats()` and reads 0 where the scorer
+    runs on the CPU (an eager scorer carries its device)."""
+    fn = make_family_d_score_fn(from_jax_family_d(jax_variables),
+                                device="cpu")
+    assert fn.device.type == "cpu"
+    svc = ClipScoringService(fn, buckets=(1, 4), clip_shape=(8, 16, 16, 3))
+    server = BatchingServer(svc, max_wait_ms=1.0)
+    try:
+        for n in (1, 3):
+            res = server.submit(np.zeros((n, 8, 16, 16, 3), np.uint8),
+                                timeout=30)
+            assert res.error is None and res.scores.shape == (n,)
+        stats = server.stats()
+    finally:
+        server.close()
+    assert stats["batches_total"] == 2
+    assert stats["pinned_batches_total"] == 0
+    assert svc.pinned_batches_total == 0
